@@ -1,0 +1,168 @@
+"""Host <-> bank transfer engine (paper §2.1 / §3.4) — the PyTorch
+counterpart of ``repro.core.transfer``.
+
+The three CPU↔DPU transfer modes of the UPMEM SDK (serial, parallel,
+broadcast) become H2D / D2H copies to the grid's device, plus the
+"transposition library" (:func:`to_banked` / :func:`from_banked`) and the
+chunk splitters of the pipelined runtime, which are host-side numpy and
+byte-identical to the reference's.  Every transfer returns
+(result, TransferRecord) with the reference's ``kind`` strings and byte
+counts, so the paper's CPU-DPU / DPU-CPU bars read the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .banked import BankGrid
+
+
+@dataclasses.dataclass
+class TransferRecord:
+    kind: str
+    nbytes: int
+    seconds: float
+
+    @property
+    def bandwidth(self) -> float:
+        return self.nbytes / self.seconds if self.seconds else float("inf")
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nest of dicts / lists / tuples (dict values in key
+    order, as ``jax.tree_util`` orders them)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def block_until_ready(tree):
+    """Wait for the device work behind every CUDA tensor in ``tree``: a
+    phase timed without it measures the enqueue, not the work."""
+    devices = {leaf.device for leaf in tree_leaves(tree)
+               if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return tree
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return int(np.prod(x.shape)) * x.dtype.itemsize if hasattr(x, "shape") else 0
+
+
+def tree_nbytes(args) -> int:
+    """Total payload bytes across a nest of arrays (MLP passes a *list* of
+    layer matrices — a flat top-level scan undercounts it)."""
+    return sum(_nbytes(leaf) for leaf in tree_leaves(args))
+
+
+# -- layout conversion ("transposition library") ----------------------------
+
+def to_banked(x: np.ndarray, n_banks: int, axis: int = 0):
+    """Pad ``axis`` to a multiple of n_banks and reshape to bank-major:
+    (..., d, ...) -> (banks, ..., d/banks, ...). Returns (array, orig_len)."""
+    x = np.asarray(x)
+    d = x.shape[axis]
+    pad = (-d) % n_banks
+    if pad:
+        widths = [(0, 0)] * x.ndim
+        widths[axis] = (0, pad)
+        x = np.pad(x, widths)
+    new_shape = (x.shape[:axis] + (n_banks, x.shape[axis] // n_banks)
+                 + x.shape[axis + 1:])
+    moved = np.moveaxis(x.reshape(new_shape), axis, 0)
+    return moved, d
+
+
+def from_banked(x: np.ndarray, orig_len: int, axis: int = 0) -> np.ndarray:
+    """Inverse of :func:`to_banked`."""
+    x = np.asarray(x)
+    x = np.moveaxis(x, 0, axis)
+    flat = x.reshape(x.shape[:axis] + (-1,) + x.shape[axis + 2:])
+    sl = [slice(None)] * flat.ndim
+    sl[axis] = slice(0, orig_len)
+    return flat[tuple(sl)]
+
+
+# -- chunking (pipelined runtime) --------------------------------------------
+
+def split_chunks(x: np.ndarray, n_chunks: int, axis: int = 0):
+    """Split ``axis`` into ``n_chunks`` equal pieces for pipelined transfer,
+    padding the tail so every chunk has an identical shape.
+    Returns (chunks, orig_len)."""
+    x = np.asarray(x)
+    n = x.shape[axis]
+    if n_chunks < 1:
+        raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
+    per = -(-n // n_chunks)
+    pad = per * n_chunks - n
+    if pad:
+        widths = [(0, 0)] * x.ndim
+        widths[axis] = (0, pad)
+        x = np.pad(x, widths)
+    sl = [slice(None)] * x.ndim
+    chunks = []
+    for i in range(n_chunks):
+        sl[axis] = slice(i * per, (i + 1) * per)
+        chunks.append(x[tuple(sl)])
+    return chunks, n
+
+
+def split_chunks_ranked(x: np.ndarray, n_ranks: int, n_chunks: int,
+                        axis: int = 0):
+    """Rank-granular :func:`split_chunks`: ``n_ranks`` contiguous groups of
+    ``n_chunks`` equal chunks each, so concatenating the groups in rank
+    order restores the flat split order.
+    Returns (per_rank_chunk_lists, orig_len)."""
+    if n_ranks < 1:
+        raise ValueError(f"n_ranks must be >= 1, got {n_ranks}")
+    chunks, n = split_chunks(x, n_ranks * n_chunks, axis)
+    return [chunks[r * n_chunks:(r + 1) * n_chunks]
+            for r in range(n_ranks)], n
+
+
+# -- transfer modes ----------------------------------------------------------
+
+def push_parallel(grid: BankGrid, x):
+    t0 = time.perf_counter()
+    out = block_until_ready(grid.to_banks(x))
+    return out, TransferRecord("cpu_dpu_parallel", _nbytes(np.asarray(x)),
+                               time.perf_counter() - t0)
+
+
+def push_serial(grid: BankGrid, chunks: Sequence[np.ndarray]):
+    t0 = time.perf_counter()
+    out = block_until_ready(grid.serial_to_banks(chunks))
+    nbytes = sum(_nbytes(c) for c in chunks)
+    return out, TransferRecord("cpu_dpu_serial", nbytes,
+                               time.perf_counter() - t0)
+
+
+def push_broadcast(grid: BankGrid, x):
+    t0 = time.perf_counter()
+    out = block_until_ready(grid.broadcast(x))
+    return out, TransferRecord("cpu_dpu_broadcast", _nbytes(np.asarray(x)),
+                               time.perf_counter() - t0)
+
+
+def pull_parallel(grid: BankGrid, x):
+    t0 = time.perf_counter()
+    host = grid.from_banks(x)
+    return host, TransferRecord("dpu_cpu_parallel", _nbytes(host),
+                                time.perf_counter() - t0)
+
+
+def pull_serial(grid: BankGrid, xs: Sequence):
+    t0 = time.perf_counter()
+    host = [grid.from_banks(x) for x in xs]
+    nbytes = sum(_nbytes(h) for h in host)
+    return host, TransferRecord("dpu_cpu_serial", nbytes,
+                                time.perf_counter() - t0)
