@@ -2,9 +2,12 @@
 """Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain PyTorch
 version at the PrIM suite's shapes and times it, drives the suite's banked
-path (GEMV, HST, RED, SCAN) through the registry at 2,048 banks, checks
-every result against ``ref()``, and shows that the suite went through the
-kernels.
+path (GEMV, SpMV, HST, RED, SCAN) through the registry at 2,048 banks,
+checks every result against ``ref()``, shows that the suite went through
+the kernels, and then drives the same workloads through the session
+façade, ``repro_torch.pim.session(ranks=32, banks_per_rank=64)``: ``run``,
+``map``, ``pin`` with warm hits, a two-tenant serving block and a trace
+export, every result checked with the registry's comparator.
 
     python3 chip_smoke.py
 
@@ -20,6 +23,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -35,9 +39,14 @@ F32_OPS_PER_S = 67e12
 
 SUITE = ((2048, 1024), (1, 64))     # (banks, make_args scale)
 # the kernels' shapes on the suite's 2,048-bank run: RED / SCAN / HST hold
-# 65536 * 1024 int32 values, 32,768 per bank; GEMV 256 rows of 256 per bank
+# 65536 * 1024 int32 values, 32,768 per bank; GEMV 256 rows of 256 per
+# bank; SpMV 256 ELL rows of k = 8 per bank over an x of 256
 BANKS, PER, ROWS, COLS = 2048, 32768, 256, 256
+SPMV_K, SPMV_LARGE_ROWS = 8, 4096   # and a per-bank height past the L2
 TIMED_ITERS = 20
+# the session phase: the suite's 2,048 banks as 32 ranks of 64 DPUs
+RANKS, BANKS_PER_RANK = 32, 64
+TRACE = os.path.join(ROOT, "build", "repro_torch", "chip_smoke_trace.json")
 
 
 def smi_line() -> str:
@@ -88,14 +97,65 @@ def rel(want: torch.Tensor, tol: float) -> torch.Tensor:
     return tol * (1 + want.float().abs())
 
 
+def random_ell(banks: int, rows: int, k: int, n: int, g, dev):
+    """Seeded ELL on the device (``csr_to_ell``'s Python loop is too slow
+    for millions of rows): row r keeps ``count[r] ~ U{0..k}`` distinct
+    sorted columns, ``cols = -1`` and ``vals = 0`` in the padded slots.
+    Columns are ``(base + j * step) % n`` with an odd step and a
+    power-of-two n, so the k of a row are distinct.  Returns vals, cols
+    (banks, rows, k) and the (rows, k) mask of stored entries."""
+    r = banks * rows
+    count = torch.randint(0, k + 1, (r, 1), generator=g, device=dev)
+    base = torch.randint(0, n, (r, 1), generator=g, device=dev)
+    step = torch.randint(0, n // 2, (r, 1), generator=g, device=dev) * 2 + 1
+    cols = ((base + step * torch.arange(k, device=dev)) % n).sort(1).values
+    keep = torch.arange(k, device=dev) < count
+    vals = torch.randn((r, k), generator=g, device=dev)
+    vals = torch.where(keep, vals, 0.0)
+    cols = torch.where(keep, cols, -1).to(torch.int32)
+    return vals.view(banks, rows, k), cols.view(banks, rows, k), keep
+
+
+def spmv_case(name: str, rows: int, n: int, g, dev, tol=1e-4) -> dict:
+    """One timed spmv_ell case at (2048, rows, k): the kernel, its plain
+    version, and cuSPARSE's CSR product over the same stored entries
+    (built outside the timed window).  Bytes: all of cols, the stored
+    vals, x, y; operations: 2 per stored entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spmv as kspmv
+
+    vals, cols, keep = random_ell(BANKS, rows, SPMV_K, n, g, dev)
+    x = torch.randn(n, generator=g, device=dev)
+    nnz = int(keep.sum())
+    crow = torch.zeros(BANKS * rows + 1, dtype=torch.int32, device=dev)
+    crow[1:] = keep.sum(1).cumsum(0)
+    with warnings.catch_warnings():       # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_csr_tensor(crow, cols.view(-1, SPMV_K)[keep],
+                                      vals.view(-1, SPMV_K)[keep],
+                                      size=(BANKS * rows, n))
+        csr @ x
+    flat = lambda t: t.view(-1, SPMV_K)  # noqa: E731
+    return dict(
+        name=name, source="src/repro_torch/csrc/spmv.cu",
+        replaces="src/repro/kernels/spmv.py:19",
+        kernel=lambda: ops.spmv_ell(vals, cols, x),
+        plain=lambda: kspmv.plain(flat(vals), flat(cols), x).view(BANKS, rows),
+        library=lambda: csr @ x,
+        nbytes=cols.nbytes + nnz * 4 + x.nbytes + BANKS * rows * 4,
+        nops=2 * nnz, tol=tol)
+
+
 def kernel_phase(dev) -> list[dict]:
     """Each kernel at the suite's 2,048-bank shapes: the error against its
-    plain version on the same inputs, and its times."""
+    plain version on the same inputs, and its times.  spmv_ell is also
+    timed at 4,096 rows per bank, whose bytes leave the L2."""
     from repro_torch.kernels import gemv as kgemv
     from repro_torch.kernels import histogram as khist
     from repro_torch.kernels import ops
     from repro_torch.kernels import reduce as kred
     from repro_torch.kernels import scan as kscan
+    from repro_torch.kernels import spmv as kspmv
 
     g = torch.Generator(device=dev).manual_seed(0)
     banks, per, nbins, block = BANKS, PER, 256, 4096
@@ -137,6 +197,27 @@ def kernel_phase(dev) -> list[dict]:
     wrap = torch.full((1, 4096), 1 << 20, device=dev, dtype=torch.int32)
     check("reduce_sum int32 wrap", ops.reduce_sum(wrap),
           kred.plain(wrap, block), 0)
+    # spmv_ell: float32 at rtol = atol = 1e-4 (another order of adds, and
+    # the kernel fuses multiply and add); bfloat16 compared in float32 at
+    # 2e-2 like GEMV.  The ragged case has rows that are no multiple of the
+    # row block, k = 5 (no vector loads), columns at and past n (which read
+    # x[n-1]) and inf in padded slots (skipped, so the result is finite).
+    sv, sc, _ = random_ell(BANKS, ROWS, SPMV_K, COLS, g, dev)
+    sx = torch.randn(COLS, generator=g, device=dev)
+    want = kspmv.plain(sv.view(-1, SPMV_K), sc.view(-1, SPMV_K),
+                       sx).view(BANKS, ROWS)
+    check("spmv_ell f32", ops.spmv_ell(sv, sc, sx), want, rel(want, 1e-4))
+    sb = sv.to(torch.bfloat16)
+    want = kspmv.plain(sb.view(-1, SPMV_K), sc.view(-1, SPMV_K),
+                       sx).view(BANKS, ROWS)
+    check("spmv_ell bf16", ops.spmv_ell(sb, sc, sx), want, rel(want, 2e-2))
+    rc = torch.randint(-1, COLS + 4, (3, 1000, 5), generator=g, device=dev,
+                       dtype=torch.int32)
+    rv = torch.randn((3, 1000, 5), generator=g, device=dev)
+    rv = torch.where(rc < 0, float("inf"), rv)
+    want = kspmv.plain(rv.view(-1, 5), rc.view(-1, 5), sx).view(3, 1000)
+    check("spmv_ell ragged, cols>=n, inf pad", ops.spmv_ell(rv, rc, sx),
+          want, rel(want, 1e-4))
 
     cases = [
         dict(name="reduce_sum", source="src/repro_torch/csrc/reduce.cu",
@@ -166,53 +247,174 @@ def kernel_phase(dev) -> list[dict]:
              library=lambda: torch.mv(a.view(-1, COLS), v),
              nbytes=a.nbytes + v.nbytes + banks * ROWS * 4,
              nops=2 * a.numel(), tol=1e-4),
+        spmv_case("spmv_ell", ROWS, COLS, g, dev),
     ]
-    rows = []
-    for c in cases:
-        want = c["plain"]()
-        err = check(c["name"], c["kernel"](), want,
-                    rel(want, c["tol"]) if c["tol"] else 0)
-        ms, plain_ms, lib_ms = (cuda_ms(c["kernel"]), cuda_ms(c["plain"]),
-                                cuda_ms(c["library"]))
-        bound_ms, bound_by = bound(c["nbytes"], c["nops"])
-        print(f"  {c['name']:15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-              f"  library {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
-              f"({bound_by})")
-        rows.append({"name": c["name"], "route": "cuda", "source": c["source"],
-                     "replaces": c["replaces"], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms})
+    rows = [timed(c) for c in cases]
+    # the same kernel at 4,096 rows per bank, past the 50 MB L2; its numbers
+    # ride in the spmv_ell row
+    large = timed(spmv_case("spmv_ell", SPMV_LARGE_ROWS, COLS, g, dev))
+    rows[-1][f"at_{SPMV_LARGE_ROWS}_rows_per_bank"] = {
+        k: large[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}
     return rows
 
 
-def suite_phase() -> dict[str, int]:
+def timed(c: dict) -> dict:
+    """Check one case against its plain version, then time kernel, plain
+    version and library call; one row of the kernels line."""
+    want = c["plain"]()
+    err = check(c["name"], c["kernel"](), want,
+                rel(want, c["tol"]) if c["tol"] else 0)
+    ms, plain_ms, lib_ms = (cuda_ms(c["kernel"]), cuda_ms(c["plain"]),
+                            cuda_ms(c["library"]))
+    bound_ms, bound_by = bound(c["nbytes"], c["nops"])
+    print(f"  {c['name']:15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+          f"  library {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
+          f"({bound_by}, {c['nbytes'] / 1e6:.1f} MB)")
+    return {"name": c["name"], "route": "cuda", "source": c["source"],
+            "replaces": c["replaces"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def phase_row(label: str, t) -> str:
+    return (f"{label:14s} {t.cpu_dpu * 1e3:9.3f}m {t.dpu * 1e3:9.3f}m "
+            f"{t.inter_dpu * 1e3:9.3f}m {t.dpu_cpu * 1e3:9.3f}m "
+            f"{t.total * 1e3:9.3f}m")
+
+
+PHASE_HEAD = (f"{'bench':14s} {'cpu_dpu':>10s} {'dpu':>10s} {'inter':>10s} "
+              f"{'dpu_cpu':>10s} {'total':>10s}")
+
+
+def suite_phase(args_2048: dict) -> tuple[dict[str, int], dict]:
     """The PrIM suite's banked path through the registry, as
-    examples/prim_suite.py drives the reference; returns the kernels'
-    launch counts from this run alone."""
+    examples/prim_suite.py drives the reference.  Returns the kernels'
+    launch counts from this run alone and the 2,048-bank rows' phase
+    times; fills ``args_2048`` with the 2,048-bank arguments."""
     from repro_torch import make_bank_grid
     from repro_torch.kernels import ops
     from repro_torch.prim.registry import REGISTRY
 
+    serialized = {}
     ops.reset_launch_counts()
     for banks, scale in SUITE:
         grid = make_bank_grid(banks)
         rng = np.random.default_rng(0)
-        print(f"{'bench':12s} {'cpu_dpu':>10s} {'dpu':>10s} {'inter':>10s} "
-              f"{'dpu_cpu':>10s} {'total':>10s}   ({banks} banks, "
-              f"scale {scale})")
+        print(f"{PHASE_HEAD}   ({banks} banks, scale {scale})")
         for entry in REGISTRY.values():
             args = entry.make_args(rng, scale=scale)
+            if banks == BANKS:
+                args_2048[entry.name] = args
             gold = entry.ref(*args)
             variants = dict(entry.run_variants())
-            if entry.name == "GEMV":
-                variants["GEMV-kernel"] = functools.partial(entry.pim,
-                                                            use_kernel=True)
+            if entry.name in ("GEMV", "SpMV"):
+                variants[f"{entry.name}-kernel"] = functools.partial(
+                    entry.pim, use_kernel=True)
             for label, fn in variants.items():
                 out, t = fn(grid, *args)
                 entry.compare(out, gold)
-                print(f"{label:12s} {t.cpu_dpu * 1e3:9.3f}m {t.dpu * 1e3:9.3f}m "
-                      f"{t.inter_dpu * 1e3:9.3f}m {t.dpu_cpu * 1e3:9.3f}m "
-                      f"{t.total * 1e3:9.3f}m   ok")
+                print(phase_row(label, t) + "   ok")
+                if banks == BANKS:
+                    serialized.setdefault(entry.name, (label, t))
+    return ops.launch_counts(), serialized
+
+
+def served(rec) -> str:
+    """A session request's wall time: its phase buckets are host time
+    summed over the rank threads that served it, as in the reference."""
+    return (f"   wall {rec.service_s * 1e3:9.3f}m  ({rec.n_ranks} ranks x "
+            f"{rec.n_chunks} chunks{', hit' if rec.cache_hit else ''})")
+
+
+def flat_session_phase(args_2048: dict) -> None:
+    """The same workloads through a flat 2,048-bank session (one rank, one
+    stream set): cold, then warm where the operand is resident."""
+    from repro_torch import pim
+
+    print(f"flat session: {BANKS} banks, 1 rank")
+    print(PHASE_HEAD)
+    with pim.session(banks=BANKS) as s:
+        for name, entry in pim.registry().items():
+            args = args_2048[name]
+            for leg in ("cold", "warm") if entry.resident else ("cold",):
+                entry.compare(s.submit(name, *args).result(timeout=300),
+                              entry.ref(*args))
+                rec = s.telemetry.records[-1]
+                print(phase_row(f"{name} {leg}", rec.phases) + served(rec))
+
+
+def session_phase(args_2048: dict, serialized: dict) -> dict[str, int]:
+    """The session façade over 32 ranks of 64 banks: ``run`` of each
+    workload against its registry comparator, ``map``, ``pin`` with warm
+    hits that scatter nothing, a two-tenant serving block, and a trace
+    export.  Returns the kernels' launch counts from this phase (the
+    chunked phases use the plain oracles, as the reference's do)."""
+    from repro_torch import pim
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    print(f"session: {RANKS} ranks x {BANKS_PER_RANK} banks; pipelined "
+          f"(session.run) beside serialized (suite pim, first variant)")
+    print(PHASE_HEAD)
+    s = pim.session(ranks=RANKS, banks_per_rank=BANKS_PER_RANK, trace=True)
+    reg = pim.registry()
+    try:
+        for name, entry in reg.items():
+            args = args_2048[name]
+            out = s.run(name, *args)
+            entry.compare(out, entry.ref(*args))
+            rec = s.telemetry.records[-1]
+            label, ser = serialized[name]
+            print(phase_row(f"{name} pipelined", rec.phases) + served(rec))
+            print(phase_row(f"{label} serial", ser))
+        rng = np.random.default_rng(1)
+        reds = [reg["RED"].make_args(rng, scale=256) for _ in range(4)]
+        for out, args in zip(s.map("RED", reds), reds):
+            reg["RED"].compare(out, reg["RED"].ref(*args))
+        print("map: 4 RED requests ok")
+        spans = s.tracer.spans
+        for name in ("GEMV", "SpMV"):
+            s.pin(name, *args_2048[name])
+            pushed = sum(sp.name == "scatter" for sp in spans)
+            cached = sum(sp.name == "scatter:cached" for sp in spans)
+            for _ in range(2):
+                out = s.run(name, *args_2048[name])
+                reg[name].compare(out, reg[name].ref(*args_2048[name]))
+                rec = s.telemetry.records[-1]
+                assert rec.cache_hit, (name, "warm run missed the cache")
+                print(phase_row(f"{name} warm", rec.phases) + served(rec))
+            assert sum(sp.name == "scatter" for sp in spans) == pushed, (
+                f"a warm {name} request scattered a chunk")
+            assert sum(sp.name == "scatter:cached" for sp in spans) > cached
+        cache = s.stats()["cache"]
+        print(f"cache: {cache}")
+        assert cache["hits"] > 0, cache
+        path = s.trace_export(TRACE)
+    finally:
+        s.close()
+    with open(path) as f:
+        names = {ev["name"] for ev in json.load(f)["traceEvents"]}
+    missing = {"scatter", "compute", "retrieve", "merge"} - names
+    assert not missing, f"trace lacks {missing}"
+    print(f"trace: {len(names)} span names, {os.path.getsize(path)} bytes")
+
+    hst = [reg["HST"].make_args(rng, scale=64) for _ in range(4)]
+    red = [reg["RED"].make_args(rng, scale=64) for _ in range(4)]
+    with pim.session(ranks=RANKS, banks_per_rank=BANKS_PER_RANK,
+                     tenants={"gold": 2.0, "free": 1.0}) as srv:
+        reqs = []
+        for h, r in zip(hst, red):
+            reqs.append(("HST", h, srv.submit(
+                "HST", *h, options=pim.RequestOptions(tenant="gold"))))
+            reqs.append(("RED", r, srv.submit(
+                "RED", *r, options=pim.RequestOptions(tenant="free"))))
+        for name, args, req in reqs:
+            reg[name].compare(req.result(timeout=60), reg[name].ref(*args))
+        tenants = srv.stats()["tenants"]
+    done = {t: tenants[t]["completed"] for t in ("gold", "free")}
+    assert done == {"gold": 4, "free": 4}, tenants
+    print(f"serving: 8 submits over tenants gold:free = 2:1 ok {done}")
     return ops.launch_counts()
 
 
@@ -230,22 +432,32 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    path, log = cuda_lib.build()
+    paths, log = cuda_lib.build()
     cuda_lib.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(path, ROOT)}")
+    print(f"build: {time.perf_counter() - t0:.2f} s, one nvcc per source -> "
+          + ", ".join(os.path.relpath(p, ROOT) for p in paths))
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
+        if line.startswith("==") or "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     print("kernels (2,048 banks; against the plain PyTorch version):")
     rows = kernel_phase(torch.device("cuda", 0))
-    counts = suite_phase()
+    args_2048: dict = {}
+    t0 = time.perf_counter()
+    counts, serialized = suite_phase(args_2048)
+    print(f"suite: {time.perf_counter() - t0:.2f} s; launches {counts}")
     for r in rows:
         r["launches"] = counts[r["name"]]
     missing = [r["name"] for r in rows if r["launches"] <= 0]
     assert not missing, f"the suite launched no {missing}"
     assert sorted(counts) == sorted(r["name"] for r in rows), counts
+    t0 = time.perf_counter()
+    session_counts = session_phase(args_2048, serialized)
+    print(f"session: {time.perf_counter() - t0:.2f} s; launches "
+          f"{session_counts} (the chunked phases run the plain oracles)")
+    t0 = time.perf_counter()
+    flat_session_phase(args_2048)
+    print(f"flat session: {time.perf_counter() - t0:.2f} s")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

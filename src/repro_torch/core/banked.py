@@ -29,10 +29,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-from typing import Callable, Sequence
+from typing import TYPE_CHECKING, Callable, Sequence
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from .streams import RankStreams
 
 #: Environment override for the default rank count: ``make_bank_grid()``
 #: upgrades to a :class:`RankGrid` when the bank count divides evenly and
@@ -99,16 +102,35 @@ def _host(x) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class BankGrid:
     """``n_banks`` banks, each one slice of the leading axis of a tensor on
-    ``device``."""
+    ``device``.
+
+    ``rank`` is a rank view's index in its :class:`RankGrid` (0 for a flat
+    grid).  It is left out of equality and hashing, so the rank views of
+    one grid compare equal and nothing may key per-rank state on a view:
+    each view object owns its :attr:`streams` instead."""
 
     n_banks: int
     device: torch.device
+    rank: int = dataclasses.field(default=0, compare=False)
+
+    @functools.cached_property
+    def streams(self) -> RankStreams | None:
+        """This grid's pipeline streams and pinned staging, created at first
+        use; None on the CPU, where every copy is synchronous."""
+        if self.device.type != "cuda":
+            return None
+        from .streams import RankStreams   # streams imports transfer, which
+        return RankStreams(self.device)    # imports this module
 
     # -- data placement ("CPU-DPU transfers", paper §3.4) -------------------
     def _put(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
-        return torch.from_numpy(_host(x)).to(self.device)
+        host = _host(x)
+        streams = self.__dict__.get("streams")
+        if streams is not None and streams.staging():
+            return streams.put(host)         # inside a pipeline scatter stage
+        return torch.from_numpy(host).to(self.device)
 
     def to_banks(self, x) -> torch.Tensor:
         """Parallel CPU→DPU transfer: one H2D copy of the bank-major array
@@ -156,14 +178,18 @@ class BankGrid:
         return torch.cat([torch.zeros_like(t[:1]), c[:-1]])
 
     def exchange_union(self, bitvec, via: str = "fabric"):
-        """BFS frontier union: OR-reduce the per-bank bit-vectors into one
-        flat vector every bank reads."""
+        """BFS frontier union: OR-reduce the per-bank bit-vectors.  As in
+        the reference, the host mode returns the flat union (a broadcast
+        vector) and the fabric mode one bank's block shape: ``(1, w)`` for
+        a ``(banks, w)`` input, as ``all_gather`` + ``reduce`` under
+        ``out_specs=P()`` give it."""
         if via == "host":
             parts = self.from_banks(bitvec).reshape(self.n_banks, -1)
             u = functools.reduce(np.bitwise_or, parts)
             return self.broadcast(u)
-        parts = bitvec.reshape(self.n_banks, -1)
-        return functools.reduce(torch.bitwise_or, parts.unbind(0))
+        blocks = bitvec.reshape(self.n_banks, bitvec.shape[0] // self.n_banks,
+                                *bitvec.shape[1:])
+        return functools.reduce(torch.bitwise_or, blocks.unbind(0))
 
     def exchange_concat(self, x, via: str = "fabric"):
         """SEL/UNI-style merge: the concatenated per-bank results.  On one
@@ -202,8 +228,9 @@ class RankGrid(BankGrid):
     @functools.cached_property
     def rank_views(self) -> tuple[BankGrid, ...]:
         """One flat ``BankGrid`` per rank (stable objects, cached)."""
-        return tuple(BankGrid(n_banks=self.banks_per_rank, device=self.device)
-                     for _ in range(self.n_ranks))
+        return tuple(BankGrid(n_banks=self.banks_per_rank, device=self.device,
+                              rank=r)
+                     for r in range(self.n_ranks))
 
     def rank_view(self, rank: int) -> BankGrid:
         """Rank ``rank`` as an independent flat grid (its "64 DPUs")."""

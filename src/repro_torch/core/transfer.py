@@ -7,7 +7,8 @@ broadcast) become H2D / D2H copies to the grid's device, plus the
 chunk splitters of the pipelined runtime, which are host-side numpy and
 byte-identical to the reference's.  Every transfer returns
 (result, TransferRecord) with the reference's ``kind`` strings and byte
-counts, so the paper's CPU-DPU / DPU-CPU bars read the same.
+counts, so the paper's CPU-DPU / DPU-CPU bars read the same, and mirrors
+each record to a span of the active tracer (``runtime/trace.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,29 @@ import numpy as np
 import torch
 
 from .banked import BankGrid
+
+_get_tracer = None
+
+
+def _tracer():
+    """The active span tracer, bound lazily: ``repro_torch.runtime``
+    imports this module, so importing its tracer at the top here would be
+    circular.  After the first call this is one global read."""
+    global _get_tracer
+    if _get_tracer is None:
+        from repro_torch.runtime.trace import get_tracer
+        _get_tracer = get_tracer
+    return _get_tracer()
+
+
+def _trace_xfer(rec: "TransferRecord", t0: float) -> "TransferRecord":
+    """Emit a span mirroring a TransferRecord (a no-op when tracing is
+    off); returns the record."""
+    tr = _tracer()
+    if tr.enabled:
+        tr.emit(rec.kind, "transfer", t0, t0 + rec.seconds,
+                bytes=rec.nbytes)
+    return rec
 
 
 @dataclasses.dataclass
@@ -32,14 +56,27 @@ class TransferRecord:
         return self.nbytes / self.seconds if self.seconds else float("inf")
 
 
-def tree_leaves(tree) -> list:
-    """Leaves of a nest of dicts / lists / tuples (dict values in key
-    order, as ``jax.tree_util`` orders them)."""
+def tree_leaves(tree, is_leaf=None) -> list:
+    """Leaves of a nest of dicts / lists / tuples: dict values in key
+    order and ``None`` left out, as ``jax.tree_util`` has them; a node for
+    which ``is_leaf`` holds is one leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+        return [leaf for k in sorted(tree)
+                for leaf in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [leaf for t in tree for leaf in tree_leaves(t)]
-    return [tree]
+        return [leaf for t in tree for leaf in tree_leaves(t, is_leaf)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree):
+    """The same nest with ``fn`` applied to every leaf (``None`` kept)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return None if tree is None else fn(tree)
 
 
 def block_until_ready(tree):
@@ -134,35 +171,37 @@ def split_chunks_ranked(x: np.ndarray, n_ranks: int, n_chunks: int,
 def push_parallel(grid: BankGrid, x):
     t0 = time.perf_counter()
     out = block_until_ready(grid.to_banks(x))
-    return out, TransferRecord("cpu_dpu_parallel", _nbytes(np.asarray(x)),
-                               time.perf_counter() - t0)
+    return out, _trace_xfer(TransferRecord(
+        "cpu_dpu_parallel", _nbytes(np.asarray(x)),
+        time.perf_counter() - t0), t0)
 
 
 def push_serial(grid: BankGrid, chunks: Sequence[np.ndarray]):
     t0 = time.perf_counter()
     out = block_until_ready(grid.serial_to_banks(chunks))
     nbytes = sum(_nbytes(c) for c in chunks)
-    return out, TransferRecord("cpu_dpu_serial", nbytes,
-                               time.perf_counter() - t0)
+    return out, _trace_xfer(TransferRecord(
+        "cpu_dpu_serial", nbytes, time.perf_counter() - t0), t0)
 
 
 def push_broadcast(grid: BankGrid, x):
     t0 = time.perf_counter()
     out = block_until_ready(grid.broadcast(x))
-    return out, TransferRecord("cpu_dpu_broadcast", _nbytes(np.asarray(x)),
-                               time.perf_counter() - t0)
+    return out, _trace_xfer(TransferRecord(
+        "cpu_dpu_broadcast", _nbytes(np.asarray(x)),
+        time.perf_counter() - t0), t0)
 
 
 def pull_parallel(grid: BankGrid, x):
     t0 = time.perf_counter()
     host = grid.from_banks(x)
-    return host, TransferRecord("dpu_cpu_parallel", _nbytes(host),
-                                time.perf_counter() - t0)
+    return host, _trace_xfer(TransferRecord(
+        "dpu_cpu_parallel", _nbytes(host), time.perf_counter() - t0), t0)
 
 
 def pull_serial(grid: BankGrid, xs: Sequence):
     t0 = time.perf_counter()
     host = [grid.from_banks(x) for x in xs]
     nbytes = sum(_nbytes(h) for h in host)
-    return host, TransferRecord("dpu_cpu_serial", nbytes,
-                                time.perf_counter() - t0)
+    return host, _trace_xfer(TransferRecord(
+        "dpu_cpu_serial", nbytes, time.perf_counter() - t0), t0)

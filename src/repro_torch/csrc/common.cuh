@@ -3,6 +3,8 @@
 // Every entry point has a plain C interface (loaded with ctypes), launches
 // on the stream it is given, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// Each source is built into a shared library of its own, so each carries
+// its own repro_error_string (defined once here, per library).
 //
 // Integer sums run in uint32_t: two's-complement addition in unsigned
 // arithmetic wraps exactly as the int32 reference does, while signed
@@ -90,3 +92,7 @@ __device__ __forceinline__ T tile_sum(const T* __restrict__ x, int block) {
 }
 
 }  // namespace repro
+
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -101,7 +101,3 @@ extern "C" int repro_gemv(const void* a, const void* x, void* y, int64_t rows, i
   }
   return cudaGetLastError();
 }
-
-extern "C" const char* repro_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

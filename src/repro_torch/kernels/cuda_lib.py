@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-All of ``repro_torch/csrc/*.cu`` is compiled by one ``nvcc`` call for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at first use, into ``build/repro_torch/`` at
-the root of the checkout; the library's name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is not.
-Nothing here runs at import time: the CPU tests import every module.
+Each ``repro_torch/csrc/<name>.cu`` is compiled by its own ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``; the compilers of all sources that need building run at once.
+The build happens at first use, into ``build/repro_torch/`` at the root of
+the checkout; a library's name carries a hash of its source, the shared
+headers and the flags, so an edited source is rebuilt and an unchanged
+one is not.  Nothing here runs at import time: the CPU tests import every
+module.
 """
 from __future__ import annotations
 
@@ -29,16 +31,14 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+#: C entry point -> (source stem under csrc/, argument types before the stream)
 _SIGNATURES = {
-    "repro_reduce_sum": [_P, _P, _P, _I64, _I64, _I, _I, _P],
-    "repro_scan_inclusive": [_P, _P, _P, _P, _I64, _I64, _I, _I, _P],
-    "repro_histogram": [_P, _P, _I64, _I64, _I, _I, _P],
-    "repro_gemv": [_P, _P, _P, _I64, _I, _I, _P],
+    "repro_reduce_sum": ("reduce", [_P, _P, _P, _I64, _I64, _I, _I, _P]),
+    "repro_scan_inclusive": ("scan", [_P, _P, _P, _P, _I64, _I64, _I, _I, _P]),
+    "repro_histogram": ("histogram", [_P, _P, _I64, _I64, _I, _I, _P]),
+    "repro_gemv": ("gemv", [_P, _P, _P, _I64, _I, _I, _P]),
+    "repro_spmv_ell": ("spmv", [_P, _P, _P, _P, _I64, _I, _I, _I, _P]),
 }
-
-
-def _sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -52,50 +52,66 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path() -> pathlib.Path:
+def library_path(source: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha1(" ".join(FLAGS).encode())
-    for src in _sources():
+    for src in [source, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD / f"librepro_torch_{h.hexdigest()[:12]}.so"
+    return BUILD / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
-def build() -> tuple[pathlib.Path, str]:
-    """Compile the library unless this exact build exists.  Returns its
-    path and the compiler's output ("" when it was already built)."""
-    path = library_path()
-    if path.exists():
-        return path, ""
+def build() -> tuple[list[pathlib.Path], str]:
+    """Compile every library whose exact build does not exist, all
+    compilers at once.  Returns the libraries' paths and the compilers'
+    output ("" when nothing was built)."""
+    sources = sorted(CSRC.glob("*.cu"))
+    paths = [library_path(s) for s in sources]
+    todo = [(s, p) for s, p in zip(sources, paths) if not p.exists()]
+    if not todo:
+        return paths, ""
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)       # atomic: concurrent builders never see half
-    return path, proc.stdout + proc.stderr
+    procs = []
+    for src, path in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        proc = subprocess.Popen([_nvcc(), *FLAGS, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs.append((src, path, tmp, proc))
+    log, failed = [], []
+    for src, path, tmp, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, path)   # atomic: no concurrent build sees half
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths, "".join(log)
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def library() -> dict[str, ctypes.CDLL]:
+    """Source stem -> its loaded library, with the entry points typed."""
+    paths, _ = build()
+    libs = {src.stem: ctypes.CDLL(str(p))
+            for src, p in zip(sorted(CSRC.glob("*.cu")), paths)}
+    for name, (stem, args) in _SIGNATURES.items():
+        fn = getattr(libs[stem], name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.repro_error_string.argtypes = [ctypes.c_int]
-    lib.repro_error_string.restype = ctypes.c_char_p
-    return lib
+    for lib in libs.values():
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+    return libs
 
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call ``name`` with ``args`` and the current stream of ``device``;
     raise when the launch reports a CUDA error."""
-    lib = library()
+    lib = library()[_SIGNATURES[name][0]]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(*args, stream)

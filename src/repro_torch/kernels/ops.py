@@ -1,11 +1,12 @@
 """Public wrappers for the ported kernels — the counterpart of
-``repro/kernels/ops.py`` for gemv, reduce_sum, scan and histogram.
+``repro/kernels/ops.py`` for gemv, reduce_sum, scan, histogram and
+spmv_ell.
 
 They take the reference's arbitrary shapes (pad → kernel → slice) with the
 same block clamp, ``min(block, max(128, next_pow2(n)))``, and the same
 padding, so they give the reference's results for every length.  Each
-takes an optional leading bank axis: a 1-D input (2-D for gemv's A) is one
-bank.  Where the data lies decides the path, and nothing else does: a CPU
+takes an optional leading bank axis: a 1-D input (2-D for gemv's A and
+spmv_ell's vals / cols) is one bank.  Where the data lies decides the path, and nothing else does: a CPU
 tensor goes to the kernel's plain PyTorch version, a CUDA tensor to the
 CUDA kernel, which raises when it cannot build or launch.  Each kernel
 counts its launches on ``<kernel module>.<function>.launches``
@@ -20,10 +21,12 @@ from . import gemv as _gemv
 from . import histogram as _hist
 from . import reduce as _red
 from . import scan as _scan
+from . import spmv as _spmv
 
 #: kernel name -> the function that counts its launches
 KERNELS = {"reduce_sum": _red.reduce_sum, "scan_inclusive": _scan.scan_inclusive,
-           "histogram": _hist.histogram, "gemv": _gemv.gemv}
+           "histogram": _hist.histogram, "gemv": _gemv.gemv,
+           "spmv_ell": _spmv.spmv_ell}
 
 
 def launch_counts() -> dict[str, int]:
@@ -108,3 +111,25 @@ def histogram(values: torch.Tensor, nbins: int, *, block: int = 4096):
     if pad:
         h[:, 0] -= pad
     return h if values.dim() == 2 else h[0]
+
+
+# -- spmv ---------------------------------------------------------------------------
+
+def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
+             block_rows: int = 128):
+    """ELL SpMV for vals / cols (rows, k) or bank-batched (banks, rows, k),
+    x (n,) shared by every bank.  Rows are padded as the reference pads
+    them (``ops.py:151``): to ``min(block_rows, max(8, next_pow2(rows)))``
+    with vals 0 and cols -1, then sliced back."""
+    vb, cb = _banked(vals, 2), _banked(cols, 2)
+    banks, rows, k = vb.shape
+    br = min(block_rows, max(8, 1 << (rows - 1).bit_length()))
+    pad = (-rows) % br
+    if pad:
+        vb = F.pad(vb, (0, 0, 0, pad))
+        cb = F.pad(cb, (0, 0, 0, pad), value=-1)
+    rp = rows + pad
+    y = _spmv.spmv_ell(vb.reshape(banks * rp, k).contiguous(),
+                       cb.reshape(banks * rp, k).contiguous(), x)
+    y = y.reshape(banks, rp)[:, :rows]
+    return y if vals.dim() == 3 else y[0]

@@ -1,5 +1,6 @@
 """Plain PyTorch oracles for the ported kernels — the counterpart of
-``repro/kernels/ref.py`` for gemv, reduce_sum, scan and histogram.
+``repro/kernels/ref.py`` for gemv, reduce_sum, scan, histogram and
+spmv_ell.
 
 Each reduces over the last axis, so a leading bank axis is a batch.
 ``dtype=`` is passed explicitly wherever PyTorch would widen: ``torch.sum``
@@ -50,3 +51,18 @@ def histogram(values: torch.Tensor, nbins: int) -> torch.Tensor:
     out = torch.zeros(values.shape[:-1] + (nbins,), dtype=torch.int32,
                       device=values.device)
     return out.scatter_add_(-1, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
+# -- SpMV, ELL format (PrIM §4.3) -------------------------------------------------
+
+def spmv_ell(vals: torch.Tensor, cols: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """vals/cols: (..., rows, k) padded ELL (cols == -1 ⇒ padding); x: (n,).
+
+    As the reference oracle: a column at or past ``n`` reads ``x[n-1]``
+    (a JAX gather clamps), and a padded slot multiplies its value by a
+    gathered 0, so a non-finite value there gives NaN.  The result has
+    the promoted dtype of ``vals * x``."""
+    gathered = torch.where(cols >= 0, x[cols.clamp(0, x.shape[0] - 1)],
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+    return (vals * gathered).sum(-1)

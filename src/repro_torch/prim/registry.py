@@ -7,8 +7,8 @@ reference's ``section``, ``ref``, ``pim``, ``chunked``, ``make_args``,
 generators: the same seed gives byte-identical arrays, which is how both
 packages see the same inputs (there are no weights to carry across).
 
-Ported: GEMV, HST, RED, SCAN.  Still to come, in the reference's order:
-VA, GEMV-B, GEMV-G, SpMV, SEL, UNI, BS, TS, BFS, MLP, NW, TRNS.  The
+Ported: GEMV, SpMV, HST, RED, SCAN.  Still to come, in the reference's
+order: VA, GEMV-B, GEMV-G, SEL, UNI, BS, TS, BFS, MLP, NW, TRNS.  The
 ``cost_profile`` method waits for the cost model.
 """
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Callable, Mapping
 import numpy as np
 
 from repro_torch.core.transfer import tree_nbytes
-from . import gemv, hist, red, scan
+from . import gemv, hist, red, scan, spmv
 from .common import CHUNKED, ChunkedWorkload
 
 
@@ -83,6 +83,13 @@ def _args_gemv(rng, scale=1):
             rng.normal(size=256).astype(np.float32))
 
 
+def _args_spmv(rng, scale=1):
+    rows = 512 * scale
+    ip, ix, dv = spmv.random_csr(rows, 256, 8, seed=int(rng.integers(1 << 30)))
+    vals, cols = spmv.csr_to_ell(ip, ix, dv, rows)
+    return vals, cols, rng.normal(size=256).astype(np.float32)
+
+
 def _args_hst(rng, scale=1):
     return rng.integers(0, 256, 65536 * scale).astype(np.int32), 256
 
@@ -100,6 +107,8 @@ def _entries():
     return [
         e("GEMV", "§4.2", gemv, gemv.ref, gemv.pim, gemv.chunked,
           _args_gemv, assert_close),
+        e("SpMV", "§4.3", spmv, spmv.ref, spmv.pim, spmv.chunked,
+          _args_spmv, assert_close),
         e("HST", "§4.11", hist, hist.ref, hist.pim_short, hist.chunked,
           _args_hst,
           variants={"HST-S": hist.pim_short, "HST-L": hist.pim_long}),

@@ -2,7 +2,7 @@
 ``repro_torch`` against ``repro.core`` / ``repro.prim.common``.
 
 Host-side helpers must be byte-equal to the reference's; every exchange, in
-``host`` and ``fabric`` mode, must equal the reference's host mode; the
+``host`` and ``fabric`` mode, must equal the reference's same mode; the
 bank-local phases must be bank-local (perturbing one bank moves only that
 bank's output).  The port runs on ``device="cpu"``; the reference on its
 one CPU device.
@@ -164,13 +164,16 @@ def test_exchange_scan_matches_reference(bank_grid, via):
 
 @pytest.mark.parametrize("via", ["host", "fabric"])
 def test_exchange_union_and_concat_match_reference(bank_grid, via):
+    """Each mode against the reference's same mode, on shape, dtype and
+    bytes: the host mode gives the flat union, the fabric mode one bank's
+    block shape, (1, w) here."""
     bits = R.integers(0, 2**30, (1, 5)).astype(np.int32)
     g = cpu_grid(1)
     want_u = np.asarray(bank_grid.exchange_union(bank_grid.to_banks(bits),
-                                                 via="host"))
+                                                 via=via))
     got_u = g.exchange_union(g.to_banks(bits), via=via)
-    np.testing.assert_array_equal(got_u.numpy().reshape(-1),
-                                  want_u.reshape(-1))
+    same_bytes(got_u.numpy(), want_u)
+    assert want_u.shape == ((5,) if via == "host" else (1, 5))
     want_c = np.asarray(bank_grid.exchange_concat(bank_grid.to_banks(bits),
                                                   via="host"))
     got_c = g.from_banks(g.exchange_concat(g.to_banks(bits), via=via))
@@ -196,9 +199,9 @@ def test_exchanges_host_equals_fabric_across_banks(n_banks):
         g.exchange_sum(g.to_banks(parts), via="host"), parts.sum(axis=0))
     bits = R.integers(0, 2**20, (n_banks, 3)).astype(np.int32)
     want = np.bitwise_or.reduce(bits, axis=0)
-    for via in ("host", "fabric"):
-        np.testing.assert_array_equal(
-            g.exchange_union(g.to_banks(bits), via=via).numpy(), want)
+    same_bytes(g.exchange_union(g.to_banks(bits), via="host").numpy(), want)
+    same_bytes(g.exchange_union(g.to_banks(bits), via="fabric").numpy(),
+               want[None])
 
 
 # -- transfer records ------------------------------------------------------------
@@ -247,7 +250,22 @@ def _phases():
         "GEMV.compute": (lambda: R.normal(size=(8, 16, 64)).astype(np.float32),
                          lambda a: ch["GEMV"].compute(
                              grid, {"dx": torch.ones(64)}, a)),
+        # vals and cols of one bank move together: cols are the float
+        # slots' integer parts, so the perturbation moves both
+        "ops.spmv_ell": (lambda: R.normal(size=(8, 16, 6)).astype(np.float32),
+                         lambda v: tops.spmv_ell(v, _spmv_cols(v),
+                                                 torch.arange(40.0))),
+        "SpMV.compute": (lambda: R.normal(size=(8, 16, 6)).astype(np.float32),
+                         lambda v: ch["SpMV"].compute(
+                             grid, {"dx": torch.arange(40.0)},
+                             (v, _spmv_cols(v)))),
     }
+
+
+def _spmv_cols(v: torch.Tensor) -> torch.Tensor:
+    """ELL columns in [-1, 44) from a bank's values: -1 pads, 40 and past
+    read the last x."""
+    return (v * 10).to(torch.int32).clamp(-1, 43)
 
 
 @pytest.mark.parametrize("phase", sorted(_phases()[1]))
@@ -295,6 +313,10 @@ def test_rank_grid_views_and_validation():
     assert (g.n_ranks, g.banks_per_rank, g.n_banks) == (4, 2, 8)
     assert len(g.rank_views) == 4 and g.rank_view(3).n_banks == 2
     assert g.rank_view(1) is g.rank_views[1]
+    # the views compare equal: their rank index does not key
+    assert [v.rank for v in g.rank_views] == [0, 1, 2, 3]
+    assert g.rank_view(0) == g.rank_view(3)
+    assert g.streams is None and g.rank_view(2).streams is None   # CPU
     with pytest.raises(ValueError):
         make_bank_grid(6, ranks=4, device="cpu")
     with pytest.raises(ValueError):
@@ -324,17 +346,18 @@ def test_port_source_imports_no_jax_or_repro(path):
 
 def test_import_loads_no_jax_or_repro_and_grid_needs_cuda():
     code = ("import sys, torch\n"
-            "import repro_torch, repro_torch.prim.registry\n"
+            "import repro_torch, repro_torch.prim.registry, repro_torch.pim\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
             "torch.cuda.is_available = lambda: False\n"
-            "try:\n"
-            "    repro_torch.make_bank_grid()\n"
-            "except RuntimeError:\n"
-            "    print('RAISED')\n")
+            "for open_ in (repro_torch.make_bank_grid, repro_torch.pim.session):\n"
+            "    try:\n"
+            "        open_()\n"
+            "    except RuntimeError:\n"
+            "        print('RAISED')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "RAISED" in out.stdout
+    assert out.stdout.count("RAISED") == 2

@@ -1,5 +1,5 @@
-"""Port parity: the PrIM workloads of ``repro_torch.prim`` (GEMV, HST, RED,
-SCAN) against ``repro.prim``.
+"""Port parity: the PrIM workloads of ``repro_torch.prim`` (GEMV, SpMV, HST,
+RED, SCAN) against ``repro.prim``.
 
 Every ``pim`` variant runs on the port at 1 and 8 banks (``device="cpu"``)
 and on the reference at its one in-process bank (Pallas kernels in
@@ -108,6 +108,32 @@ def test_gemv_matches_reference(bank_grid, banks, use_kernel, m, n):
              bank_grid, banks, (a, x))
 
 
+@pytest.mark.parametrize("banks", BANKS)
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("rows,ncols,nnz", [(53, 40, 6), (512, 256, 8)])
+def test_spmv_matches_reference(bank_grid, banks, use_kernel, rows, ncols,
+                                nnz):
+    ip, ix, dv = tprim.spmv.random_csr(rows, ncols, nnz, seed=1)
+    vals, cols = tprim.spmv.csr_to_ell(ip, ix, dv, rows)
+    x = np.random.default_rng(7).normal(size=ncols).astype(np.float32)
+    run_both("SpMV", functools.partial(tprim.spmv.pim, use_kernel=use_kernel),
+             functools.partial(jprim.spmv.pim, use_kernel=use_kernel),
+             bank_grid, banks, (vals, cols, x))
+
+
+@pytest.mark.parametrize("rows,ncols,nnz,seed", [(53, 40, 6, 1), (300, 256, 8, 9),
+                                                 (7, 5, 0, 3)])
+def test_csr_helpers_byte_equal(rows, ncols, nnz, seed):
+    got = tprim.spmv.random_csr(rows, ncols, nnz, seed=seed)
+    want = jprim.spmv.random_csr(rows, ncols, nnz, seed=seed)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+    for g, w in zip(tprim.spmv.csr_to_ell(*got, rows),
+                    jprim.spmv.csr_to_ell(*want, rows)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+
+
 # -- chunked phases, composed in series ----------------------------------------------
 
 def compose(w, grid, args, n_chunks):
@@ -145,6 +171,21 @@ def test_gemv_split_is_resident_then_varying(banks):
     assert set(meta) == set(vmeta)
     for c, r in zip(chunks, res_chunks):
         assert c.tobytes() == r.tobytes()
+
+
+@pytest.mark.parametrize("banks", BANKS)
+def test_spmv_split_is_resident_then_varying(banks):
+    w = TREG["SpMV"].chunked
+    assert w.supports_residency and w.resident_args == (0, 1)
+    g = cpu_grid(banks)
+    vals, cols, x = TREG["SpMV"].make_args(np.random.default_rng(6), scale=1)
+    meta, chunks = w.split(g, 3, vals, cols, x)
+    res_meta, res_chunks = w.split_resident(g, 3, vals, cols)
+    vmeta, vchunks = w.split_varying(g, 3, res_meta, vals, cols, x)
+    assert vchunks is None and {k: meta[k] for k in res_meta} == res_meta
+    assert set(meta) == set(vmeta)
+    for (cv, cc), (rv, rc) in zip(chunks, res_chunks):
+        assert cv.tobytes() == rv.tobytes() and cc.tobytes() == rc.tobytes()
 
 
 # -- registry ---------------------------------------------------------------------
