@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain PyTorch
-version at the PrIM suite's shapes and times it, drives the suite's banked
-path (GEMV, SpMV, HST, RED, SCAN) through the registry at 2,048 banks,
+version at the shapes its path gives it and times it, drives the suite's
+banked path (GEMV, GEMV-B, GEMV-G, SpMV, HST, RED, SCAN) through the
+registry at 2,048 banks,
 checks every result against ``ref()``, shows that the suite went through
 the kernels, and then drives the same workloads through the session
 façade, ``repro_torch.pim.session(ranks=32, banks_per_rank=64)``: ``run``,
 ``map``, ``pin`` with warm hits, a two-tenant serving block and a trace
-export, every result checked with the registry's comparator.
+export, every result checked with the registry's comparator.  Last, the LM
+serving stack on TinyLlama 1.1B at its published width (seeded weights):
+the prefill ``transformer.forward(use_kernel=True)`` through the
+``flash_attention`` kernel, checked against the plain forward and timed,
+teacher-forced ``decode_step`` against the prefill logits, and
+``greedy_generate`` on the card against the ``DecodeEngine`` on a flat
+session, token for token.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from ``nvidia-smi``, and the one before that a JSON
-``{"kernels": [...]}`` with each kernel's launches on the suite path, its
-error against its plain version, and its times beside its bound.
+``{"kernels": [...]}`` with each kernel's launches on its path (the suite,
+or for flash_attention one prefill forward), its error against its plain
+version, and its times beside its bound.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -27,6 +36,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -36,6 +46,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # ridge point, so its bound is the bytes.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# ... and its dense bfloat16 tensor-core rate, the bound of attention's
+# operations (the flash_attention rows are bfloat16)
+BF16_TC_OPS_PER_S = 989e12
 
 SUITE = ((2048, 1024), (1, 64))     # (banks, make_args scale)
 # the kernels' shapes on the suite's 2,048-bank run: RED / SCAN / HST hold
@@ -47,6 +60,13 @@ TIMED_ITERS = 20
 # the session phase: the suite's 2,048 banks as 32 ranks of 64 DPUs
 RANKS, BANKS_PER_RANK = 32, 64
 TRACE = os.path.join(ROOT, "build", "repro_torch", "chip_smoke_trace.json")
+# the LM phase: TinyLlama 1.1B (configs/tinyllama_1_1b.py:FULL) prefill of
+# 2,048 tokens, and the H2O-Danube3 attention shape as a second kernel row
+LM_ARCH, PREFILL = "tinyllama-1.1b", 2048
+DANUBE = dict(H=32, KVH=8, S=8192, D=120, window=4096)
+CONSIST = 32                        # teacher-forced decode tokens
+DECODE_STREAMS, DECODE_PROMPT, DECODE_NEW = 2, 8, 8
+DECODE_BANKS = 256                  # flat session: one rank, 8 GB budget
 
 
 def smi_line() -> str:
@@ -71,8 +91,9 @@ def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: int, nops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+def bound(nbytes: int, nops: int,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -253,10 +274,94 @@ def kernel_phase(dev) -> list[dict]:
     # the same kernel at 4,096 rows per bank, past the 50 MB L2; its numbers
     # ride in the spmv_ell row
     large = timed(spmv_case("spmv_ell", SPMV_LARGE_ROWS, COLS, g, dev))
-    rows[-1][f"at_{SPMV_LARGE_ROWS}_rows_per_bank"] = {
-        k: large[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")}
+    rows[-1][f"at_{SPMV_LARGE_ROWS}_rows_per_bank"] = dict_of(large)
+    rows.append(flash_rows(g, dev))
     return rows
+
+
+def dict_of(row: dict) -> dict:
+    return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+
+
+def live_pairs(S: int, T: int, window) -> int:
+    """(q, k) pairs a causal mask leaves live: query i at i + (T - S) sees
+    keys in (qpos - window, qpos] within [0, T)."""
+    qpos = np.arange(S, dtype=np.int64) + (T - S)
+    hi = np.minimum(T - 1, qpos)
+    lo = np.maximum(0, qpos - window + 1) if window is not None else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_case(name: str, B, H, KVH, S, T, D, window, g, dev) -> dict:
+    """One timed flash_attention case in bfloat16, causal: the kernel, its
+    plain version, and ``scaled_dot_product_attention`` (``is_causal`` at
+    S = T, an explicit boolean mask for the window).  Operations: 4 D per
+    live (q, k) pair and head; bytes: q, k, v and o once.  Tolerance
+    4e-3 * (1 + |o|): the kernel and the plain version round float32 sums
+    that differ in their last bits to bfloat16, so an output may land one
+    bfloat16 step (2^-8 |o|) away, and no further."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((B, H, S, D), (B, KVH, T, D), (B, KVH, T, D)))
+    if window is None:
+        lib = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                                is_causal=True, enable_gqa=True)
+    else:
+        qpos = torch.arange(S, device=dev)[:, None] + (T - S)
+        kpos = torch.arange(T, device=dev)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+        lib = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                                attn_mask=mask, enable_gqa=True)
+    return dict(
+        name=name, source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:27",
+        kernel=lambda: ops.attention(q, k, v, causal=True, window=window),
+        plain=lambda: kfa.plain(q, k, v, causal=True, window=window),
+        library=lib, nbytes=2 * q.nbytes + k.nbytes + v.nbytes,
+        nops=4 * B * H * D * live_pairs(S, T, window),
+        ops_per_s=BF16_TC_OPS_PER_S, tol=4e-3)
+
+
+def flash_rows(g, dev) -> dict:
+    """flash_attention: small correctness cases (not timed), at the
+    reference's kernel-test tolerances (rtol = atol = 2e-3 float32, 2e-2
+    bfloat16), then the TinyLlama prefill shape and the H2O-Danube3 shape,
+    timed, at 4e-3 (``flash_case``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+
+    for label, (B, H, KVH, S, T, D, causal, window, dtype) in {
+            "f32 GQA causal": (2, 8, 2, 300, 300, 64, True, None,
+                               torch.float32),
+            "S != T, not causal": (1, 4, 4, 96, 160, 64, False, None,
+                                   torch.bfloat16),
+            "causal S > T": (1, 4, 2, 200, 72, 64, True, None, torch.float32),
+            "window 16": (1, 4, 2, 500, 500, 128, True, 16, torch.bfloat16),
+            "MQA": (1, 8, 1, 256, 256, 120, True, None, torch.bfloat16),
+            "head dim 160": (1, 3, 3, 200, 200, 160, True, None,
+                             torch.float32)}.items():
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((B, H, S, D), (B, KVH, T, D), (B, KVH, T, D)))
+        got = ops.attention(q, k, v, causal=causal, window=window)
+        want = kfa.plain(q, k, v, causal=causal, window=window)
+        check(f"flash_attention {label}", got, want,
+              rel(want, 2e-3 if dtype == torch.float32 else 2e-2))
+        if causal and S > T:
+            assert bool((got[:, :, :S - T] == 0).all()), "masked rows not 0"
+
+    cfg = get_config(LM_ARCH)
+    row = timed(flash_case("flash_attention", 1, cfg.n_heads, cfg.n_kv_heads,
+                           PREFILL, PREFILL, cfg.hd, cfg.window, g, dev))
+    d = DANUBE
+    large = timed(flash_case("flash_attention", 1, d["H"], d["KVH"], d["S"],
+                             d["S"], d["D"], d["window"], g, dev))
+    row["at_h2o_danube3_8192_window_4096"] = dict_of(large)
+    torch.cuda.empty_cache()
+    return row
 
 
 def timed(c: dict) -> dict:
@@ -267,7 +372,8 @@ def timed(c: dict) -> dict:
                 rel(want, c["tol"]) if c["tol"] else 0)
     ms, plain_ms, lib_ms = (cuda_ms(c["kernel"]), cuda_ms(c["plain"]),
                             cuda_ms(c["library"]))
-    bound_ms, bound_by = bound(c["nbytes"], c["nops"])
+    bound_ms, bound_by = bound(c["nbytes"], c["nops"],
+                               c.get("ops_per_s", F32_OPS_PER_S))
     print(f"  {c['name']:15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
           f"  library {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
           f"({bound_by}, {c['nbytes'] / 1e6:.1f} MB)")
@@ -418,6 +524,154 @@ def session_phase(args_2048: dict, serialized: dict) -> dict[str, int]:
     return ops.launch_counts()
 
 
+def host_ms(fn, iters: int = 3) -> float:
+    """Mean host-clock time of ``fn`` (work that ends in a synchronize),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def prefill_phase(model, dev) -> int:
+    """TinyLlama FULL, seeded weights, one prefill of PREFILL tokens:
+    ``forward(use_kernel=True)`` of the float32 ``model`` against
+    ``use_kernel=False``
+    (rtol = atol = 1e-3: attention's float32 sums in another order, through
+    22 layers), then at the config's own bfloat16, timed beside the plain
+    forward, with its error and the share of positions whose argmax
+    agrees.  Returns flash_attention's launches in one forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    full = get_config(LM_ARCH)
+    toks = torch.randint(0, full.vocab, (1, PREFILL), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    cfg = dataclasses.replace(full, dtype=torch.float32)
+    print(f"prefill: {full.name} ({full.total_params() / 1e9:.3f} B params,"
+          f" {full.n_layers} layers, d_model {full.d_model}, heads "
+          f"{full.n_heads} / {full.n_kv_heads}, head dim {full.hd}), "
+          f"tokens (1, {PREFILL})")
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got, _ = transformer.forward(model, cfg, toks, use_kernel=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        launches = counts["flash_attention"]
+        assert launches == full.n_layers, (
+            f"{launches} flash_attention launches in one forward, "
+            f"want {full.n_layers}")
+        assert sum(counts.values()) == launches, counts
+        want, _ = transformer.forward(model, cfg, toks, use_kernel=False)
+        check("forward f32 kernel vs plain", got, want, rel(want, 1e-3))
+        del got, want
+        torch.cuda.empty_cache()
+
+        bf16 = transformer.init(full, seed=0, device=dev)
+        got, _ = transformer.forward(bf16, full, toks, use_kernel=True)
+        want, _ = transformer.forward(bf16, full, toks, use_kernel=False)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        err = float((got.float() - want.float()).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        ms = host_ms(lambda: transformer.forward(bf16, full, toks,
+                                                 use_kernel=True))
+        plain_ms = host_ms(lambda: transformer.forward(bf16, full, toks,
+                                                       use_kernel=False))
+    print(f"  forward bf16: kernel {ms:.2f} ms ({PREFILL / ms * 1e3:.0f} "
+          f"tokens/s), plain {plain_ms:.2f} ms; max |kernel - plain| "
+          f"{err:.3e}, argmax agrees at {agree:.4f} of positions; "
+          f"{launches} flash launches per forward")
+    del bf16, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def consistency_phase(model, dev) -> None:
+    """The reference's prefill / decode check (tests/test_models.py) at
+    full width on the float32 ``model``: teacher-forced ``decode_step`` over CONSIST
+    tokens reproduces ``forward(use_kernel=True)``'s logits at the
+    reference's rtol = atol = 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab, (1, CONSIST), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    with torch.no_grad():
+        full, _ = transformer.forward(model, cfg, toks, use_kernel=True)
+        cache = transformer.init_cache(model, cfg, 1, CONSIST)
+        outs = []
+        for i in range(CONSIST):
+            lt, cache = transformer.decode_step(model, cfg, toks[:, i:i + 1],
+                                                cache)
+            outs.append(lt)
+    check(f"decode vs prefill ({CONSIST} tok)", torch.cat(outs, 1), full,
+          rel(full, 2e-2))
+
+
+def decode_phase(model, dev) -> None:
+    """Greedy decode of the float32 TinyLlama FULL ``model``, DECODE_STREAMS
+    streams:
+    ``greedy_generate`` on the card and ``DecodeEngine`` on a flat session
+    of DECODE_BANKS banks (its host half on the CPU) must give the same
+    tokens.  Prints the smallest top-1 / top-2 logit gap at the generated
+    positions, so that a mismatch can be told from a near tie (a mismatch
+    fails either way), both token rates, the engine's pin time, and the
+    weight bytes its warm steps scattered (0)."""
+    from repro_torch import pim
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32)
+    prompt = torch.randint(0, cfg.vocab, (DECODE_STREAMS, DECODE_PROMPT),
+                           device=dev, dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    steps = DECODE_PROMPT + DECODE_NEW - 1
+    t0 = time.perf_counter()
+    want = serve.greedy_generate(model, cfg, prompt, DECODE_NEW)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    with torch.no_grad():           # the logit gaps along greedy's tokens
+        cache = transformer.init_cache(model, cfg, DECODE_STREAMS, steps + 1)
+        gap = float("inf")
+        for i in range(steps):
+            logits, cache = transformer.decode_step(model, cfg,
+                                                    want[:, i:i + 1], cache)
+            if i + 1 >= DECODE_PROMPT:
+                top = logits[:, -1].topk(2, dim=-1).values
+                gap = min(gap, float((top[:, 0] - top[:, 1]).min()))
+    print(f"decode: greedy_generate {DECODE_STREAMS} x ({DECODE_PROMPT} + "
+          f"{DECODE_NEW}) tokens in {greedy_s:.2f} s "
+          f"({DECODE_STREAMS * DECODE_NEW / greedy_s:.1f} new tokens/s incl. "
+          f"prefill steps); smallest top-1 / top-2 logit gap {gap:.4e}")
+    with pim.session(banks=DECODE_BANKS, trace=True) as s:
+        eng = pim.DecodeEngine(model, cfg, session=s)
+        pushed = sum(sp.name == "scatter" for sp in s.tracer.spans)
+        got = eng.generate(want[:, :DECODE_PROMPT].cpu().numpy(), DECODE_NEW)
+        warm_scatter = sum(sp.args["bytes"] for sp in s.tracer.spans
+                           if sp.name == "scatter")
+        cached = sum(sp.args["bytes"] for sp in s.tracer.spans
+                     if sp.name == "scatter:cached")
+        rep = eng.report()
+    assert (got == want.cpu().numpy()).all(), (
+        f"DecodeEngine tokens {got.tolist()} != greedy_generate "
+        f"{want.cpu().tolist()} (smallest logit gap {gap:.4e})")
+    assert pushed == 0 and warm_scatter == 0 and cached > 0, (
+        pushed, warm_scatter, cached)
+    print(f"  DecodeEngine ({DECODE_BANKS} banks, 1 rank): tokens identical "
+          f"to greedy_generate; pin {rep['setup_s']:.2f} s; prefill "
+          f"{rep['prefill_s']:.2f} s; {rep['tokens_per_s']:.2f} tokens/s over"
+          f" {rep['new_tokens']} new tokens; warm steps scattered "
+          f"{warm_scatter} weight bytes ({cached / 1e9:.2f} GB served from "
+          f"the banks); host {rep['host_s']:.2f} s, pim "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in rep["pim_s"].items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -446,11 +700,13 @@ def main() -> int:
     t0 = time.perf_counter()
     counts, serialized = suite_phase(args_2048)
     print(f"suite: {time.perf_counter() - t0:.2f} s; launches {counts}")
+    # every kernel has a row; each row's launches come from the path that
+    # runs it: the suite's five kernels from the suite, flash_attention
+    # from one prefill forward (the LM phase below)
+    assert sorted(counts) == sorted(r["name"] for r in rows), counts
     for r in rows:
         r["launches"] = counts[r["name"]]
-    missing = [r["name"] for r in rows if r["launches"] <= 0]
-    assert not missing, f"the suite launched no {missing}"
-    assert sorted(counts) == sorted(r["name"] for r in rows), counts
+    assert counts["flash_attention"] == 0, counts
     t0 = time.perf_counter()
     session_counts = session_phase(args_2048, serialized)
     print(f"session: {time.perf_counter() - t0:.2f} s; launches "
@@ -458,6 +714,27 @@ def main() -> int:
     t0 = time.perf_counter()
     flat_session_phase(args_2048)
     print(f"flat session: {time.perf_counter() - t0:.2f} s")
+    del args_2048, serialized
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    # one seeded float32 TinyLlama for the three LM legs; only the bf16
+    # timing leg of prefill_phase builds its own
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    model = transformer.init(
+        dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32),
+        seed=0, device=dev)
+    flash = next(r for r in rows if r["name"] == "flash_attention")
+    flash["launches"] = prefill_phase(model, dev)
+    consistency_phase(model, dev)
+    print(f"prefill + consistency: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    decode_phase(model, dev)
+    print(f"decode: {time.perf_counter() - t0:.2f} s")
+    del model
+    missing = [r["name"] for r in rows if r["launches"] <= 0]
+    assert not missing, f"the main path launched no {missing}"
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -7,7 +7,7 @@ launch, launch counter and plain PyTorch version; the CUDA source is
 ``cuda_lib.py``, which builds the sources with ``nvcc`` at first use.
 
 Ported so far: GEMV (PrIM §4.2), SpMV (§4.3), HST (§4.11), RED (§4.12),
-SCAN (§4.13).
+SCAN (§4.13), and the LM stack's flash attention.
 """
 from . import ops, ref
 

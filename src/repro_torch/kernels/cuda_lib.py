@@ -30,14 +30,17 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: dtype codes of csrc/common.cuh
 DTYPES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-#: C entry point -> (source stem under csrc/, argument types before the stream)
+_P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+#: C entry point -> (source stem under csrc/, argument types, the stream last)
 _SIGNATURES = {
     "repro_reduce_sum": ("reduce", [_P, _P, _P, _I64, _I64, _I, _I, _P]),
     "repro_scan_inclusive": ("scan", [_P, _P, _P, _P, _I64, _I64, _I, _I, _P]),
     "repro_histogram": ("histogram", [_P, _P, _I64, _I64, _I, _I, _P]),
     "repro_gemv": ("gemv", [_P, _P, _P, _I64, _I, _I, _P]),
     "repro_spmv_ell": ("spmv", [_P, _P, _P, _P, _I64, _I, _I, _I, _P]),
+    "repro_flash_attention": ("flash_attention",
+                              [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _P]),
 }
 
 

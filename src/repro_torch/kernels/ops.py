@@ -1,6 +1,6 @@
 """Public wrappers for the ported kernels — the counterpart of
-``repro/kernels/ops.py`` for gemv, reduce_sum, scan, histogram and
-spmv_ell.
+``repro/kernels/ops.py`` for attention (and decode attention), gemv,
+reduce_sum, scan, histogram and spmv_ell.
 
 They take the reference's arbitrary shapes (pad → kernel → slice) with the
 same block clamp, ``min(block, max(128, next_pow2(n)))``, and the same
@@ -17,16 +17,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import flash_attention as _fa
 from . import gemv as _gemv
 from . import histogram as _hist
 from . import reduce as _red
 from . import scan as _scan
+from . import ref
 from . import spmv as _spmv
 
 #: kernel name -> the function that counts its launches
 KERNELS = {"reduce_sum": _red.reduce_sum, "scan_inclusive": _scan.scan_inclusive,
            "histogram": _hist.histogram, "gemv": _gemv.gemv,
-           "spmv_ell": _spmv.spmv_ell}
+           "spmv_ell": _spmv.spmv_ell, "flash_attention": _fa.flash_attention}
 
 
 def launch_counts() -> dict[str, int]:
@@ -56,6 +58,32 @@ def _banked(x: torch.Tensor, ndim: int) -> torch.Tensor:
         raise ValueError(f"expected {ndim} or {ndim + 1} dims, got "
                          f"{tuple(x.shape)}")
     return x
+
+
+# -- attention ----------------------------------------------------------------
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """GQA flash attention; q (B, H, S, D), k / v (B, KVH, T, D), any S, T
+    and D <= 256.  The reference pads D to 128 and S, T to its blocks and
+    slices back (``ops.py:64-73``); zero padding does not change the
+    result, and the kernel takes the shapes as they are, so nothing is
+    padded here.  scale = D**-0.5 of the unpadded D, as there."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=float(q.shape[-1]) ** -0.5)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: int | None = None,
+                     impl: str = "ref") -> torch.Tensor:
+    """Decode path: a memory-bound KV gather for one query token, plain
+    torch ops by design, as in the reference (``ops.py:76-84``).
+    ``impl="grouped"`` is the reference's ``fast_decode`` form (no KV
+    repeat)."""
+    f = ref.decode_attention_grouped if impl == "grouped" \
+        else ref.decode_attention
+    return f(q, k_cache, v_cache, lengths, window=window)
 
 
 # -- gemv ---------------------------------------------------------------------

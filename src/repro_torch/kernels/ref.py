@@ -1,6 +1,6 @@
 """Plain PyTorch oracles for the ported kernels — the counterpart of
-``repro/kernels/ref.py`` for gemv, reduce_sum, scan, histogram and
-spmv_ell.
+``repro/kernels/ref.py`` for attention (and the two decode attentions),
+gemv, reduce_sum, scan, histogram and spmv_ell.
 
 Each reduces over the last axis, so a leading bank axis is a batch.
 ``dtype=`` is passed explicitly wherever PyTorch would widen: ``torch.sum``
@@ -11,11 +11,104 @@ a clip and a scatter-add.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype.is_floating_point else dtype
+
+
+# -- attention ------------------------------------------------------------------
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Multi-head attention oracle with GQA + causal + sliding-window.
+
+    q: (B, H, S, D); k, v: (B, KVH, T, D); KVH divides H, and query head
+    h reads KV head h // (H / KVH).  Query i sits at position
+    i + (T - S), so the last query lines up with the last key.  window:
+    attend to keys in (qpos - window, qpos].  Scores and softmax in
+    float32; a fully masked row gives 0, not NaN.  The result has q's
+    dtype."""
+    B, H, S, D = q.shape
+    KVH, T = k.shape[1], k.shape[2]
+    group = H // KVH
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
+                          kr.to(torch.float32)) * scale
+    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits.masked_fill_(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    del logits
+    p.nan_to_num_(nan=0.0)                     # fully-masked rows
+    return torch.einsum("bhst,bhtd->bhsd", p,
+                        vr.to(torch.float32)).to(q.dtype)
+
+
+def _decode_valid(lengths: torch.Tensor, T: int, window: int | None):
+    pos = torch.arange(T, device=lengths.device)[None, None, None, :]
+    lens = lengths[:, None, None, None]
+    valid = pos < lens
+    if window is not None:
+        valid &= pos >= lens - window
+    return valid
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-token decode oracle. q: (B, H, 1, D); caches: (B, KVH, T, D);
+    lengths: (B,) valid cache lengths."""
+    B, H, _, D = q.shape
+    KVH, T = k_cache.shape[1], k_cache.shape[2]
+    group = H // KVH
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kr = k_cache.repeat_interleave(group, dim=1)
+    vr = v_cache.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhtd->bhqt", q.to(torch.float32),
+                          kr.to(torch.float32)) * scale
+    logits = logits.masked_fill(~_decode_valid(lengths, T, window),
+                                float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqt,bhtd->bhqd", p,
+                        vr.to(torch.float32)).to(q.dtype)
+
+
+def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, lengths: torch.Tensor,
+                             *, window: int | None = None,
+                             scale: float | None = None) -> torch.Tensor:
+    """The reference's ``fast_decode`` form: the query heads of one KV
+    group attend together, so the cache is never repeated across the
+    group.  The reference's float32 accumulation of cache-dtype operands
+    (``preferred_element_type``) is a float32 product of the upcast
+    operands here; the probabilities round to q's dtype before the value
+    product, as there."""
+    B, H, _, D = q.shape
+    KVH, T = k_cache.shape[1], k_cache.shape[2]
+    group = H // KVH
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KVH, group, D)
+    logits = torch.einsum("bkgd,bktd->bkgt", qg.to(torch.float32),
+                          k_cache.to(torch.float32)) * scale
+    logits = logits.masked_fill(~_decode_valid(lengths, T, window),
+                                float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", p.to(q.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(B, H, 1, D).to(q.dtype)
 
 
 # -- GEMV (PrIM §4.2) ---------------------------------------------------------

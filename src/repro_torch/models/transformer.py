@@ -1,0 +1,254 @@
+"""Decoder assembler — the PyTorch counterpart of
+``repro.models.transformer`` for the dense-attention family: embed →
+blocks → final norm → lm head, with the full-sequence ``forward`` (its
+attention on the ``flash_attention`` kernel when ``use_kernel=True``) and
+the cached one-token ``decode_step``.
+
+The layer plan (``_desc``, ``layer_plan``) is the reference's, for every
+config.  The reference stacks the repeating group and runs it under
+``lax.scan``; here the layers are an ``nn.ModuleList`` run in a Python
+loop, which gives the same numbers.  Blocks with the ``attn`` mixer and
+the ``dense`` or ``none`` FFN are ported, with ``parallel_block``
+(stablelm) and ``qkv_bias`` (codeqwen).  Every other block kind raises
+``NotImplementedError`` when the model is built, naming its ROADMAP item,
+so nothing runs a different model than the reference.  ``loss_fn`` and
+``_chunked_ce`` come with the training path.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.banked import _device
+from . import attention
+from .attention import _param
+from .layers import ModelConfig, dense_init, mlp_init, rms_norm, swiglu
+
+#: block kinds not ported yet -> what building one raises
+_NOT_PORTED = {
+    "moe": "the MoE FFN (models/moe.py with the moe_gmm kernel) is not "
+           "ported yet: ROADMAP queue 1, item 9, MoE",
+    "mamba": "the Mamba mixer (models/mamba.py with the ssd_scan kernel) is "
+             "not ported yet: ROADMAP queue 1, item 9, Mamba",
+    "cross": attention._NO_CROSS,
+    "mlstm": "the xLSTM mixers (models/xlstm.py) are not ported yet: "
+             "ROADMAP queue 1, item 9, xLSTM",
+    "slstm": "the xLSTM mixers (models/xlstm.py) are not ported yet: "
+             "ROADMAP queue 1, item 9, xLSTM",
+}
+
+
+# ---------------------------------------------------------------------------
+# layer plan
+# ---------------------------------------------------------------------------
+
+def _desc(cfg: ModelConfig, li: int) -> dict:
+    if cfg.family == "ssm":
+        mixer = "slstm" if (cfg.slstm_every and
+                            li % cfg.slstm_every == cfg.slstm_every - 1) \
+            else "mlstm"
+        return {"mixer": mixer, "ffn": "none", "ff": 0}
+    if cfg.attn_every and li % cfg.attn_every != 0:
+        mixer = "mamba"
+    elif cfg.cross_attn_every and \
+            li % cfg.cross_attn_every == cfg.cross_attn_every - 1:
+        mixer = "cross"
+    else:
+        mixer = "attn"
+    is_moe = (cfg.moe_experts > 0 and li % cfg.moe_every == 0
+              and not (cfg.moe_first_dense and li == 0))
+    if is_moe:
+        return {"mixer": mixer, "ffn": "moe", "ff": cfg.d_ff}
+    ff = cfg.dense_ff or cfg.d_ff
+    return {"mixer": mixer, "ffn": "dense" if ff else "none", "ff": ff}
+
+
+def layer_plan(cfg: ModelConfig):
+    """Returns (prologue_descs, period_descs, repeats)."""
+    descs = [_desc(cfg, li) for li in range(cfg.n_layers)]
+    cad = [c for c in (cfg.attn_every, cfg.moe_every, cfg.cross_attn_every,
+                       cfg.slstm_every) if c]
+    p = math.lcm(*cad) if cad else 1
+    for q in range(cfg.n_layers + 1):
+        rest = descs[q:]
+        if len(rest) % p:
+            continue
+        groups = [rest[i:i + p] for i in range(0, len(rest), p)]
+        if all(g == groups[0] for g in groups):
+            return descs[:q], groups[0] if groups else [], len(groups)
+    raise ValueError(f"no periodic plan for {cfg.name}")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming every block kind of ``cfg``
+    that the port does not have yet."""
+    descs = [_desc(cfg, li) for li in range(cfg.n_layers)]
+    kinds = {d["mixer"] for d in descs} | {d["ffn"] for d in descs}
+    missing = sorted({_NOT_PORTED[k] for k in kinds if k in _NOT_PORTED})
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: " + "; ".join(missing))
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """The dense SwiGLU FFN: ``wi`` (d, 2f) fused gate|up, ``wo`` (f, d)."""
+
+    def __init__(self, cfg: ModelConfig, ff: int, *,
+                 gen: torch.Generator | None = None, device=None):
+        super().__init__()
+        d = cfg.d_model
+        w = (mlp_init(gen, d, ff, cfg.dtype, device) if gen is not None else
+             {"wi": torch.empty((d, 2 * ff), dtype=cfg.dtype, device=device),
+              "wo": torch.empty((ff, d), dtype=cfg.dtype, device=device)})
+        self.wi, self.wo = _param(w["wi"]), _param(w["wo"])
+
+
+class Block(nn.Module):
+    """``norm1``, ``mixer`` and, unless the FFN is ``none``, ``norm2`` and
+    ``ffn``: the reference's block keys."""
+
+    def __init__(self, cfg: ModelConfig, desc: dict, *,
+                 gen: torch.Generator | None = None, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.desc = desc
+        self.norm1 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
+        self.mixer = attention.Attention(cfg, gen=gen, device=device)
+        if desc["ffn"] != "none":
+            self.norm2 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
+            self.ffn = MLP(cfg, desc["ff"], gen=gen, device=device)
+
+
+class Transformer(nn.Module):
+    """``embed`` (V, d), ``layers``, ``final_norm`` (d,), ``lm_head``
+    (d, V).  Built on ``device`` (default ``cuda:0``; raises without CUDA
+    unless ``device="cpu"``); weights drawn from ``gen`` when it is given,
+    uninitialised otherwise (``models/convert.py`` fills them)."""
+
+    def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        check_ported(cfg)
+        dev = _device(device)
+        self.cfg = cfg
+        d, V = cfg.d_model, cfg.vocab
+        if gen is not None:
+            self.embed = _param(dense_init(gen, (V, d), cfg.dtype, dev))
+            self.lm_head = _param(dense_init(gen, (d, V), cfg.dtype, dev))
+        else:
+            self.embed = _param(torch.empty((V, d), dtype=cfg.dtype, device=dev))
+            self.lm_head = _param(torch.empty((d, V), dtype=cfg.dtype,
+                                              device=dev))
+        self.final_norm = _param(torch.ones(d, dtype=cfg.dtype, device=dev))
+        self.layers = nn.ModuleList(
+            Block(cfg, _desc(cfg, li), gen=gen, device=dev)
+            for li in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
+    """A model with seeded random weights (the reference's scheme: normal
+    with variance 1 / fan-in, ones for the norms, zeros for the biases),
+    drawn on ``device`` from ``torch.Generator(device).manual_seed(seed)``.
+    The bits differ from the reference's ``jax.random`` ones; the parity
+    tests carry the reference's weights across instead."""
+    dev = _device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return Transformer(cfg, gen=gen, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                 use_kernel: bool) -> torch.Tensor:
+    h = rms_norm(x, p.norm1)
+    mo = attention.apply(p.mixer, cfg, h, use_kernel=use_kernel)
+    if p.desc["ffn"] == "none":
+        return x + mo
+    if cfg.parallel_block:          # stablelm: attn ∥ ffn off one norm
+        fo = swiglu(h, p.ffn.wi, p.ffn.wo)
+        return x + mo + fo
+    x = x + mo
+    h2 = rms_norm(x, p.norm2)
+    return x + swiglu(h2, p.ffn.wi, p.ffn.wo)
+
+
+def as_tokens(tokens, device) -> torch.Tensor:
+    """Token ids (a tensor, or anything numpy takes) as an int32 tensor on
+    ``device``."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.from_numpy(np.array(tokens, dtype=np.int32))
+    return tokens.to(device=device, dtype=torch.int32)
+
+
+def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
+    if embeds is None:
+        return model.embed[as_tokens(tokens, model.device)]
+    return embeds.to(cfg.dtype)
+
+
+def trunk(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
+          use_kernel: bool = False):
+    """Embed + all blocks + final norm (pre-lm_head hidden). → (x, aux);
+    ``aux`` (the MoE load-balancing loss) is 0 for the ported blocks."""
+    x = _embed(model, cfg, tokens, embeds)
+    for blk in model.layers:
+        x = _block_apply(blk, cfg, x, use_kernel)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, model.final_norm), aux
+
+
+def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
+            use_kernel: bool = False):
+    """tokens: (B, S) int or embeds: (B, S, d). Returns (logits, aux)."""
+    x, aux = trunk(model, cfg, tokens=tokens, embeds=embeds,
+                   use_kernel=use_kernel)
+    return x @ model.lm_head, aux
+
+
+# ---------------------------------------------------------------------------
+# decode (serve path)
+# ---------------------------------------------------------------------------
+
+def init_cache(model: Transformer, cfg: ModelConfig, batch: int,
+               max_len: int) -> dict:
+    """One KV cache per layer, ``{"layers": [...]}``, on the model's device
+    (the reference stacks the repeating group's caches for its scan)."""
+    return {"layers": [attention.init_cache(cfg, batch, max_len,
+                                            device=model.device)
+                       for _ in model.layers]}
+
+
+def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    h = rms_norm(x, p.norm1)
+    mo, cache = attention.decode(p.mixer, cfg, h, cache)
+    if p.desc["ffn"] == "none":
+        return x + mo, cache
+    if cfg.parallel_block:
+        fo = swiglu(h, p.ffn.wi, p.ffn.wo)
+        return x + mo + fo, cache
+    x = x + mo
+    h2 = rms_norm(x, p.norm2)
+    return x + swiglu(h2, p.ffn.wi, p.ffn.wo), cache
+
+
+def decode_step(model: Transformer, cfg: ModelConfig, tokens, cache: dict):
+    """One decode step. tokens: (B, 1) int.
+    Returns (logits (B, 1, V), cache); the cache is updated in place."""
+    x = _embed(model, cfg, tokens, None)
+    for li, blk in enumerate(model.layers):
+        x, cache["layers"][li] = _block_decode(blk, cfg, x,
+                                               cache["layers"][li])
+    x = rms_norm(x, model.final_norm)
+    return x @ model.lm_head, cache

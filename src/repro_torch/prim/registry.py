@@ -7,8 +7,8 @@ reference's ``section``, ``ref``, ``pim``, ``chunked``, ``make_args``,
 generators: the same seed gives byte-identical arrays, which is how both
 packages see the same inputs (there are no weights to carry across).
 
-Ported: GEMV, SpMV, HST, RED, SCAN.  Still to come, in the reference's
-order: VA, GEMV-B, GEMV-G, SEL, UNI, BS, TS, BFS, MLP, NW, TRNS.  The
+Ported: GEMV, GEMV-B, GEMV-G, SpMV, HST, RED, SCAN.  Still to come, in
+the reference's order: VA, SEL, UNI, BS, TS, BFS, MLP, NW, TRNS.  The
 ``cost_profile`` method waits for the cost model.
 """
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Callable, Mapping
 import numpy as np
 
 from repro_torch.core.transfer import tree_nbytes
-from . import gemv, hist, red, scan, spmv
+from . import gemv, gemv_fused, hist, red, scan, spmv
 from .common import CHUNKED, ChunkedWorkload
 
 
@@ -83,6 +83,18 @@ def _args_gemv(rng, scale=1):
             rng.normal(size=256).astype(np.float32))
 
 
+def _args_gemv_b(rng, scale=1):
+    return ({"w": rng.normal(size=(512 * scale, 256)).astype(np.float32),
+             "b": rng.normal(size=512 * scale).astype(np.float32)},
+            rng.normal(size=256).astype(np.float32))
+
+
+def _args_gemv_g(rng, scale=1):
+    return ({"wg": rng.normal(size=(256 * scale, 256)).astype(np.float32),
+             "wu": rng.normal(size=(256 * scale, 256)).astype(np.float32)},
+            rng.normal(size=256).astype(np.float32))
+
+
 def _args_spmv(rng, scale=1):
     rows = 512 * scale
     ip, ix, dv = spmv.random_csr(rows, 256, 8, seed=int(rng.integers(1 << 30)))
@@ -107,6 +119,10 @@ def _entries():
     return [
         e("GEMV", "§4.2", gemv, gemv.ref, gemv.pim, gemv.chunked,
           _args_gemv, assert_close),
+        e("GEMV-B", "§4.2", gemv_fused, gemv_fused.ref_b, gemv_fused.pim_b,
+          gemv_fused.chunked_b, _args_gemv_b, assert_close),
+        e("GEMV-G", "§4.2", gemv_fused, gemv_fused.ref_g, gemv_fused.pim_g,
+          gemv_fused.chunked_g, _args_gemv_g, assert_close),
         e("SpMV", "§4.3", spmv, spmv.ref, spmv.pim, spmv.chunked,
           _args_spmv, assert_close),
         e("HST", "§4.11", hist, hist.ref, hist.pim_short, hist.chunked,

@@ -12,7 +12,11 @@ with the magnitudes added: float sums and prefix sums agree within 1e-6
 (about 16 float32 epsilons) times the sum of |x| over the same prefix.
 float32 GEMV and SpMV agree within the registry's rtol = atol = 1e-4;
 bfloat16 GEMV and SpMV, compared in float32, within 2e-2, one bfloat16
-rounding step being 2^-8 of the value.  The session and pipeline cases
+rounding step being 2^-8 of the value.  flash_attention agrees with its
+plain version within the reference's kernel-test tolerances
+(tests/test_kernels.py): rtol = atol = 2e-3 in float32 (an online softmax
+over key tiles against one softmax over the row) and 2e-2 in bfloat16
+(both round a float32 result to bfloat16).  The session and pipeline cases
 hold results to the registry's comparators against ``ref()``.
 """
 import threading
@@ -23,12 +27,15 @@ import pytest
 import torch
 
 from repro_torch import make_rank_grid, pim
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import gemv as kgemv
 from repro_torch.kernels import histogram as khist
 from repro_torch.kernels import ops
 from repro_torch.kernels import reduce as kred
 from repro_torch.kernels import scan as kscan
 from repro_torch.kernels import spmv as kspmv
+from repro_torch.models import transformer
 from repro_torch.prim.registry import REGISTRY
 from repro_torch.runtime import run_pipelined_ranked
 
@@ -112,8 +119,11 @@ def test_launch_counts_and_refusals(dev):
     ops.spmv_ell(make((2, 8, 4), torch.float32, dev),
                  make((2, 8, 4), torch.int32, dev, lo=-1, hi=16),
                  make((16,), torch.float32, dev))
+    qkv = make((1, 2, 16, 64), torch.float32, dev)
+    ops.attention(qkv, qkv, qkv)
     assert ops.launch_counts() == {"reduce_sum": 1, "scan_inclusive": 1,
-                                   "histogram": 1, "gemv": 1, "spmv_ell": 1}
+                                   "histogram": 1, "gemv": 1, "spmv_ell": 1,
+                                   "flash_attention": 1}
     with pytest.raises(TypeError):
         ops.reduce_sum(x.to(torch.int64))
     with pytest.raises(ValueError):
@@ -148,6 +158,59 @@ def test_spmv_refuses_bad_inputs(dev):
         kspmv.spmv_ell(v, c[:2], make((8,), torch.float32, dev))
 
 
+# -- flash_attention -----------------------------------------------------------------
+
+FLASH_CASES = [   # B, H, KVH, S, T, D, causal, window
+    (1, 4, 4, 128, 128, 64, True, None),       # MHA, causal
+    (2, 8, 2, 200, 200, 80, True, None),       # GQA, ragged tiles
+    (1, 8, 1, 64, 64, 120, True, None),        # MQA, danube head dim
+    (1, 3, 3, 96, 48, 160, False, None),       # S != T, stablelm head dim
+    (1, 4, 2, 100, 37, 128, True, None),       # S > T: 63 rows fully masked
+    (1, 4, 2, 37, 100, 64, True, None),        # S < T, offset queries
+    (1, 4, 2, 300, 300, 64, True, 16),         # window 16
+    (1, 4, 2, 300, 300, 120, True, 100),       # window, danube head dim
+    (1, 4, 4, 130, 130, 64, False, 16),        # window without causal
+    (1, 2, 1, 70, 70, 5, True, None),          # head dim not a multiple of 4
+    (1, 2, 2, 64, 64, 256, True, None),        # the largest head dim
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, case, dtype):
+    B, H, KVH, S, T, D, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(S * T + D)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((B, H, S, D), (B, KVH, T, D), (B, KVH, T, D)))
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = kfa.plain(q, k, v, causal=causal, window=window)
+    close(got, want, rel(want, 2e-2 if dtype == torch.bfloat16 else 2e-3))
+    if causal and S > T:
+        assert bool((got[:, :, :S - T] == 0).all())   # no live key: 0
+
+
+def test_flash_attention_takes_strided_inputs_and_refuses(dev):
+    x = make((1, 40, 6, 64), torch.float32, dev).transpose(1, 2)  # (1,6,40,64)
+    want = kfa.plain(x, x[:, :3], x[:, :3])
+    close(ops.attention(x, x[:, :3], x[:, :3]), want, rel(want, 2e-3))
+    with pytest.raises(ValueError):
+        ops.attention(*(make((1, 2, 8, 300), torch.float32, dev),) * 3)
+    with pytest.raises(TypeError):
+        kfa.flash_attention(x, x.half(), x)
+
+
+def test_forward_with_kernel_launches_once_per_layer(dev):
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    model = transformer.init(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 50), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    ops.reset_launch_counts()
+    got, _ = transformer.forward(model, cfg, toks, use_kernel=True)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want, _ = transformer.forward(model, cfg, toks)
+    close(got, want, rel(want, 1e-3))
+
+
 # -- the pipeline on CUDA streams, and the session -----------------------------------
 
 def test_rank_views_get_distinct_streams(dev):
@@ -171,7 +234,8 @@ def test_session_pipelined_matches_ref(dev):
                           entry.ref(*args))
             entry.compare(s.submit(name, *args).result(timeout=120),
                           entry.ref(*args))          # warm where resident
-        assert s.stats()["cache"]["hits"] == 2     # GEMV and SpMV
+        # GEMV, GEMV-B, GEMV-G and SpMV
+        assert s.stats()["cache"]["hits"] == 4
 
 
 def test_pinned_staging_reused_under_two_ranks(dev):

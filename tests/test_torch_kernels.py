@@ -1,5 +1,6 @@
 """Port parity: every wrapper of ``repro_torch.kernels.ops`` against
-``repro.kernels.ops`` on the shapes of tests/test_kernels.py.
+``repro.kernels.ops`` on the shapes of tests/test_kernels.py, attention and
+decode attention included.
 
 The reference runs its Pallas kernels in interpret mode on the CPU; the
 port runs on CPU tensors, so each wrapper's padding and block clamp run
@@ -12,6 +13,10 @@ float32 results agree to rtol = atol = 1e-4, the registry's GEMV and SpMV
 tolerance: both sides accumulate in float32 but may add in another order.
 bfloat16 GEMV and SpMV are compared in float32 at 2e-2: both round one
 float32 sum to bfloat16, where one rounding step is 2^-8 of the value.
+Attention keeps tests/test_kernels.py's own tolerances: 2e-3 in float32
+(the reference's online softmax over 128-key blocks against one softmax
+over the row) and 2e-2 in bfloat16; the decode attentions, whose two sides
+take one softmax each, agree at 1e-4.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -195,6 +200,77 @@ def test_spmv_bank_batched_equals_per_bank():
                                     jnp.asarray(x)), 1e-4)
 
 
+# -- attention -------------------------------------------------------------------
+
+def qkv(B, H, KVH, S, T, D, dtype):
+    return (both(R.normal(size=(B, H, S, D)).astype(np.float32), dtype),
+            both(R.normal(size=(B, KVH, T, D)).astype(np.float32), dtype),
+            both(R.normal(size=(B, KVH, T, D)).astype(np.float32), dtype))
+
+
+@pytest.mark.parametrize("B,H,KVH,S,T,D", [
+    (1, 4, 4, 128, 128, 64),      # MHA aligned
+    (2, 4, 2, 256, 256, 128),     # GQA aligned
+    (1, 6, 2, 100, 100, 80),      # ragged seq + head dim
+    (1, 8, 1, 64, 64, 120),       # MQA, danube head dim
+    (1, 3, 3, 96, 48, 160),       # cross shapes, stablelm head dim
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_matches_reference(B, H, KVH, S, T, D, dtype):
+    """tests/test_kernels.py's sweep: the port's wrapper (the plain version
+    on CPU tensors) against the reference's padded Pallas kernel in
+    interpret mode, and the two oracles against each other."""
+    (jq, tq), (jk, tk), (jv, tv) = qkv(B, H, KVH, S, T, D, dtype)
+    causal = S == T
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    agree(tops.attention(tq, tk, tv, causal=causal),
+          jops.attention(jq, jk, jv, causal=causal), tol)
+    agree(tref.attention(tq, tk, tv, causal=causal),
+          jref.attention(jq, jk, jv, causal=causal), tol)
+
+
+@pytest.mark.parametrize("window", [16, 64, 1000])
+def test_attention_sliding_window_matches_reference(window):
+    (jq, tq), (jk, tk), (jv, tv) = qkv(1, 4, 2, 128, 128, 64, torch.float32)
+    agree(tops.attention(tq, tk, tv, causal=True, window=window),
+          jops.attention(jq, jk, jv, causal=True, window=window), 2e-3)
+
+
+@pytest.mark.parametrize("S,T,causal,window", [(40, 24, True, None),
+                                               (40, 40, True, 0),
+                                               (24, 40, False, 8)])
+def test_attention_offset_and_fully_masked_rows(S, T, causal, window):
+    """Queries sit at i + (T - S): with S > T the first S - T rows see no
+    key and give 0 (not NaN), as both the Pallas kernel and the oracle
+    do; a window of 0 masks every key."""
+    (jq, tq), (jk, tk), (jv, tv) = qkv(1, 2, 1, S, T, 16, torch.float32)
+    got = tops.attention(tq, tk, tv, causal=causal, window=window)
+    assert torch.isfinite(got).all()
+    agree(got, jref.attention(jq, jk, jv, causal=causal, window=window), 2e-3)
+    agree(got, jops.attention(jq, jk, jv, causal=causal, window=window), 2e-3)
+    if causal and S > T:
+        assert bool((got[:, :, :S - T] == 0).all())
+
+
+@pytest.mark.parametrize("impl", ["ref", "grouped"])
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_reference(impl, window, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = qkv(2, 8, 2, 1, 64, 32, dtype)
+    lens = np.asarray([10, 64], np.int32)
+    jl, tl = jnp.asarray(lens), torch.from_numpy(lens)
+    agree(tops.decode_attention(tq, tk, tv, tl, window=window, impl=impl),
+          jops.decode_attention(jq, jk, jv, jl, window=window, impl=impl),
+          2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def test_decode_attention_equals_full_attention_over_the_cache():
+    (jq, tq), (jk, tk), (jv, tv) = qkv(2, 4, 2, 1, 32, 64, torch.float32)
+    lens = torch.tensor([32, 32], dtype=torch.int32)
+    agree(tops.decode_attention(tq, tk, tv, lens),
+          jref.attention(jq, jk, jv, causal=False), 1e-4)
+
+
 # -- oracles and dispatch ----------------------------------------------------------
 
 def test_oracles_keep_int32():
@@ -215,8 +291,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     tops.gemv(torch.ones(3, 8), torch.ones(8))
     tops.spmv_ell(torch.ones(3, 4), torch.zeros(3, 4, dtype=torch.int32),
                   torch.ones(8))
+    tops.attention(*(torch.ones(1, 2, 4, 8),) * 3)
     assert tops.launch_counts() == {"reduce_sum": 0, "scan_inclusive": 0,
-                                    "histogram": 0, "gemv": 0, "spmv_ell": 0}
+                                    "histogram": 0, "gemv": 0, "spmv_ell": 0,
+                                    "flash_attention": 0}
 
 
 def test_wrappers_reject_bad_ranks():

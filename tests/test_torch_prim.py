@@ -1,5 +1,5 @@
-"""Port parity: the PrIM workloads of ``repro_torch.prim`` (GEMV, SpMV, HST,
-RED, SCAN) against ``repro.prim``.
+"""Port parity: the PrIM workloads of ``repro_torch.prim`` (GEMV, GEMV-B,
+GEMV-G, SpMV, HST, RED, SCAN) against ``repro.prim``.
 
 Every ``pim`` variant runs on the port at 1 and 8 banks (``device="cpu"``)
 and on the reference at its one in-process bank (Pallas kernels in
@@ -121,6 +121,24 @@ def test_spmv_matches_reference(bank_grid, banks, use_kernel, rows, ncols,
              bank_grid, banks, (vals, cols, x))
 
 
+@pytest.mark.parametrize("banks", BANKS)
+@pytest.mark.parametrize("m,n", [(67, 33), (512, 256)])
+@pytest.mark.parametrize("name", ["GEMV-B", "GEMV-G"])
+def test_gemv_fused_matches_reference(bank_grid, banks, name, m, n):
+    """The decode engine's two matvecs: W @ x + b, and the SwiGLU gated
+    hidden silu(Wg @ x) * (Wu @ x) with its silu in float32."""
+    rng = np.random.default_rng(8)
+    mat = lambda: rng.normal(size=(m, n)).astype(np.float32)  # noqa: E731
+    w = ({"w": mat(), "b": rng.normal(size=m).astype(np.float32)}
+         if name == "GEMV-B" else {"wg": mat(), "wu": mat()})
+    x = rng.normal(size=n).astype(np.float32)
+    suffix = name[-1].lower()
+    run_both(name, getattr(tprim.gemv_fused, f"pim_{suffix}"),
+             getattr(jprim.gemv_fused, f"pim_{suffix}"), bank_grid, banks,
+             (w, x))
+    same(TREG[name].ref(w, x), JREG[name].ref(w, x), TREG[name].compare)
+
+
 @pytest.mark.parametrize("rows,ncols,nnz,seed", [(53, 40, 6, 1), (300, 256, 8, 9),
                                                  (7, 5, 0, 3)])
 def test_csr_helpers_byte_equal(rows, ncols, nnz, seed):
@@ -188,6 +206,23 @@ def test_spmv_split_is_resident_then_varying(banks):
         assert cv.tobytes() == rv.tobytes() and cc.tobytes() == rc.tobytes()
 
 
+@pytest.mark.parametrize("banks", BANKS)
+@pytest.mark.parametrize("name", ["GEMV-B", "GEMV-G"])
+def test_gemv_fused_split_is_resident_then_varying(banks, name):
+    w = TREG[name].chunked
+    assert w.supports_residency and w.resident_args == (0,)
+    g = cpu_grid(banks)
+    wts, x = TREG[name].make_args(np.random.default_rng(6), scale=1)
+    meta, chunks = w.split(g, 3, wts, x)
+    res_meta, res_chunks = w.split_resident(g, 3, wts)
+    vmeta, vchunks = w.split_varying(g, 3, res_meta, wts, x)
+    assert vchunks is None and {k: meta[k] for k in res_meta} == res_meta
+    assert set(meta) == set(vmeta)
+    for c, r in zip(chunks, res_chunks):
+        assert set(c) == set(r) == set(wts)
+        assert all(c[k].tobytes() == r[k].tobytes() for k in c)
+
+
 # -- registry ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", sorted(TREG))
@@ -197,11 +232,17 @@ def test_make_args_byte_parity(name, scale):
     want = JREG[name].make_args(np.random.default_rng(42), scale=scale)
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        if isinstance(w, np.ndarray):
-            assert g.dtype == w.dtype and g.shape == w.shape
-            assert g.tobytes() == w.tobytes()
+        if isinstance(w, dict):                     # GEMV-B / G weights
+            assert set(g) == set(w)
+            pairs = [(g[k], w[k]) for k in w]
         else:
-            assert g == w
+            pairs = [(g, w)]
+        for gi, wi in pairs:
+            if isinstance(wi, np.ndarray):
+                assert gi.dtype == wi.dtype and gi.shape == wi.shape
+                assert gi.tobytes() == wi.tobytes()
+            else:
+                assert gi == wi
 
 
 @pytest.mark.parametrize("name", sorted(TREG))

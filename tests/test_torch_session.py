@@ -31,7 +31,7 @@ from repro_torch.runtime.elastic import RankAllocator as TAllocator
 from repro_torch.runtime.qos import TenantState as TTenant
 from repro_torch.runtime.qos import resolve_options
 
-PORTED = ("GEMV", "SpMV", "HST", "RED", "SCAN")
+PORTED = ("GEMV", "GEMV-B", "GEMV-G", "SpMV", "HST", "RED", "SCAN")
 
 
 def red_args(rng, n=4096):
