@@ -8,23 +8,33 @@ checks every result against ``ref()``, shows that the suite went through
 the kernels, and then drives the same workloads through the session
 façade, ``repro_torch.pim.session(ranks=32, banks_per_rank=64)``: ``run``,
 ``map``, ``pin`` with warm hits, a two-tenant serving block and a trace
-export, every result checked with the registry's comparator.  Last, the LM
+export, every result checked with the registry's comparator.  Then the LM
 serving stack on TinyLlama 1.1B at its published width (seeded weights):
 the prefill ``transformer.forward(use_kernel=True)`` through the
 ``flash_attention`` kernel, checked against the plain forward and timed,
 teacher-forced ``decode_step`` against the prefill logits, and
 ``greedy_generate`` on the card against the ``DecodeEngine`` on a flat
-session, token for token.
+session, token for token.  Then the MoE family on DeepSeek-MoE 16B at its
+published width: float32 at 4 layers (kernel against plain forward, and
+decode against prefill at a capacity factor that drops nothing), bfloat16
+at all 28 layers (the prefill through ``moe_gmm`` and ``flash_attention``,
+timed beside the plain forward, its dropped pairs and the top-k sets the
+two forwards route differently) and ``greedy_generate``.  Last the hybrid
+family on Jamba 1.5 Large at full width cut to 2 layers (one card holds
+11.9 B of its 397.5 B parameters): the same legs, its prefill through
+``ssd_scan``, ``moe_gmm`` and ``flash_attention`` in one forward.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from ``nvidia-smi``, and the one before that a JSON
-``{"kernels": [...]}`` with each kernel's launches on its path (the suite,
-or for flash_attention one prefill forward), its error against its plain
-version, and its times beside its bound.
+``{"kernels": [...]}`` with each kernel's launches on its path (the suite;
+for flash_attention one TinyLlama prefill forward, for moe_gmm one
+DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut), its
+error against its plain version, and its times beside its bound.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -67,6 +77,15 @@ DANUBE = dict(H=32, KVH=8, S=8192, D=120, window=4096)
 CONSIST = 32                        # teacher-forced decode tokens
 DECODE_STREAMS, DECODE_PROMPT, DECODE_NEW = 2, 8, 8
 DECODE_BANKS = 256                  # flat session: one rank, 8 GB budget
+# the MoE phase: DeepSeek-MoE 16B (configs/deepseek_moe_16b.py:FULL); its
+# float32 legs at 4 layers (the dense layer 0 and 3 MoE layers, ~9 GB: all
+# 28 in float32 are 65.5 GB and leave no room for a plain forward)
+MOE_ARCH, MOE_F32_LAYERS = "deepseek-moe-16b", 4
+# the hybrid phase: Jamba 1.5 Large (configs/jamba_1_5_large_398b.py:FULL)
+# at full width cut to 2 layers, attention + MoE and Mamba + dense: 11.9 B
+# parameters (47.6 GB in float32, 23.8 GB in bfloat16) of its 397.5 B
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-1.5-large-398b", 2
+BIG_ITERS = 3                       # timed launches of the largest rows
 
 
 def smi_line() -> str:
@@ -78,7 +97,7 @@ def smi_line() -> str:
 
 def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, after warm-up."""
-    for _ in range(3):
+    for _ in range(min(3, iters)):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -276,6 +295,8 @@ def kernel_phase(dev) -> list[dict]:
     large = timed(spmv_case("spmv_ell", SPMV_LARGE_ROWS, COLS, g, dev))
     rows[-1][f"at_{SPMV_LARGE_ROWS}_rows_per_bank"] = dict_of(large)
     rows.append(flash_rows(g, dev))
+    rows.append(gmm_rows(g, dev))
+    rows.append(ssd_rows(g, dev))
     return rows
 
 
@@ -328,8 +349,10 @@ def flash_case(name: str, B, H, KVH, S, T, D, window, g, dev) -> dict:
 def flash_rows(g, dev) -> dict:
     """flash_attention: small correctness cases (not timed), at the
     reference's kernel-test tolerances (rtol = atol = 2e-3 float32, 2e-2
-    bfloat16), then the TinyLlama prefill shape and the H2O-Danube3 shape,
-    timed, at 4e-3 (``flash_case``)."""
+    bfloat16), then the TinyLlama prefill shape, the H2O-Danube3 shape,
+    and the prefill shapes of DeepSeek-MoE (16 heads of 128) and the Jamba
+    cut (64 query / 8 key-value heads of 128), timed, at 4e-3
+    (``flash_case``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
@@ -360,22 +383,162 @@ def flash_rows(g, dev) -> dict:
     large = timed(flash_case("flash_attention", 1, d["H"], d["KVH"], d["S"],
                              d["S"], d["D"], d["window"], g, dev))
     row["at_h2o_danube3_8192_window_4096"] = dict_of(large)
+    ds = get_config(MOE_ARCH)
+    moe = timed(flash_case("flash_attention", 1, ds.n_heads, ds.n_kv_heads,
+                           PREFILL, PREFILL, ds.hd, ds.window, g, dev))
+    row["at_deepseek_moe_16b_prefill"] = dict_of(moe)
+    jb = get_config(HYBRID_ARCH)
+    hybrid = timed(flash_case("flash_attention", 1, jb.n_heads, jb.n_kv_heads,
+                              PREFILL, PREFILL, jb.hd, jb.window, g, dev))
+    row["at_jamba_cut_prefill"] = dict_of(hybrid)
+    torch.cuda.empty_cache()
+    return row
+
+
+def gmm_case(E: int, C: int, d: int, f: int, g, dev,
+             iters: int = TIMED_ITERS) -> dict:
+    """One timed moe_gmm case in bfloat16: x (E, C, d) unit normals, w
+    (E, d, f) scaled by d^-0.5 as the model's init scales it, counts
+    seeded in [ceil(0.8 C), C] with expert 0 at 0.  Bytes: the weights of
+    the experts with a live row, the live rows of x, all of y (dead rows
+    are written as zeros) and the counts; operations: 2 d f per live row,
+    at the bfloat16 tensor-core rate.  Tolerance 8e-3 * (1 + |y|): both
+    round float32 sums that differ in their last bits to bfloat16, one
+    step being at most 2^-7 of the value.  The library call is
+    ``torch.bmm`` of the same operands: the whole product, without the
+    row mask."""
+    from repro_torch.kernels import moe_gmm as kgmm
+    from repro_torch.kernels import ops
+
+    x = torch.randn((E, C, d), generator=g, device=dev, dtype=torch.bfloat16)
+    w = torch.randn((E, d, f), generator=g, device=dev,
+                    dtype=torch.bfloat16).mul_(d ** -0.5)
+    cnt = torch.randint(-(-4 * C // 5), C + 1, (E,), generator=g, device=dev,
+                        dtype=torch.int32)
+    cnt[0] = 0
+    live = int(cnt.clamp(0, C).sum())
+    experts = int((cnt > 0).sum())
+    return dict(
+        name="moe_gmm", source="src/repro_torch/csrc/moe_gmm.cu",
+        replaces="src/repro/kernels/moe_gmm.py:21",
+        kernel=lambda: ops.moe_gmm(x, w, cnt),
+        plain=lambda: kgmm.plain(x, w, cnt),
+        library=lambda: torch.bmm(x, w),
+        nbytes=2 * (experts * d * f + live * d + E * C * f) + 4 * E,
+        nops=2 * live * d * f, ops_per_s=BF16_TC_OPS_PER_S, tol=8e-3,
+        iters=iters)
+
+
+def gmm_rows(g, dev) -> dict:
+    """moe_gmm at DeepSeek-MoE's prefill shapes (64 experts, capacity 240
+    at 2,048 tokens: up (64, 240, 2048) x (64, 2048, 2816), down (64, 240,
+    1408) x (64, 1408, 2048)) and the Jamba cut's up and down projections
+    (16 experts, capacity 320: (16, 320, 8192) x (16, 8192, 49152), 12.9 GB
+    of bfloat16 weights, whose plain version makes a 25.8 GB float32 copy,
+    and (16, 320, 24576) x (16, 24576, 8192); each built alone and
+    freed).  Small cases first, at the reference's
+    kernel-test tolerances: float32 at 1e-3, a C that is no multiple of
+    the row tile, odd d and f (no 16-byte loads), counts 0 and C."""
+    from repro_torch.kernels import moe_gmm as kgmm
+    from repro_torch.kernels import ops
+
+    for label, (E, C, d, f, dtype) in {
+            "f32 ragged counts": (4, 100, 200, 300, torch.float32),
+            "bf16 odd d, f": (3, 37, 13, 9, torch.bfloat16),
+            "bf16 C not a tile": (8, 240, 512, 320, torch.bfloat16)}.items():
+        x = torch.randn((E, C, d), generator=g, device=dev).to(dtype)
+        w = torch.randn((E, d, f), generator=g, device=dev).to(dtype)
+        cnt = torch.randint(0, C + 1, (E,), generator=g, device=dev,
+                            dtype=torch.int32)
+        cnt[0], cnt[1] = 0, C
+        want = kgmm.plain(x, w, cnt)
+        check(f"moe_gmm {label}", ops.moe_gmm(x, w, cnt), want,
+              rel(want, 1e-3 if dtype == torch.float32 else 5e-2))
+    row = timed(gmm_case(64, 240, 2048, 2816, g, dev))
+    row["at_deepseek_down"] = dict_of(timed(gmm_case(64, 240, 1408, 2048,
+                                                     g, dev)))
+    torch.cuda.empty_cache()
+    row["at_jamba_up"] = dict_of(timed(gmm_case(16, 320, 8192, 49152, g, dev,
+                                                iters=BIG_ITERS)))
+    torch.cuda.empty_cache()
+    row["at_jamba_down"] = dict_of(timed(gmm_case(16, 320, 24576, 8192, g,
+                                                  dev, iters=BIG_ITERS)))
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssd_case(dtype, g, dev, B=1, S=PREFILL, H=256, P=64, N=16,
+             L=128) -> dict:
+    """One timed ssd_scan case at the Jamba cut's shape (d 8192, expand 2,
+    head dim 64: H 256; state 16; chunk 128): x, b, c in ``dtype``, a
+    float32 in [0.3, 1).  The kernel against the sequential plain version
+    on y and the final h (5e-3, the reference's chunked-vs-sequential
+    tolerance; y at 2e-2 in bfloat16, both rounding to bfloat16), after a
+    check against the chunked form in plain PyTorch.  Bytes: x, a, b, c
+    read once, y and h written once; operations per (b, h, chunk): the
+    L (L + 1) / 2 pairs t >= s of C B^T (2 N each) and of the masked
+    product with X (2 P each), C h0 and the state update (2 L N P each),
+    at the tensor-core rate for bfloat16 inputs and the float32 rate
+    otherwise.  No one PyTorch call computes the scan."""
+    from repro_torch.kernels import mamba_scan as kmamba
+    from repro_torch.kernels import ops
+
+    x = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+    a = torch.rand((B, S, H), generator=g, device=dev) * 0.7 + 0.3
+    b = torch.randn((B, S, N), generator=g, device=dev).to(dtype)
+    c = torch.randn((B, S, N), generator=g, device=dev).to(dtype)
+    y, h = ops.ssd_scan(x, a, b, c, chunk=L)
+    cy, ch = kmamba.chunked(x, a, b, c, L)
+    bf16 = dtype == torch.bfloat16
+    check(f"ssd_scan {str(dtype)[6:]} vs chunked y", y, cy,
+          rel(cy, 2e-2 if bf16 else 1e-3))
+    check(f"ssd_scan {str(dtype)[6:]} vs chunked h", h, ch, rel(ch, 1e-3))
+    del y, h, cy, ch
+
+    def final_h(got, want):
+        """Check the final states; the row's error is y's."""
+        check(f"ssd_scan {str(dtype)[6:]} final h", got[1], want[1],
+              rel(want[1], 5e-3))
+        return got[0], want[0]
+
+    n = -(-S // L)
+    return dict(
+        name="ssd_scan", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/mamba_scan.py:26",
+        kernel=lambda: ops.ssd_scan(x, a, b, c, chunk=L),
+        plain=lambda: kmamba.plain(x, a, b, c), library=None, check=final_h,
+        nbytes=2 * x.nbytes + a.nbytes + b.nbytes + c.nbytes + B * H * N * P * 4,
+        nops=B * H * n * (L * (L + 1) * (N + P) + 4 * L * N * P),
+        ops_per_s=BF16_TC_OPS_PER_S if bf16 else F32_OPS_PER_S,
+        tol=2e-2 if bf16 else 5e-3, iters=BIG_ITERS)
+
+
+def ssd_rows(g, dev) -> dict:
+    row = timed(ssd_case(torch.bfloat16, g, dev))
+    row["at_float32"] = dict_of(timed(ssd_case(torch.float32, g, dev)))
     torch.cuda.empty_cache()
     return row
 
 
 def timed(c: dict) -> dict:
     """Check one case against its plain version, then time kernel, plain
-    version and library call; one row of the kernels line."""
+    version and library call (``library`` None: no one PyTorch call
+    computes the function); one row of the kernels line.  A case's
+    ``check`` (optional) compares further outputs, e.g. a second result."""
     want = c["plain"]()
-    err = check(c["name"], c["kernel"](), want,
-                rel(want, c["tol"]) if c["tol"] else 0)
-    ms, plain_ms, lib_ms = (cuda_ms(c["kernel"]), cuda_ms(c["plain"]),
-                            cuda_ms(c["library"]))
+    got = c["kernel"]()
+    if "check" in c:
+        got, want = c["check"](got, want)
+    err = check(c["name"], got, want, rel(want, c["tol"]) if c["tol"] else 0)
+    del got, want
+    iters = c.get("iters", TIMED_ITERS)
+    ms, plain_ms = cuda_ms(c["kernel"], iters), cuda_ms(c["plain"], iters)
+    lib_ms = cuda_ms(c["library"], iters) if c["library"] else None
     bound_ms, bound_by = bound(c["nbytes"], c["nops"],
                                c.get("ops_per_s", F32_OPS_PER_S))
+    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "-"
     print(f"  {c['name']:15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-          f"  library {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
+          f"  library {lib}  bound {bound_ms:.4f} ms "
           f"({bound_by}, {c['nbytes'] / 1e6:.1f} MB)")
     return {"name": c["name"], "route": "cuda", "source": c["source"],
             "replaces": c["replaces"], "max_abs_err": err, "ms": ms,
@@ -672,6 +835,153 @@ def decode_phase(model, dev) -> None:
           + ", ".join(f"{k} {v:.2f} s" for k, v in rep["pim_s"].items()))
 
 
+@contextlib.contextmanager
+def routing_log():
+    """Record, for every ``moe.apply`` call, each token's top-k experts
+    (sorted) and the pairs past the expert capacity
+    (``moe.apply.routing``)."""
+    from repro_torch.models import moe
+
+    moe.apply.routing = []
+    try:
+        yield moe.apply.routing
+    finally:
+        moe.apply.routing = None
+
+
+def routed_apart(a: list, b: list) -> int:
+    """(token, layer) pairs whose top-k sets differ between two logs."""
+    return sum(int((ta != tb).any(-1).sum()) for (ta, _), (tb, _) in zip(a, b))
+
+
+def expected_launches(model) -> dict[str, int]:
+    """Kernel launches of one forward(use_kernel=True): flash_attention per
+    attention layer, moe_gmm twice per MoE layer, ssd_scan per Mamba
+    layer."""
+    descs = [blk.desc for blk in model.layers]
+    return {"flash_attention": sum(d["mixer"] == "attn" for d in descs),
+            "moe_gmm": 2 * sum(d["ffn"] == "moe" for d in descs),
+            "ssd_scan": sum(d["mixer"] == "mamba" for d in descs)}
+
+
+def counted_forward(model, cfg, toks) -> dict[str, int]:
+    """One ``forward(use_kernel=True)`` with every count set to 0 just
+    before it: the launches of the path, checked against the layer
+    plan."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    want = expected_launches(model)
+    ops.reset_launch_counts()
+    transformer.forward(model, cfg, toks, use_kernel=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in want} == want, (counts, want)
+    assert sum(counts.values()) == sum(want.values()), counts
+    return want
+
+
+def family_phase(arch: str, f32_layers: int, bf16_layers: int, tol: float,
+                 dev) -> dict[str, int]:
+    """One model family at its published width, seeded weights, prefill of
+    PREFILL tokens:
+
+    - float32 at ``f32_layers``: ``forward(use_kernel=True)`` against the
+      plain forward within ``tol`` (rtol = atol), with the (token, layer)
+      top-k sets the two route differently; teacher-forced ``decode_step``
+      over CONSIST tokens against the kernel prefill at the reference's
+      rtol = atol = 2e-2, at capacity factor E / K, where no pair drops
+      (decode routes B tokens at a time, capacity 8, and never drops);
+    - bfloat16 at ``bf16_layers``: the prefill's launches from one
+      counted forward (returned), its time with the kernels and plain
+      (mean of 3 after a warm-up), the max logit difference and argmax
+      agreement of the two, the pairs past capacity and the top-k sets
+      routed differently; then ``greedy_generate``, DECODE_STREAMS x
+      (DECODE_PROMPT + DECODE_NEW) tokens.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer
+
+    full = get_config(arch)
+    gen = torch.Generator(device=dev)
+    toks = torch.randint(0, full.vocab, (1, PREFILL), device=dev,
+                         generator=gen.manual_seed(1))
+    cfg = dataclasses.replace(full, n_layers=f32_layers, dtype=torch.float32)
+    print(f"{arch}: {full.total_params() / 1e9:.2f} B params at {full.n_layers}"
+          f" layers; d_model {full.d_model}, heads {full.n_heads} / "
+          f"{full.n_kv_heads}, {full.moe_experts} experts top-"
+          f"{full.moe_top_k}, d_ff {full.d_ff}; float32 at {f32_layers} "
+          f"layers ({cfg.total_params() / 1e9:.2f} B), bfloat16 at "
+          f"{bf16_layers} ({dataclasses.replace(full, n_layers=bf16_layers).total_params() / 1e9:.2f} B)")
+    with torch.no_grad():
+        model = transformer.init(cfg, seed=0, device=dev)
+        print(f"  float32 plan: {[tuple(b.desc.values())[:2] for b in model.layers]}")
+        print(f"  float32 launches per forward: {counted_forward(model, cfg, toks)}")
+        with routing_log() as klog:
+            got, aux = transformer.forward(model, cfg, toks, use_kernel=True)
+        with routing_log() as plog:
+            want, paux = transformer.forward(model, cfg, toks)
+        print(f"  float32 top-k sets routed apart: {routed_apart(klog, plog)} "
+              f"of {sum(len(t) for t, _ in klog)} (token, layer); pairs past "
+              f"capacity {sum(d for _, d in klog)}; aux {float(aux):.6f} / "
+              f"{float(paux):.6f}")
+        check(f"{arch} f32 kernel vs plain", got, want, rel(want, tol))
+        del got, want
+        free = dataclasses.replace(cfg, moe_capacity_factor=cfg.moe_experts
+                                   / cfg.moe_top_k)
+        assert moe._capacity(free, CONSIST) >= CONSIST
+        ctoks = toks[:, :CONSIST]
+        prefill, _ = transformer.forward(model, free, ctoks, use_kernel=True)
+        cache = transformer.init_cache(model, free, 1, CONSIST)
+        outs = []
+        for i in range(CONSIST):
+            lt, cache = transformer.decode_step(model, free,
+                                                ctoks[:, i:i + 1], cache)
+            outs.append(lt)
+        check(f"{arch} decode vs prefill", torch.cat(outs, 1), prefill,
+              rel(prefill, 2e-2))
+        del model, prefill, outs, cache
+        torch.cuda.empty_cache()
+
+        cfg = dataclasses.replace(full, n_layers=bf16_layers)
+        model = transformer.init(cfg, seed=0, device=dev)
+        counts = counted_forward(model, cfg, toks)
+        with routing_log() as klog:
+            got, _ = transformer.forward(model, cfg, toks, use_kernel=True)
+        with routing_log() as plog:
+            want, _ = transformer.forward(model, cfg, toks)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        err = float((got.float() - want.float()).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        apart = routed_apart(klog, plog)
+        dropped = [d for _, d in klog]
+        del got, want
+        ms = host_ms(lambda: transformer.forward(model, cfg, toks,
+                                                 use_kernel=True))
+        plain_ms = host_ms(lambda: transformer.forward(model, cfg, toks))
+        print(f"  forward bf16, {bf16_layers} layers: kernel {ms:.2f} ms "
+              f"({PREFILL / ms * 1e3:.0f} tokens/s), plain {plain_ms:.2f} ms;"
+              f" max |kernel - plain| {err:.3e}, argmax agrees at "
+              f"{agree:.4f} of positions; top-k sets routed apart {apart} of"
+              f" {sum(len(t) for t, _ in klog)} (token, layer); pairs past "
+              f"capacity {sum(dropped)} of {PREFILL * cfg.moe_top_k * len(dropped)}"
+              f" (per MoE layer {dropped}); launches per forward {counts}")
+        prompt = torch.randint(0, cfg.vocab, (DECODE_STREAMS, DECODE_PROMPT),
+                               device=dev, dtype=torch.int32,
+                               generator=gen.manual_seed(5))
+        t0 = time.perf_counter()
+        tokens = serve.greedy_generate(model, cfg, prompt, DECODE_NEW)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+    assert tokens.shape == (DECODE_STREAMS, DECODE_PROMPT + DECODE_NEW)
+    print(f"  greedy_generate bf16 {DECODE_STREAMS} x ({DECODE_PROMPT} + "
+          f"{DECODE_NEW}) tokens in {greedy_s:.2f} s: {tokens.tolist()}")
+    del model, tokens
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -679,8 +989,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import cuda_lib
 
-    name, smi = torch.cuda.get_device_name(0), smi_line()
-    print(f"device: {name}  ({smi}); torch {torch.__version__}, "
+    kind, smi = torch.cuda.get_device_name(0), smi_line()
+    print(f"device: {kind}  ({smi}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -702,11 +1012,13 @@ def main() -> int:
     print(f"suite: {time.perf_counter() - t0:.2f} s; launches {counts}")
     # every kernel has a row; each row's launches come from the path that
     # runs it: the suite's five kernels from the suite, flash_attention
-    # from one prefill forward (the LM phase below)
+    # from one TinyLlama prefill forward, moe_gmm from one DeepSeek-MoE
+    # forward, ssd_scan from one forward of the Jamba cut (phases below)
     assert sorted(counts) == sorted(r["name"] for r in rows), counts
     for r in rows:
         r["launches"] = counts[r["name"]]
-    assert counts["flash_attention"] == 0, counts
+    for kernel in ("flash_attention", "moe_gmm", "ssd_scan"):
+        assert counts[kernel] == 0, counts
     t0 = time.perf_counter()
     session_counts = session_phase(args_2048, serialized)
     print(f"session: {time.perf_counter() - t0:.2f} s; launches "
@@ -733,13 +1045,24 @@ def main() -> int:
     decode_phase(model, dev)
     print(f"decode: {time.perf_counter() - t0:.2f} s")
     del model
+    torch.cuda.empty_cache()
+    row = {r["name"]: r for r in rows}
+    t0 = time.perf_counter()
+    counts = family_phase(MOE_ARCH, MOE_F32_LAYERS,
+                          get_config(MOE_ARCH).n_layers, 1e-3, dev)
+    row["moe_gmm"]["launches"] = counts["moe_gmm"]
+    print(f"moe: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts = family_phase(HYBRID_ARCH, HYBRID_LAYERS, HYBRID_LAYERS, 5e-3, dev)
+    row["ssd_scan"]["launches"] = counts["ssd_scan"]
+    print(f"hybrid: {time.perf_counter() - t0:.2f} s")
     missing = [r["name"] for r in rows if r["launches"] <= 0]
     assert not missing, f"the main path launched no {missing}"
 
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -41,6 +41,9 @@ _SIGNATURES = {
     "repro_flash_attention": ("flash_attention",
                               [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _P]),
+    "repro_moe_gmm": ("moe_gmm", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "repro_ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _P]),
 }
 
 

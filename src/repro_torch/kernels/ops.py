@@ -1,6 +1,6 @@
 """Public wrappers for the ported kernels — the counterpart of
 ``repro/kernels/ops.py`` for attention (and decode attention), gemv,
-reduce_sum, scan, histogram and spmv_ell.
+reduce_sum, scan, histogram, spmv_ell, moe_gmm and ssd_scan.
 
 They take the reference's arbitrary shapes (pad → kernel → slice) with the
 same block clamp, ``min(block, max(128, next_pow2(n)))``, and the same
@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from . import flash_attention as _fa
 from . import gemv as _gemv
 from . import histogram as _hist
+from . import mamba_scan as _mamba
+from . import moe_gmm as _gmm
 from . import reduce as _red
 from . import scan as _scan
 from . import ref
@@ -28,7 +30,8 @@ from . import spmv as _spmv
 #: kernel name -> the function that counts its launches
 KERNELS = {"reduce_sum": _red.reduce_sum, "scan_inclusive": _scan.scan_inclusive,
            "histogram": _hist.histogram, "gemv": _gemv.gemv,
-           "spmv_ell": _spmv.spmv_ell, "flash_attention": _fa.flash_attention}
+           "spmv_ell": _spmv.spmv_ell, "flash_attention": _fa.flash_attention,
+           "moe_gmm": _gmm.moe_gmm, "ssd_scan": _mamba.ssd_scan}
 
 
 def launch_counts() -> dict[str, int]:
@@ -161,3 +164,28 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
                        cb.reshape(banks * rp, k).contiguous(), x)
     y = y.reshape(banks, rp)[:, :rows]
     return y if vals.dim() == 3 else y[0]
+
+
+# -- moe grouped matmul ------------------------------------------------------------
+
+def moe_gmm(xg: torch.Tensor, w: torch.Tensor, counts: torch.Tensor):
+    """Grouped per-expert matmul: xg (E, C, d) @ w (E, d, f) with float32
+    accumulation, rows at or past ``counts[e]`` zeroed, in xg's dtype.
+    The reference pads C, d and f to its blocks and slices back
+    (``ops.py:159-173``); zero padding changes nothing and the kernel takes
+    any shape, so nothing is padded here."""
+    return _gmm.moe_gmm(xg, w, counts)
+
+
+# -- mamba / ssd scan ---------------------------------------------------------------
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, *, chunk: int = 128):
+    """The chunked SSD scan: x (B, S, H, P), a (B, S, H), b / c (B, S, N)
+    -> y (B, S, H, P), final h (B, H, N, P) float32.  The chunk is clamped
+    as the reference clamps it, ``min(chunk, max(8, next_pow2(S)))``
+    (``ops.py:178-191``); the reference pads S to a whole chunk with
+    a = 1, the kernel masks the tail to the same result."""
+    S = x.shape[1]
+    ch = min(chunk, max(8, 1 << (S - 1).bit_length()))
+    return _mamba.ssd_scan(x, a, b, c, chunk=ch)

@@ -1,6 +1,7 @@
 """Plain PyTorch oracles for the ported kernels — the counterpart of
 ``repro/kernels/ref.py`` for attention (and the two decode attentions),
-gemv, reduce_sum, scan, histogram and spmv_ell.
+gemv, reduce_sum, scan, histogram, spmv_ell, the grouped MoE matmul and
+the selective-SSM scan.
 
 Each reduces over the last axis, so a leading bank axis is a batch.
 ``dtype=`` is passed explicitly wherever PyTorch would widen: ``torch.sum``
@@ -159,3 +160,41 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor,
     gathered = torch.where(cols >= 0, x[cols.clamp(0, x.shape[0] - 1)],
                            torch.zeros((), dtype=x.dtype, device=x.device))
     return (vals * gathered).sum(-1)
+
+
+# -- grouped (MoE expert) matmul ------------------------------------------------
+
+def moe_gmm(xg: torch.Tensor, w: torch.Tensor,
+            counts: torch.Tensor) -> torch.Tensor:
+    """xg: (E, C, d) tokens grouped per expert (capacity C, zero-padded);
+    w: (E, d, f); counts: (E,) valid rows.  A float32 product with the
+    rows at or past ``counts[e]`` zeroed, cast to xg's dtype."""
+    y = torch.einsum("ecd,edf->ecf", xg.to(torch.float32),
+                     w.to(torch.float32))
+    mask = (torch.arange(xg.shape[1], device=xg.device)[None, :, None]
+            < counts.to(xg.device)[:, None, None])
+    return torch.where(mask, y, 0.0).to(xg.dtype)
+
+
+# -- selective-SSM scan (SSD / Mamba-2 form) -------------------------------------
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, h0: torch.Tensor | None = None):
+    """Sequential oracle for the SSD recurrence.
+
+    x: (B, S, H, P) head inputs; a: (B, S, H) per-head decay in (0, 1];
+    b, c: (B, S, N) input / output projections shared across heads.
+    Returns y (B, S, H, P) in x's dtype and the final h (B, H, N, P) in
+    float32:  h_t = a_t * h_{t-1} + b_t ⊗ x_t ;  y_t = c_t · h_t."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    xf, af, bf, cf = (t.to(torch.float32) for t in (x, a, b, c))
+    h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32))
+    ys = []
+    for t in range(S):
+        h = af[:, t, :, None, None] * h + torch.einsum(
+            "bn,bhp->bhnp", bf[:, t], xf[:, t])
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], h))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros((B, 0, H, P))
+    return y.to(x.dtype), h

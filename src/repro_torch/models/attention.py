@@ -16,16 +16,11 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
-from .layers import ModelConfig, dense_init, rope
+from .layers import ModelConfig, _param, dense_init, rope
 
 #: what the VLM family's cross attention raises
 _NO_CROSS = ("cross attention (the VLM family's image layers) is not ported "
              "yet: ROADMAP queue 1, item 9, cross attention")
-
-
-def _param(t: torch.Tensor) -> nn.Parameter:
-    """An inference parameter: the serving slice takes no gradients."""
-    return nn.Parameter(t, requires_grad=False)
 
 
 class Attention(nn.Module):

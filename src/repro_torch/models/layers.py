@@ -1,6 +1,8 @@
 """Model-stack primitives — the PyTorch counterpart of
-``repro.models.layers``: the config, the parameter count, and the pure
-functions every block shares (``rms_norm``, ``rope``, ``swiglu``).
+``repro.models.layers``: the config, the parameter count, the pure
+functions every block shares (``rms_norm``, ``rope``, ``swiglu``) and the
+dense SwiGLU FFN module (``MLP``: a block's dense FFN and the MoE layer's
+shared experts).
 
 Weights are stored as ``(d_in, d_out)`` and applied as ``x @ w``, as in the
 reference, so a reference weight carries across as a copy
@@ -15,6 +17,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 # ---------------------------------------------------------------------------
@@ -25,9 +28,11 @@ import torch.nn.functional as F
 class ModelConfig:
     """Every field of the reference's config, with ``dtype`` a torch dtype.
 
-    ``fsdp``, ``remat``, ``remat_policy``, ``moe_dispatch_sharded`` and
-    ``moe_ep`` shard or rematerialise across a TPU mesh; on one GPU they
-    have no meaning, and the port accepts and ignores them.
+    ``fsdp``, ``remat``, ``remat_policy`` and ``moe_dispatch_sharded``
+    shard or rematerialise across a TPU mesh; on one GPU they have no
+    meaning, and the port accepts and ignores them.  ``moe_ep`` runs the
+    experts sharded over a mesh (``moe.apply_ep`` in the reference), a
+    different program: a model with it is refused when it is built.
     ``scan_layers`` picks ``lax.scan`` or an unrolled loop in the
     reference; the port always runs its layers in a Python loop, which
     gives the same numbers either way."""
@@ -71,7 +76,7 @@ class ModelConfig:
     fast_decode: bool = False   # grouped-GQA decode attention
     moe_dispatch_sharded: bool = False  # ignored
     mlstm_chunk: int = 0        # chunked mLSTM prefill (0 = full parallel)
-    moe_ep: bool = False        # ignored
+    moe_ep: bool = False        # refused: expert parallelism over a mesh
     scan_layers: bool = True    # the port always loops; same numbers
     rope_theta: float = 1e4
 
@@ -124,10 +129,12 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> float:
 def dense_init(gen: torch.Generator, shape, dtype, device=None,
                in_axis: int = 0) -> torch.Tensor:
     """Normal(0, 1/fan_in) in float32 on ``gen``'s device, cast to
-    ``dtype``; the reference's scheme, not its random bits."""
+    ``dtype``; the reference's scheme, not its random bits.  The draw is
+    scaled in place, so a float32 weight needs one buffer of its size and
+    no temporary (Jamba's expert ``wi`` is 25.8 GB in float32)."""
     scale = 1.0 / math.sqrt(shape[in_axis])
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=device or gen.device) * scale
+                    device=device or gen.device).mul_(scale)
     return w.to(dtype)
 
 
@@ -168,3 +175,23 @@ def mlp_init(gen: torch.Generator, d: int, f: int, dtype,
     """The dense SwiGLU FFN's weights: ``wi`` (d, 2f), ``wo`` (f, d)."""
     return {"wi": dense_init(gen, (d, 2 * f), dtype, device),
             "wo": dense_init(gen, (f, d), dtype, device)}
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    """An inference parameter: the serving slice takes no gradients."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+class MLP(nn.Module):
+    """The dense SwiGLU FFN: ``wi`` (d, 2f) fused gate|up, ``wo`` (f, d),
+    drawn from ``gen`` when it is given and left uninitialised otherwise
+    (for a weight carry)."""
+
+    def __init__(self, cfg: ModelConfig, ff: int, *,
+                 gen: torch.Generator | None = None, device=None):
+        super().__init__()
+        d = cfg.d_model
+        w = (mlp_init(gen, d, ff, cfg.dtype, device) if gen is not None else
+             {"wi": torch.empty((d, 2 * ff), dtype=cfg.dtype, device=device),
+              "wo": torch.empty((ff, d), dtype=cfg.dtype, device=device)})
+        self.wi, self.wo = _param(w["wi"]), _param(w["wo"])

@@ -1,18 +1,20 @@
 """Decoder assembler — the PyTorch counterpart of
-``repro.models.transformer`` for the dense-attention family: embed →
-blocks → final norm → lm head, with the full-sequence ``forward`` (its
-attention on the ``flash_attention`` kernel when ``use_kernel=True``) and
-the cached one-token ``decode_step``.
+``repro.models.transformer`` for the dense-attention, MoE and hybrid
+families: embed → blocks → final norm → lm head, with the full-sequence
+``forward`` (with ``use_kernel=True`` its attention on the
+``flash_attention`` kernel, its MoE experts on ``moe_gmm`` and its Mamba
+scan on ``ssd_scan``) and the cached one-token ``decode_step``.
 
 The layer plan (``_desc``, ``layer_plan``) is the reference's, for every
 config.  The reference stacks the repeating group and runs it under
 ``lax.scan``; here the layers are an ``nn.ModuleList`` run in a Python
-loop, which gives the same numbers.  Blocks with the ``attn`` mixer and
-the ``dense`` or ``none`` FFN are ported, with ``parallel_block``
-(stablelm) and ``qkv_bias`` (codeqwen).  Every other block kind raises
-``NotImplementedError`` when the model is built, naming its ROADMAP item,
-so nothing runs a different model than the reference.  ``loss_fn`` and
-``_chunked_ce`` come with the training path.
+loop, which gives the same numbers.  Ported: the ``attn`` and ``mamba``
+mixers, the ``dense``, ``moe`` and ``none`` FFNs, ``parallel_block``
+(stablelm) and ``qkv_bias`` (codeqwen).  The ``cross``, ``mlstm`` and
+``slstm`` mixers and expert parallelism (``moe_ep``) raise
+``NotImplementedError`` when the model is built, naming their ROADMAP
+item, so nothing runs a different model than the reference.  ``loss_fn``
+and ``_chunked_ce`` come with the training path.
 """
 from __future__ import annotations
 
@@ -23,22 +25,21 @@ import torch
 from torch import nn
 
 from repro_torch.core.banked import _device
-from . import attention
-from .attention import _param
-from .layers import ModelConfig, dense_init, mlp_init, rms_norm, swiglu
+from . import attention, mamba, moe
+from .layers import MLP, ModelConfig, _param, dense_init, rms_norm, swiglu
 
 #: block kinds not ported yet -> what building one raises
 _NOT_PORTED = {
-    "moe": "the MoE FFN (models/moe.py with the moe_gmm kernel) is not "
-           "ported yet: ROADMAP queue 1, item 9, MoE",
-    "mamba": "the Mamba mixer (models/mamba.py with the ssd_scan kernel) is "
-             "not ported yet: ROADMAP queue 1, item 9, Mamba",
     "cross": attention._NO_CROSS,
     "mlstm": "the xLSTM mixers (models/xlstm.py) are not ported yet: "
              "ROADMAP queue 1, item 9, xLSTM",
     "slstm": "the xLSTM mixers (models/xlstm.py) are not ported yet: "
              "ROADMAP queue 1, item 9, xLSTM",
 }
+#: what a MoE config with ``moe_ep=True`` raises
+_NO_EP = ("moe_ep=True (the reference's apply_ep: experts sharded over a "
+          "mesh with shard_map) has no one-GPU counterpart: ROADMAP queue 1,"
+          " item 9, expert parallelism")
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +89,8 @@ def check_ported(cfg: ModelConfig) -> None:
     descs = [_desc(cfg, li) for li in range(cfg.n_layers)]
     kinds = {d["mixer"] for d in descs} | {d["ffn"] for d in descs}
     missing = sorted({_NOT_PORTED[k] for k in kinds if k in _NOT_PORTED})
+    if cfg.moe_ep and "moe" in kinds:
+        missing.append(_NO_EP)
     if missing:
         raise NotImplementedError(f"{cfg.name}: " + "; ".join(missing))
 
@@ -96,22 +99,10 @@ def check_ported(cfg: ModelConfig) -> None:
 # modules
 # ---------------------------------------------------------------------------
 
-class MLP(nn.Module):
-    """The dense SwiGLU FFN: ``wi`` (d, 2f) fused gate|up, ``wo`` (f, d)."""
-
-    def __init__(self, cfg: ModelConfig, ff: int, *,
-                 gen: torch.Generator | None = None, device=None):
-        super().__init__()
-        d = cfg.d_model
-        w = (mlp_init(gen, d, ff, cfg.dtype, device) if gen is not None else
-             {"wi": torch.empty((d, 2 * ff), dtype=cfg.dtype, device=device),
-              "wo": torch.empty((ff, d), dtype=cfg.dtype, device=device)})
-        self.wi, self.wo = _param(w["wi"]), _param(w["wo"])
-
-
 class Block(nn.Module):
-    """``norm1``, ``mixer`` and, unless the FFN is ``none``, ``norm2`` and
-    ``ffn``: the reference's block keys."""
+    """``norm1``, ``mixer`` (attention or Mamba) and, unless the FFN is
+    ``none``, ``norm2`` and ``ffn`` (dense or MoE): the reference's block
+    keys."""
 
     def __init__(self, cfg: ModelConfig, desc: dict, *,
                  gen: torch.Generator | None = None, device=None):
@@ -119,10 +110,13 @@ class Block(nn.Module):
         d = cfg.d_model
         self.desc = desc
         self.norm1 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
-        self.mixer = attention.Attention(cfg, gen=gen, device=device)
+        mixer = mamba.Mamba if desc["mixer"] == "mamba" else attention.Attention
+        self.mixer = mixer(cfg, gen=gen, device=device)
         if desc["ffn"] != "none":
             self.norm2 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
-            self.ffn = MLP(cfg, desc["ff"], gen=gen, device=device)
+            self.ffn = (moe.MoE(cfg, gen=gen, device=device)
+                        if desc["ffn"] == "moe"
+                        else MLP(cfg, desc["ff"], gen=gen, device=device))
 
 
 class Transformer(nn.Module):
@@ -171,17 +165,25 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
 # ---------------------------------------------------------------------------
 
 def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                 use_kernel: bool) -> torch.Tensor:
+                 use_kernel: bool):
+    """One block's forward -> (x, aux), aux the MoE FFN's load-balancing
+    loss (0 for the other FFNs)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.norm1)
-    mo = attention.apply(p.mixer, cfg, h, use_kernel=use_kernel)
+    mix = mamba if p.desc["mixer"] == "mamba" else attention
+    mo = mix.apply(p.mixer, cfg, h, use_kernel=use_kernel)
     if p.desc["ffn"] == "none":
-        return x + mo
+        return x + mo, aux
     if cfg.parallel_block:          # stablelm: attn ∥ ffn off one norm
         fo = swiglu(h, p.ffn.wi, p.ffn.wo)
-        return x + mo + fo
+        return x + mo + fo, aux
     x = x + mo
     h2 = rms_norm(x, p.norm2)
-    return x + swiglu(h2, p.ffn.wi, p.ffn.wo)
+    if p.desc["ffn"] == "moe":
+        fo, aux = moe.apply(p.ffn, cfg, h2, use_kernel=use_kernel)
+    else:
+        fo = swiglu(h2, p.ffn.wi, p.ffn.wo)
+    return x + fo, aux
 
 
 def as_tokens(tokens, device) -> torch.Tensor:
@@ -201,11 +203,12 @@ def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
 def trunk(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
           use_kernel: bool = False):
     """Embed + all blocks + final norm (pre-lm_head hidden). → (x, aux);
-    ``aux`` (the MoE load-balancing loss) is 0 for the ported blocks."""
+    ``aux`` is the sum of the MoE layers' load-balancing losses."""
     x = _embed(model, cfg, tokens, embeds)
-    for blk in model.layers:
-        x = _block_apply(blk, cfg, x, use_kernel)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in model.layers:
+        x, a = _block_apply(blk, cfg, x, use_kernel)
+        aux = aux + a
     return rms_norm(x, model.final_norm), aux
 
 
@@ -223,16 +226,21 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
 
 def init_cache(model: Transformer, cfg: ModelConfig, batch: int,
                max_len: int) -> dict:
-    """One KV cache per layer, ``{"layers": [...]}``, on the model's device
+    """One cache per layer, ``{"layers": [...]}``, on the model's device: a
+    KV cache for an attention layer, ``{"conv", "ssm"}`` for a Mamba one
     (the reference stacks the repeating group's caches for its scan)."""
-    return {"layers": [attention.init_cache(cfg, batch, max_len,
-                                            device=model.device)
-                       for _ in model.layers]}
+    dev = model.device
+    return {"layers": [
+        mamba.init_cache(cfg, batch, device=dev)
+        if blk.desc["mixer"] == "mamba"
+        else attention.init_cache(cfg, batch, max_len, device=dev)
+        for blk in model.layers]}
 
 
 def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     h = rms_norm(x, p.norm1)
-    mo, cache = attention.decode(p.mixer, cfg, h, cache)
+    mix = mamba if p.desc["mixer"] == "mamba" else attention
+    mo, cache = mix.decode(p.mixer, cfg, h, cache)
     if p.desc["ffn"] == "none":
         return x + mo, cache
     if cfg.parallel_block:
@@ -240,7 +248,11 @@ def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict):
         return x + mo + fo, cache
     x = x + mo
     h2 = rms_norm(x, p.norm2)
-    return x + swiglu(h2, p.ffn.wi, p.ffn.wo), cache
+    if p.desc["ffn"] == "moe":      # routing over the B tokens of the step
+        fo, _ = moe.apply(p.ffn, cfg, h2)
+    else:
+        fo = swiglu(h2, p.ffn.wi, p.ffn.wo)
+    return x + fo, cache
 
 
 def decode_step(model: Transformer, cfg: ModelConfig, tokens, cache: dict):

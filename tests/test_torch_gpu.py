@@ -16,8 +16,15 @@ rounding step being 2^-8 of the value.  flash_attention agrees with its
 plain version within the reference's kernel-test tolerances
 (tests/test_kernels.py): rtol = atol = 2e-3 in float32 (an online softmax
 over key tiles against one softmax over the row) and 2e-2 in bfloat16
-(both round a float32 result to bfloat16).  The session and pipeline cases
-hold results to the registry's comparators against ``ref()``.
+(both round a float32 result to bfloat16).  moe_gmm keeps the reference's
+kernel-test tolerances too: 1e-3 in float32 (float32 sums over d in
+another order) and 5e-2 in bfloat16 (one bfloat16 step of a sum of d unit
+products).  ssd_scan agrees with its sequential plain version at 5e-3 (the
+reference's chunked-vs-sequential tolerance) and with its chunked form in
+plain PyTorch at 1e-3 (float32 sums over a chunk in another order, the
+device's expf / logf); with bfloat16 x, both round one float32 value to
+bfloat16, so y is held at 2e-2.  The session and pipeline cases hold
+results to the registry's comparators against ``ref()``.
 """
 import threading
 import zlib
@@ -31,6 +38,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import gemv as kgemv
 from repro_torch.kernels import histogram as khist
+from repro_torch.kernels import mamba_scan as kmamba
+from repro_torch.kernels import moe_gmm as kgmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import reduce as kred
 from repro_torch.kernels import scan as kscan
@@ -121,9 +130,17 @@ def test_launch_counts_and_refusals(dev):
                  make((16,), torch.float32, dev))
     qkv = make((1, 2, 16, 64), torch.float32, dev)
     ops.attention(qkv, qkv, qkv)
+    ops.moe_gmm(make((2, 8, 16), torch.float32, dev),
+                make((2, 16, 8), torch.float32, dev),
+                torch.tensor([3, 8], dtype=torch.int32, device=dev))
+    ops.ssd_scan(make((1, 16, 2, 8), torch.float32, dev),
+                 torch.full((1, 16, 2), 0.5, device=dev),
+                 make((1, 16, 4), torch.float32, dev),
+                 make((1, 16, 4), torch.float32, dev))
     assert ops.launch_counts() == {"reduce_sum": 1, "scan_inclusive": 1,
                                    "histogram": 1, "gemv": 1, "spmv_ell": 1,
-                                   "flash_attention": 1}
+                                   "flash_attention": 1, "moe_gmm": 1,
+                                   "ssd_scan": 1}
     with pytest.raises(TypeError):
         ops.reduce_sum(x.to(torch.int64))
     with pytest.raises(ValueError):
@@ -209,6 +226,126 @@ def test_forward_with_kernel_launches_once_per_layer(dev):
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     want, _ = transformer.forward(model, cfg, toks)
     close(got, want, rel(want, 1e-3))
+
+
+# -- moe_gmm ---------------------------------------------------------------------------
+
+GMM_CASES = [   # E, C, d, f
+    (4, 64, 96, 160),        # the reference's sweep
+    (8, 128, 128, 128),
+    (2, 16, 64, 48),
+    (3, 100, 200, 300),      # C, d, f no multiple of any tile
+    (2, 240, 2048, 2816),    # DeepSeek-MoE's up projection, 2 experts
+    (1, 37, 13, 9),          # d, f odd: no 16-byte loads
+]
+
+
+@pytest.mark.parametrize("case", GMM_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_matches_plain(dev, case, dtype):
+    """Counts 0, C and ragged ones: dead rows come out 0 from an output the
+    kernel allocates with torch.empty."""
+    E, C, d, f = case
+    g = torch.Generator(device=dev).manual_seed(E * C + d + f)
+    x = torch.randn((E, C, d), generator=g, device=dev).to(dtype)
+    w = torch.randn((E, d, f), generator=g, device=dev).to(dtype)
+    cnt = torch.randint(0, C + 1, (E,), generator=g, device=dev,
+                        dtype=torch.int32)
+    cnt[0] = 0
+    if E > 1:
+        cnt[1] = C
+    got = ops.moe_gmm(x, w, cnt)
+    want = kgmm.plain(x, w, cnt)
+    close(got, want, rel(want, 5e-2 if dtype == torch.bfloat16 else 1e-3))
+    assert bool((got[0] == 0).all())
+
+
+def test_moe_gmm_refuses_bad_inputs(dev):
+    x = make((2, 8, 16), torch.float32, dev)
+    w = make((2, 16, 4), torch.float32, dev)
+    cnt = torch.tensor([8, 8], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kgmm.moe_gmm(x, w.to(torch.bfloat16), cnt)
+    with pytest.raises(ValueError):
+        kgmm.moe_gmm(x, w[:, :8], cnt)
+    with pytest.raises(ValueError):         # a CPU operand never reaches it
+        kgmm.moe_gmm(x, w.cpu(), cnt)
+
+
+# -- ssd_scan ----------------------------------------------------------------------------
+
+SSD_CASES = [   # B, S, H, P, N, chunk
+    (2, 256, 3, 32, 16, 64),     # the reference's sweep
+    (1, 128, 1, 64, 8, 128),
+    (1, 100, 2, 16, 4, 32),      # S no multiple of the chunk
+    (1, 2048, 8, 64, 16, 128),   # the Jamba cut's shape, 8 of its 256 heads
+    (2, 5, 3, 8, 4, 128),        # S below 8: the chunk clamps to 8
+]
+
+
+def ssd_inputs(case, dtype, dev):
+    B, S, H, P, N, _ = case
+    g = torch.Generator(device=dev).manual_seed(S * H + P)
+    x = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+    a = torch.rand((B, S, H), generator=g, device=dev) * 0.7 + 0.3
+    b = torch.randn((B, S, N), generator=g, device=dev).to(dtype)
+    c = torch.randn((B, S, N), generator=g, device=dev).to(dtype)
+    return x, a, b, c
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain(dev, case, dtype):
+    x, a, b, c = ssd_inputs(case, dtype, dev)
+    chunk = case[-1]
+    y, h = ops.ssd_scan(x, a, b, c, chunk=chunk)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    want_y, want_h = kmamba.plain(x, a, b, c)
+    ytol = 2e-2 if dtype == torch.bfloat16 else 5e-3
+    close(y, want_y, rel(want_y, ytol))
+    close(h, want_h, rel(want_h, 5e-3))
+    S = x.shape[1]
+    ch = min(chunk, max(8, 1 << (S - 1).bit_length()))
+    cy, chh = kmamba.chunked(x, a, b, c, ch)
+    close(y, cy, rel(cy, 2e-2 if dtype == torch.bfloat16 else 1e-3))
+    close(h, chh, rel(chh, 1e-3))
+
+
+def test_ssd_scan_refuses_bad_inputs(dev):
+    x, a, b, c = ssd_inputs((1, 64, 2, 8, 4, 64), torch.float32, dev)
+    with pytest.raises(TypeError):          # a must be float32
+        kmamba.ssd_scan(x, a.double(), b, c, chunk=64)
+    with pytest.raises(ValueError):         # the chunk's tiles exceed 227 KB
+        kmamba.ssd_scan(x, a, b, c, chunk=512)
+    with pytest.raises(ValueError):         # a CPU operand never reaches it
+        kmamba.ssd_scan(x, a.cpu(), b, c, chunk=64)
+
+
+# -- the MoE and hybrid forwards --------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_and_hybrid_forward_launch_the_kernels(dev, arch):
+    """``forward(use_kernel=True)`` on the card: moe_gmm twice per MoE
+    layer, ssd_scan once per Mamba layer, flash_attention once per
+    attention layer; logits against the plain forward (float32; rtol =
+    atol = 1e-3, jamba's chunked against sequential scan at 5e-3)."""
+    cfg = get_config(arch, smoke=True)
+    model = transformer.init(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    ops.reset_launch_counts()
+    got, aux = transformer.forward(model, cfg, toks, use_kernel=True)
+    counts = ops.launch_counts()
+    descs = [b.desc for b in model.layers]
+    assert counts["moe_gmm"] == 2 * sum(d["ffn"] == "moe" for d in descs)
+    assert counts["ssd_scan"] == sum(d["mixer"] == "mamba" for d in descs)
+    assert counts["flash_attention"] == sum(d["mixer"] == "attn"
+                                            for d in descs)
+    want, want_aux = transformer.forward(model, cfg, toks)
+    tol = 5e-3 if arch.startswith("jamba") else 1e-3
+    close(got, want, rel(want, tol))
+    close(aux, want_aux, rel(want_aux, 1e-5))
 
 
 # -- the pipeline on CUDA streams, and the session -----------------------------------

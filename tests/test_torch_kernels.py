@@ -16,7 +16,11 @@ float32 sum to bfloat16, where one rounding step is 2^-8 of the value.
 Attention keeps tests/test_kernels.py's own tolerances: 2e-3 in float32
 (the reference's online softmax over 128-key blocks against one softmax
 over the row) and 2e-2 in bfloat16; the decode attentions, whose two sides
-take one softmax each, agree at 1e-4.
+take one softmax each, agree at 1e-4.  moe_gmm and ssd_scan keep them too:
+moe_gmm 1e-3 in float32 and 5e-2 in bfloat16 (a float32 sum over d of
+unit normals, rounded once to bfloat16), ssd_scan 5e-3 between its
+chunked and sequential forms; like against like (chunked against chunked,
+sequential against sequential) the scans agree at 1e-4.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import mamba_scan as tmamba
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import spmv as tspmv
@@ -271,6 +276,115 @@ def test_decode_attention_equals_full_attention_over_the_cache():
           jref.attention(jq, jk, jv, causal=False), 1e-4)
 
 
+# -- moe grouped matmul --------------------------------------------------------------
+
+GMM_SHAPES = [(4, 64, 96, 160), (8, 128, 128, 128), (2, 16, 64, 48)]
+
+
+@pytest.mark.parametrize("E,C,d,f", GMM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_matches_reference(E, C, d, f, dtype):
+    """tests/test_kernels.py's sweep, with one expert at count 0 and one at
+    C beside the random counts: the port's wrapper (the plain version on
+    CPU tensors) against the reference's padded Pallas kernel in
+    interpret mode, and the two oracles against each other."""
+    (jx, tx) = both(R.normal(size=(E, C, d)).astype(np.float32), dtype)
+    (jw, tw) = both(R.normal(size=(E, d, f)).astype(np.float32), dtype)
+    cnt = R.integers(0, C + 1, size=E).astype(np.int32)
+    cnt[:2] = (0, C)
+    jc, tc = jnp.asarray(cnt), torch.from_numpy(cnt)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-3
+    got = tops.moe_gmm(tx, tw, tc)
+    agree(got, jops.moe_gmm(jx, jw, jc), tol)
+    agree(tref.moe_gmm(tx, tw, tc), jref.moe_gmm(jx, jw, jc), tol)
+    assert bool((got[0] == 0).all()) and bool((got[1] != 0).any())
+    for e in range(E):
+        assert bool((got[e, cnt[e]:] == 0).all())
+
+
+def test_moe_gmm_counts_past_capacity_keep_every_row():
+    """A count at or past C (or below 0) is clamped into [0, C]."""
+    x = torch.from_numpy(R.normal(size=(3, 8, 16)).astype(np.float32))
+    w = torch.from_numpy(R.normal(size=(3, 16, 4)).astype(np.float32))
+    got = tops.moe_gmm(x, w, torch.tensor([8, 99, -1], dtype=torch.int32))
+    full = torch.einsum("ecd,edf->ecf", x, w)
+    torch.testing.assert_close(got[:2], full[:2], rtol=1e-5, atol=1e-5)
+    assert bool((got[2] == 0).all())
+
+
+# -- ssd scan ---------------------------------------------------------------------------
+
+SSD_SHAPES = [(2, 256, 3, 32, 16, 64), (1, 128, 1, 64, 8, 128),
+              (1, 100, 2, 16, 4, 32)]
+
+
+def ssd_inputs(B, S, H, P, N, dtype=torch.float32):
+    """x, b, c in ``dtype``, a float32 in [0.3, 1), as jax and torch."""
+    x = both(R.normal(size=(B, S, H, P)).astype(np.float32), dtype)
+    a = both(R.uniform(0.3, 1.0, size=(B, S, H)).astype(np.float32),
+             torch.float32)
+    b = both(R.normal(size=(B, S, N)).astype(np.float32), dtype)
+    c = both(R.normal(size=(B, S, N)).astype(np.float32), dtype)
+    return [t[0] for t in (x, a, b, c)], [t[1] for t in (x, a, b, c)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_scan_matches_reference(B, S, H, P, N, chunk):
+    """tests/test_kernels.py's sweep: y and the final h of the port's
+    wrapper (the chunked form on CPU tensors) against the reference's
+    Pallas kernel in interpret mode and against its sequential oracle, at
+    5e-3; and like against like at 1e-4."""
+    jin, tin = ssd_inputs(B, S, H, P, N)
+    y, h = tops.ssd_scan(*tin, chunk=chunk)
+    jy, jh = jops.ssd_scan(*jin, chunk=chunk)
+    ry, rh = jref.ssd_scan(*jin)
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, N, P)
+    assert h.dtype == torch.float32
+    for got, want in ((y, ry), (h, rh), (y, jy), (h, jh)):
+        agree(got, want, 5e-3)
+    agree(y, jy, 1e-4)                       # chunked against chunked
+    agree(h, jh, 1e-4)
+    sy, sh = tref.ssd_scan(*tin)             # sequential against sequential
+    agree(sy, ry, 1e-4)
+    agree(sh, rh, 1e-4)
+
+
+def test_ssd_scan_bfloat16_inputs_match_reference():
+    """The Jamba path's dtypes: x, b, c bfloat16, a float32; y comes back
+    in bfloat16 and h in float32.  Both round the same float32 sums to
+    bfloat16 (2e-2: one rounding step is 2^-8 of the value)."""
+    jin, tin = ssd_inputs(1, 200, 2, 16, 8, torch.bfloat16)
+    y, h = tops.ssd_scan(*tin, chunk=64)
+    jy, jh = jops.ssd_scan(*jin, chunk=64)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    agree(y, jy, 2e-2)
+    agree(h, jh, 1e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(5, 128), (8, 8), (130, 64), (1, 16)])
+def test_ssd_scan_clamps_the_chunk_and_pads_the_tail(S, chunk):
+    """The chunk is clamped to ``max(8, next_pow2(S))`` and the tail padded
+    with a = 1, as the reference does; the chunked form equals the
+    sequential recurrence."""
+    jin, tin = ssd_inputs(1, S, 2, 8, 4)
+    y, h = tops.ssd_scan(*tin, chunk=chunk)
+    jy, jh = jops.ssd_scan(*jin, chunk=chunk)
+    agree(y, jy, 1e-4)
+    agree(h, jh, 1e-4)
+    sy, sh = tmamba.plain(*tin)
+    agree(y, np.asarray(sy), 5e-3)
+    agree(h, np.asarray(sh), 5e-3)
+
+
+def test_ssd_oracle_takes_an_initial_state():
+    jin, tin = ssd_inputs(2, 20, 2, 8, 4)
+    h0 = R.normal(size=(2, 2, 4, 8)).astype(np.float32)
+    y, h = tref.ssd_scan(*tin, h0=torch.from_numpy(h0))
+    jy, jh = jref.ssd_scan(*jin, h0=jnp.asarray(h0))
+    agree(y, jy, 1e-4)
+    agree(h, jh, 1e-4)
+
+
 # -- oracles and dispatch ----------------------------------------------------------
 
 def test_oracles_keep_int32():
@@ -292,9 +406,14 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     tops.spmv_ell(torch.ones(3, 4), torch.zeros(3, 4, dtype=torch.int32),
                   torch.ones(8))
     tops.attention(*(torch.ones(1, 2, 4, 8),) * 3)
+    tops.moe_gmm(torch.ones(2, 8, 4), torch.ones(2, 4, 3),
+                 torch.tensor([3, 8], dtype=torch.int32))
+    tops.ssd_scan(torch.ones(1, 16, 2, 4), torch.full((1, 16, 2), 0.5),
+                  torch.ones(1, 16, 3), torch.ones(1, 16, 3))
     assert tops.launch_counts() == {"reduce_sum": 0, "scan_inclusive": 0,
                                     "histogram": 0, "gemv": 0, "spmv_ell": 0,
-                                    "flash_attention": 0}
+                                    "flash_attention": 0, "moe_gmm": 0,
+                                    "ssd_scan": 0}
 
 
 def test_wrappers_reject_bad_ranks():
