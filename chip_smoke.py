@@ -22,11 +22,15 @@ timed beside the plain forward, its dropped pairs and the top-k sets the
 two forwards route differently) and ``greedy_generate``.  Last the hybrid
 family on Jamba 1.5 Large at full width cut to 2 layers (one card holds
 11.9 B of its 397.5 B parameters): the same legs, its prefill through
-``ssd_scan``, ``moe_gmm`` and ``flash_attention`` in one forward.
+``ssd_scan``, ``moe_gmm`` and ``flash_attention`` in one forward.  For
+the two bfloat16 MoE prefills it prints a ``torch.profiler`` breakdown of
+one forward: the top device operations and the device's busy share.
 
     python3 chip_smoke.py
 
-Needs one CUDA device and ``nvcc``; exits non-zero without them.  The last
+Needs one CUDA device and ``nvcc``; exits non-zero without them.  The
+build prints each kernel's ``-Xptxas -v`` summary (registers, spills,
+static shared memory).  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from ``nvidia-smi``, and the one before that a JSON
 ``{"kernels": [...]}`` with each kernel's launches on its path (the suite;
@@ -39,6 +43,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +98,46 @@ def smi_line() -> str:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name cut to its own name and template numbers:
+    ``flash_bf16_k<64,128>``."""
+    i = mangled.find("_ZN")
+    if i < 0:
+        return mangled
+    i, parts = i + 3, []
+    while i < len(mangled) and mangled[i].isdigit():   # <length><name> ...
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    if not parts:
+        return mangled
+    args = (re.findall(r"Li(\d+)E", mangled[i:mangled.find("EE", i) + 2])
+            if mangled[i:i + 1] == "I" else [])
+    return parts[-1] + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of the compilers' ``-Xptxas -v`` output: the
+    source, the kernel (its mangled name cut to the base name and template
+    numbers), its registers, spills and shared memory, and any
+    performance note ptxas gave."""
+    out, name = [], "?"
+    for line in log.splitlines():
+        if line.startswith("=="):
+            out.append(line.strip())
+        elif "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif "bytes stack frame" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+        elif "Potential Performance Loss" in line or "warning" in line:
+            out.append(line.strip())
+    return out
 
 
 def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
@@ -319,9 +364,12 @@ def flash_case(name: str, B, H, KVH, S, T, D, window, g, dev) -> dict:
     plain version, and ``scaled_dot_product_attention`` (``is_causal`` at
     S = T, an explicit boolean mask for the window).  Operations: 4 D per
     live (q, k) pair and head; bytes: q, k, v and o once.  Tolerance
-    4e-3 * (1 + |o|): the kernel and the plain version round float32 sums
-    that differ in their last bits to bfloat16, so an output may land one
-    bfloat16 step (2^-8 |o|) away, and no further."""
+    4e-3 * (1 + |o|): the kernel rounds P once to bfloat16 before the P V
+    product (in float32's 24 bits, as three bfloat16 terms, on the tiles
+    that cross the diagonal, the window edge or T, which hold every key of
+    the rows that see few keys), and both round a float32 output to
+    bfloat16, so an output may land one bfloat16 step (2^-8 |o|) away, and
+    no further."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
 
@@ -699,6 +747,40 @@ def host_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+def device_breakdown(fn, ms: float, top: int = 8) -> None:
+    """One call of ``fn`` (a forward) under ``torch.profiler``: the device
+    operations (kernels, copies, memsets) with the most device time, and
+    the device's busy share, their sum over ``ms`` (the same forward's
+    unprofiled host-clock time).  Says so when the profiler records no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # "clears events at the end of each cycle"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    rows = []
+    for e in events:
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        print("  profiler: no device time recorded")
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"  profiler: device busy {busy:.3f} ms of a {ms:.2f} ms forward "
+          f"({busy / ms:.1%}) in {sum(r[1] for r in rows)} device operations;"
+          f" top {top} by device time:")
+    for t, n, name in sorted(rows, reverse=True)[:top]:
+        print(f"    {t:9.3f} ms {t / busy:6.1%} x{n:<5d} {name[:100]}")
+
+
 def prefill_phase(model, dev) -> int:
     """TinyLlama FULL, seeded weights, one prefill of PREFILL tokens:
     ``forward(use_kernel=True)`` of the float32 ``model`` against
@@ -894,7 +976,9 @@ def family_phase(arch: str, f32_layers: int, bf16_layers: int, tol: float,
       (decode routes B tokens at a time, capacity 8, and never drops);
     - bfloat16 at ``bf16_layers``: the prefill's launches from one
       counted forward (returned), its time with the kernels and plain
-      (mean of 3 after a warm-up), the max logit difference and argmax
+      (mean of 3 after a warm-up), the device operations of one forward
+      with the kernels under ``torch.profiler`` and the device's busy
+      share of it, the max logit difference and argmax
       agreement of the two, the pairs past capacity and the top-k sets
       routed differently; then ``greedy_generate``, DECODE_STREAMS x
       (DECODE_PROMPT + DECODE_NEW) tokens.
@@ -960,6 +1044,8 @@ def family_phase(arch: str, f32_layers: int, bf16_layers: int, tol: float,
         ms = host_ms(lambda: transformer.forward(model, cfg, toks,
                                                  use_kernel=True))
         plain_ms = host_ms(lambda: transformer.forward(model, cfg, toks))
+        device_breakdown(lambda: transformer.forward(model, cfg, toks,
+                                                     use_kernel=True), ms)
         print(f"  forward bf16, {bf16_layers} layers: kernel {ms:.2f} ms "
               f"({PREFILL / ms * 1e3:.0f} tokens/s), plain {plain_ms:.2f} ms;"
               f" max |kernel - plain| {err:.3e}, argmax agrees at "
@@ -1000,9 +1086,8 @@ def main() -> int:
     cuda_lib.library()
     print(f"build: {time.perf_counter() - t0:.2f} s, one nvcc per source -> "
           + ", ".join(os.path.relpath(p, ROOT) for p in paths))
-    for line in log.splitlines():
-        if line.startswith("==") or "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(log):
+        print(f"  ptxas: {line}")
 
     print("kernels (2,048 banks; against the plain PyTorch version):")
     rows = kernel_phase(torch.device("cuda", 0))

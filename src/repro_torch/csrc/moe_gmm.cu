@@ -6,38 +6,45 @@
 // f tiles, d tiles) keeps an f32 accumulator in VMEM along the sequential
 // d axis and masks the dead rows when the last d tile is done.  Hopper
 // blocks run in no order, so the d axis becomes a loop inside the block:
-// one block per (row tile, column tile, expert) walks d in shared-memory
-// tiles of x and w and keeps its accumulator in registers.  The block reads
-// counts[e] itself: a row tile wholly past the expert's live rows skips the
-// loop and writes zeros (y comes from torch.empty, and the reference zeroes
-// those rows); a partial tile stages its dead rows as zeros, and writes
-// zeros there.
+// one block per (row tile, column tile, expert) walks d and keeps its
+// accumulator in registers.  The block reads counts[e] itself (never the
+// host): a row tile wholly past the expert's live rows loads nothing and
+// writes zeros (y comes from torch.empty, and the reference zeroes those
+// rows); a partial tile writes zeros on its dead rows.
 //
 // Bound: at the MoE layers' shapes (DeepSeek-MoE 16B: 64 experts, C 240,
 // d 2048, f 2816 / 1408; Jamba: 16 experts, C 320, d 8192, f 49152 / 24576)
 // the expert weights dominate the bytes (738 MB for DeepSeek's up
-// projection, 12.9 GB for Jamba's), read once per row tile: each block of
-// one column tile reads a weight panel of d x 128, and the C / 64 row tiles
-// that share it run side by side (blockIdx.x is the row tile), so the panel
-// comes from the L2 after the first of them.  The operations (2 d f per
-// live row) are a little below the bytes at bf16 tensor-core rate.  What the
-// design does about it: bfloat16 runs on the tensor cores with mma.sync
-// (m16n8k16, f32 accumulate), each warp a 32 x 32 output tile, operands
-// read from shared memory padded so that the fragment loads of a warp hit
-// distinct banks; float32 runs on the CUDA cores, 4 x 4 outputs a thread.
-// Single-buffered, no TMA or wgmma: that is later work.
+// projection, 12.9 GB for Jamba's); the operations (2 d f per live row) are
+// a little below the bytes at the bf16 tensor-core rate.
+//
+// bfloat16 (gmm_bf16_k): blocks of 256 x 128 outputs where one row tile
+// spans the capacity (C <= 256, DeepSeek's 240), so each weight panel
+// (d x 128) is read from HBM once; 128 x 256 where 256-row tiles would pad C
+// further (Jamba's 320: 3 row tiles of 128, not 2 of 256), the row tiles
+// that share a panel running side by side (blockIdx.x is the row tile) so
+// that its later reads hit the L2.  Both move 48 KB a stage for the same
+// products.  384 threads: a producer warpgroup whose one thread keeps a
+// 4-stage ring of (x, w) tiles in flight with TMA (3-D maps, the expert
+// outermost, so a box past C or d reads zeros inside its expert), completed
+// on mbarriers; two consumer warpgroups running m64nNk16 wgmma on the
+// stages that have arrived, one stage's products in flight behind the next
+// one's issue, x K-major and w MN-major (the transpose bit set) in shared
+// memory under the 128-byte swizzle.  A 64-row sub-tile wholly past the
+// count skips its products.  d % 8 == 0, f % 8 == 0 and 16-byte aligned
+// bases are the TMA's terms: the wrapper pads and copies to meet them.
+//
+// float32 (gmm_f32_k): the CUDA cores, 4 x 4 outputs a thread, so that the
+// float32 forward checks hold (no TF32); shared-memory tiles of x and w,
+// single-buffered.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* y, float v) { *y = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* y, float v) { *y = __float2bfloat16(v); }
 
 // Copy kV elements from src[r][c .. c + kV) of a row-major matrix with
 // `ld` elements a row, `rows` x `cols` valid, into dst; zero outside.
@@ -57,106 +64,188 @@ __device__ __forceinline__ void load_group(T* __restrict__ dst, const T* __restr
     dst[j] = (r < rows && c + j < cols) ? src[r * ld + c + j] : T(0.f);
 }
 
-// ---- bfloat16: tensor cores ------------------------------------------------
+// ---- bfloat16: wgmma fed by TMA ----------------------------------------------
 
-constexpr int kBM = 64, kBN = 128, kBK = 32;
-constexpr int kAS = kBK + 8;  // As row stride (bf16): 80 bytes
-constexpr int kBS = kBN + 8;  // Bs row stride (bf16): 272 bytes
+constexpr int kBK = 64;            // d per stage: 128 bytes, one swizzle row
+constexpr int kStages = 4;
+constexpr int kBf16Threads = 384;  // consumers 0-255, producer 256-383
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// A block of kBM rows (two consumer warpgroups of kBM / 2 rows, each
+// kSubs = kBM / 128 m64 sub-tiles) by kBN columns (kBN / 64 w boxes).
+template <int kBM, int kBN>
+struct GmmTiles {
+  static constexpr int kSubs = kBM / 128;
+  static constexpr int kXBytes = kBM * kBK * 2;  // x tile [kBM][64]
+  static constexpr int kWBytes = kBK * kBN * 2;  // w tile: kBN / 64 boxes of [64 d][64 f]
+  static constexpr int kStageBytes = kXBytes + kWBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
+};
+
+// One thread's part of a 64 x kBN accumulator: acc[4 j + 2 hr + c] is row
+// r + 8 hr, column c0 + 8 j + c.  Rows at or past the count are written as
+// zeros; f % 8 == 0 keeps a column pair in or out together.
+template <int kBN>
+__device__ __forceinline__ void store_tile(const float (&acc)[kBN / 2],
+                                           __nv_bfloat16* __restrict__ y, int e, int r, int c0,
+                                           int C, int f, int live) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r + 8 * hr;
+    if (row >= C) continue;
+    __nv_bfloat16* yr = y + ((int64_t)e * C + row) * f;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int c = c0 + 8 * j;
+      if (c < f)
+        *reinterpret_cast<uint32_t*>(yr + c) =
+            row < live ? hopper::pack_bf16(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]) : 0u;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    gmm_bf16_k(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+// A consumer warpgroup's walk over d: wait for each stage, issue the
+// products of its first kLive 64-row sub-tiles (x rows at xoff + 64 i rows
+// of the stage's x tile), and release a stage once its products are done,
+// keeping one stage's products in flight behind the next one's issue.
+template <int kBM, int kBN, int kLive>
+__device__ __forceinline__ void mainloop(float (&acc)[kBM / 128][kBN / 2], const uint8_t* smem,
+                                         int xoff, uint64_t* full, uint64_t* empty, int nk) {
+  using Tiles = GmmTiles<kBM, kBN>;
+  const int lane = threadIdx.x & 31;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    hopper::mbar_wait(&full[s], (kt / kStages) & 1);
+    if constexpr (kLive > 0) {
+      const uint8_t* xs = smem + s * Tiles::kStageBytes + xoff;
+      const uint8_t* ws = smem + s * Tiles::kStageBytes + Tiles::kXBytes;
+#pragma unroll
+      for (int i = 0; i < kLive; ++i) hopper::fence_operands(acc[i]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // w: MN-major (f contiguous), 16 rows of d a step, boxes 8 KB apart
+        const uint64_t db = hopper::desc_sw128(ws + kk * 16 * 128, kBK * 128, 1024);
+#pragma unroll
+        for (int i = 0; i < kLive; ++i)
+          hopper::wgmma_ss<kBN, 1>(acc[i], hopper::desc_sw128(xs + i * 64 * 128 + kk * 32, 16, 1024),
+                                   db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the last stage's products are done
+#pragma unroll
+      for (int i = 0; i < kLive; ++i) hopper::fence_operands(acc[i]);
+      if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % kStages]);
+    } else if (lane == 0) {
+      hopper::mbar_arrive(&empty[s]);
+    }
+  }
+  if constexpr (kLive > 0) {
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kLive; ++i) hopper::fence_operands(acc[i]);
+  }
+}
+
+template <int kBM, int kBN>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    gmm_bf16_k(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                const int* __restrict__ counts, __nv_bfloat16* __restrict__ y, int C, int d,
-               int f, int vec) {
-  __shared__ __align__(16) __nv_bfloat16 As[kBM * kAS];  // x tile, [m][k]
-  __shared__ __align__(16) __nv_bfloat16 Bs[kBK * kBS];  // w tile, [k][n]
+               int f) {
+  using Tiles = GmmTiles<kBM, kBN>;
+  constexpr int kSubs = Tiles::kSubs;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ uint64_t full[kStages], empty[kStages];
 
   const int e = blockIdx.z, row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
   const int live = min(max(counts[e], 0), C);
-  const __nv_bfloat16* xe = x + (int64_t)e * C * d;
-  const __nv_bfloat16* we = w + (int64_t)e * d * f;
-  __nv_bfloat16* ye = y + (int64_t)e * C * f;
+  const int nk = row0 < live ? (d + kBK - 1) / kBK : 0;  // a dead tile loads nothing
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;  // this warp's 32 x 32
-  const int g = lane >> 2, t4 = lane & 3;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  const unsigned short* Bh = reinterpret_cast<const unsigned short*>(Bs);
-  if (row0 < live) {
-    const int rows = min(live - row0, kBM);
-    for (int k0 = 0; k0 < d; k0 += kBK) {
-      __syncthreads();  // the last tile's fragment loads are done
-      // x: 64 x 32 = 256 groups of 8, one a thread; w: 32 x 128 = 512 groups
-      {
-        const int r = tid >> 2, c = (tid & 3) * 8;
-        load_group<__nv_bfloat16, 8>(As + r * kAS + c, xe + (int64_t)row0 * d + k0, d, r, c,
-                                     rows, d - k0, vec);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int idx = tid + i * kThreads, r = idx >> 4, c = (idx & 15) * 8;
-        load_group<__nv_bfloat16, 8>(Bs + r * kBS + c, we + (int64_t)k0 * f + col0, f, r, c,
-                                     d - k0, f - col0, vec);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const __nv_bfloat16* a0 = As + (wm + i * 16 + g) * kAS + kk + t4 * 2;
-          af[i][0] = *reinterpret_cast<const uint32_t*>(a0);
-          af[i][1] = *reinterpret_cast<const uint32_t*>(a0 + 8 * kAS);
-          af[i][2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
-          af[i][3] = *reinterpret_cast<const uint32_t*>(a0 + 8 * kAS + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // B fragment: (k = 2 t4, 2 t4 + 1) and (+8) of column n, the lower
-          // k in the lower half
-          const unsigned short* b0 = Bh + (kk + t4 * 2) * kBS + wn + j * 8 + g;
-          bfr[j][0] = (uint32_t)b0[0] | ((uint32_t)b0[kBS] << 16);
-          bfr[j][1] = (uint32_t)b0[8 * kBS] | ((uint32_t)b0[9 * kBS] << 16);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  // c0, c1: row g, columns 2 t4, 2 t4 + 1; c2, c3: row g + 8
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + wm + i * 16 + g + half * 8;
-      if (r >= C) continue;
-      const bool on = r < live;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = col0 + wn + j * 8 + t4 * 2;
-#pragma unroll
-        for (int v = 0; v < 2; ++v)
-          if (c + v < f) store(ye + (int64_t)r * f + c + v, on ? acc[i][j][half * 2 + v] : 0.f);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer: one thread keeps the ring full
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        hopper::mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], Tiles::kStageBytes);
+        uint8_t* xs = smem + s * Tiles::kStageBytes;
+        uint8_t* ws = xs + Tiles::kXBytes;
+        // rows past C read as zeros inside the expert (3-D map)
+        hopper::tma_load_3d(xs, &xmap, &full[s], kt * kBK, row0, e);
+        for (int bx = 0; bx < kBN / 64; ++bx)
+          hopper::tma_load_3d(ws + bx * kBK * 128, &wmap, &full[s], col0 + 64 * bx, kt * kBK, e);
       }
     }
+  } else {  // consumer warpgroup wg: rows row0 + wg kBM / 2 + 64 i
+    hopper::setmaxnreg_inc<240>();
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int sub0 = row0 + wg * 64 * kSubs;
+    // 64-row sub-tiles of this warpgroup below the count (uniform in it)
+    const int on = min(kSubs, max(0, (live - sub0 + 63) / 64));
+    float acc[kSubs][kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kSubs; ++i)
+#pragma unroll
+      for (int j = 0; j < kBN / 2; ++j) acc[i][j] = 0.f;
+    // a sub-tile wholly past the count skips its products; one loop per
+    // count of live sub-tiles, so that no wgmma sits in a branch of its own
+    const int xoff = wg * 64 * kSubs * 128;  // this warpgroup's rows of the x tile
+    if (kSubs == 2 && on == 2)
+      mainloop<kBM, kBN, kSubs>(acc, smem, xoff, full, empty, nk);
+    else if (on >= 1)
+      mainloop<kBM, kBN, 1>(acc, smem, xoff, full, empty, nk);
+    else
+      mainloop<kBM, kBN, 0>(acc, smem, xoff, full, empty, nk);
+#pragma unroll
+    for (int i = 0; i < kSubs; ++i)
+      store_tile<kBN>(acc[i], y, e, sub0 + 64 * i + 16 * wq + g, col0 + 2 * t, C, f, live);
+  }
+}
+
+template <int kBM, int kBN>
+cudaError_t launch_tiles(const void* x, const void* w, const void* counts, void* y, int E, int C,
+                         int d, int f, cudaStream_t s) {
+  using Tiles = GmmTiles<kBM, kBN>;
+  CUtensorMap xm, wm;
+  if (!hopper::bf16_map_3d(&xm, x, d, C, E, kBM) || !hopper::bf16_map_3d(&wm, w, f, d, E, kBK))
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((C + kBM - 1) / kBM), (unsigned)((f + kBN - 1) / kBN), (unsigned)E);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  auto kern = gmm_bf16_k<kBM, kBN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles::kSmem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kBf16Threads, Tiles::kSmem, s>>>(xm, wm, static_cast<const int*>(counts),
+                                                static_cast<__nv_bfloat16*>(y), C, d, f);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* x, const void* w, const void* counts, void* y, int E, int C,
+                        int d, int f, cudaStream_t s) {
+  // the TMA's terms: rows of a multiple of 16 bytes, 16-byte aligned bases
+  if (d % 8 || f % 8 || d == 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(y) % 16)
+    return cudaErrorInvalidValue;
+  // 256 x 128 blocks read each weight panel once where one row tile spans C
+  // (C <= 256, DeepSeek's 240); where 256-row tiles would pad C more than
+  // 128-row ones (Jamba's 320: 512 rows against 384), 128 x 256 blocks,
+  // whose row tiles run side by side and share the panel in the L2.  Both
+  // move 48 KB a stage for the same products.
+  if ((C + 255) / 256 * 256 <= (C + 127) / 128 * 128)
+    return launch_tiles<256, 128>(x, w, counts, y, E, C, d, f, s);
+  return launch_tiles<128, 256>(x, w, counts, y, E, C, d, f, s);
 }
 
 // ---- float32: CUDA cores -----------------------------------------------------
@@ -238,16 +327,8 @@ extern "C" int repro_moe_gmm(const void* x, const void* w, const void* counts, v
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
   switch (dtype) {
-    case repro::kBFloat16: {
-      const dim3 grid((unsigned)((C + kBM - 1) / kBM), (unsigned)((f + kBN - 1) / kBN),
-                      (unsigned)E);
-      if (grid.y > 65535) return cudaErrorInvalidValue;
-      const int vec = aligned && d % 8 == 0 && f % 8 == 0;
-      gmm_bf16_k<<<grid, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-          static_cast<const int*>(counts), static_cast<__nv_bfloat16*>(y), C, d, f, vec);
-      break;
-    }
+    case repro::kBFloat16:
+      return launch_bf16(x, w, counts, y, E, C, d, f, s);
     case repro::kFloat32: {
       const dim3 grid((unsigned)((C + kFM - 1) / kFM), (unsigned)((f + kFN - 1) / kFN),
                       (unsigned)E);

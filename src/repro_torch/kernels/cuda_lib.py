@@ -135,3 +135,9 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"got {[str(u.device) for u in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), copied when its data does not start on 16 bytes:
+    the TMA reads from 16-byte aligned bases only."""
+    return t.clone() if t.data_ptr() % 16 else t

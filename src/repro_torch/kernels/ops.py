@@ -70,8 +70,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA flash attention; q (B, H, S, D), k / v (B, KVH, T, D), any S, T
     and D <= 256.  The reference pads D to 128 and S, T to its blocks and
     slices back (``ops.py:64-73``); zero padding does not change the
-    result, and the kernel takes the shapes as they are, so nothing is
-    padded here.  scale = D**-0.5 of the unpadded D, as there."""
+    result.  The kernel masks ragged S and T itself; its bfloat16 path pads
+    D to a multiple of 8 (``flash_attention.pad_head_dim``) for the TMA.
+    scale = D**-0.5 of the unpadded D, as there."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=float(q.shape[-1]) ** -0.5)
 
@@ -172,8 +173,9 @@ def moe_gmm(xg: torch.Tensor, w: torch.Tensor, counts: torch.Tensor):
     """Grouped per-expert matmul: xg (E, C, d) @ w (E, d, f) with float32
     accumulation, rows at or past ``counts[e]`` zeroed, in xg's dtype.
     The reference pads C, d and f to its blocks and slices back
-    (``ops.py:159-173``); zero padding changes nothing and the kernel takes
-    any shape, so nothing is padded here."""
+    (``ops.py:159-173``); zero padding changes nothing.  The kernel masks
+    ragged C itself; its bfloat16 path pads d and f to multiples of 8
+    (``moe_gmm.pad_gmm``) for the TMA."""
     return _gmm.moe_gmm(xg, w, counts)
 
 

@@ -16,7 +16,8 @@ rounding step being 2^-8 of the value.  flash_attention agrees with its
 plain version within the reference's kernel-test tolerances
 (tests/test_kernels.py): rtol = atol = 2e-3 in float32 (an online softmax
 over key tiles against one softmax over the row) and 2e-2 in bfloat16
-(both round a float32 result to bfloat16).  moe_gmm keeps the reference's
+(the kernel rounds P to bfloat16 for its tensor-core P V product, and both
+round a float32 result to bfloat16).  moe_gmm keeps the reference's
 kernel-test tolerances too: 1e-3 in float32 (float32 sums over d in
 another order) and 5e-2 in bfloat16 (one bfloat16 step of a sum of d unit
 products).  ssd_scan agrees with its sequential plain version at 5e-3 (the
@@ -62,7 +63,8 @@ def close(got, want, allowed=0):
     """Equal dtype and shape; every element within ``allowed`` (0: exact)."""
     assert got.dtype == want.dtype and got.shape == want.shape
     torch.cuda.synchronize()
-    assert bool(((got.float() - want.float()).abs() <= allowed).all())
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= allowed).all()), f"max |got - want| {float(err.max())}"
 
 
 def rel(want, tol):
@@ -189,6 +191,15 @@ FLASH_CASES = [   # B, H, KVH, S, T, D, causal, window
     (1, 4, 4, 130, 130, 64, False, 16),        # window without causal
     (1, 2, 1, 70, 70, 5, True, None),          # head dim not a multiple of 4
     (1, 2, 2, 64, 64, 256, True, None),        # the largest head dim
+    (1, 2, 1, 64, 64, 8, True, None),          # D 8: one 16-byte row
+    (1, 2, 1, 200, 200, 64, True, None),       # S no multiple of the 128-row tile
+    (1, 4, 2, 130, 300, 120, True, None),      # S < T: offset queries, D 120
+    (1, 4, 2, 300, 130, 128, True, None),      # S > T: 170 rows see no key
+    (1, 2, 2, 333, 333, 160, True, None),      # D 160, ragged S
+    (1, 2, 1, 200, 200, 256, True, None),      # D 256, ragged S
+    (1, 4, 2, 400, 400, 64, True, 100),        # window edge inside a key tile
+    (1, 2, 2, 256, 300, 120, False, 50),       # window, not causal, S != T
+    (2, 16, 2, 256, 256, 128, True, None),     # B 2, GQA groups of 8
 ]
 
 
@@ -216,6 +227,22 @@ def test_flash_attention_takes_strided_inputs_and_refuses(dev):
         kfa.flash_attention(x, x.half(), x)
 
 
+def test_flash_attention_bf16_unaligned_storage(dev):
+    """Contiguous views whose data starts 2 bytes past a 16-byte boundary:
+    the wrapper copies them for the TMA, and the result is the plain one."""
+    B, H, KVH, S, T, D = 1, 4, 2, 150, 150, 64
+    g = torch.Generator(device=dev).manual_seed(11)
+    views = []
+    for shape in ((B, H, S, D), (B, KVH, T, D), (B, KVH, T, D)):
+        n = int(np.prod(shape))
+        buf = torch.randn(n + 1, generator=g, device=dev).to(torch.bfloat16)
+        views.append(buf[1:].view(shape))
+    q, k, v = views
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in views)
+    want = kfa.plain(q, k, v)
+    close(ops.attention(q, k, v), want, rel(want, 2e-2))
+
+
 def test_forward_with_kernel_launches_once_per_layer(dev):
     cfg = get_config("tinyllama-1.1b", smoke=True)
     model = transformer.init(cfg, seed=0, device=dev)
@@ -237,6 +264,10 @@ GMM_CASES = [   # E, C, d, f
     (3, 100, 200, 300),      # C, d, f no multiple of any tile
     (2, 240, 2048, 2816),    # DeepSeek-MoE's up projection, 2 experts
     (1, 37, 13, 9),          # d, f odd: no 16-byte loads
+    (4, 240, 256, 384),      # DeepSeek's capacity: one row tile spans it
+    (3, 320, 512, 256),      # Jamba's capacity: three row tiles share a panel
+    (2, 100, 200, 136),      # d no multiple of the 64-wide step, f of 128
+    (2, 64, 96, 72),         # f below one column tile
 ]
 
 
@@ -258,6 +289,25 @@ def test_moe_gmm_matches_plain(dev, case, dtype):
     want = kgmm.plain(x, w, cnt)
     close(got, want, rel(want, 5e-2 if dtype == torch.bfloat16 else 1e-3))
     assert bool((got[0] == 0).all())
+
+
+def test_moe_gmm_bf16_counts_at_tile_edges(dev):
+    """64 experts at capacity 320: counts 0, partial, exactly at a 64-row
+    sub-tile or a 256-row tile boundary, past C, negative and C; every dead
+    row is 0 in an output that starts as torch.empty."""
+    E, C, d, f = 64, 320, 128, 128
+    g = torch.Generator(device=dev).manual_seed(64)
+    x = torch.randn((E, C, d), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((E, d, f), generator=g, device=dev).to(torch.bfloat16)
+    edges = [0, 1, 37, 63, 64, 65, 128, 192, 255, 256, 257, 319, 320, 999, -5]
+    cnt = torch.randint(0, C + 1, (E,), generator=g, device=dev,
+                        dtype=torch.int32)
+    cnt[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    got = ops.moe_gmm(x, w, cnt)
+    want = kgmm.plain(x, w, cnt)
+    close(got, want, rel(want, 5e-2))
+    for e, c in enumerate(cnt.clamp(0, C).tolist()):
+        assert bool((got[e, c:] == 0).all()), e
 
 
 def test_moe_gmm_refuses_bad_inputs(dev):

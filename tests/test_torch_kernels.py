@@ -29,7 +29,9 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mamba_scan as tmamba
+from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import spmv as tspmv
@@ -257,6 +259,24 @@ def test_attention_offset_and_fully_masked_rows(S, T, causal, window):
         assert bool((got[:, :, :S - T] == 0).all())
 
 
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("D", [5, 13])
+def test_attention_head_dim_padding_matches_reference(D, window):
+    """The padding the bfloat16 kernel's wrapper applies for the TMA (D to
+    a multiple of 8): pad, run the plain version with the scale of the
+    unpadded D, slice back; it agrees with the reference's padded Pallas
+    kernel (interpret mode), and the padded columns come out zero."""
+    (jq, tq), (jk, tk), (jv, tv) = qkv(1, 4, 2, 40, 40, D, torch.float32)
+    qp, kp, vp = tfa.pad_head_dim(tq, tk, tv)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == D + (-D) % 8
+    assert bool((qp[..., D:] == 0).all()) and bool((qp[..., :D] == tq).all())
+    full = tfa.plain(qp, kp, vp, causal=True, window=window,
+                     scale=float(D) ** -0.5)
+    assert bool((full[..., D:] == 0).all())
+    agree(full[..., :D], jops.attention(jq, jk, jv, causal=True,
+                                        window=window), 1e-5)
+
+
 @pytest.mark.parametrize("impl", ["ref", "grouped"])
 @pytest.mark.parametrize("window", [None, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -300,6 +320,23 @@ def test_moe_gmm_matches_reference(E, C, d, f, dtype):
     assert bool((got[0] == 0).all()) and bool((got[1] != 0).any())
     for e in range(E):
         assert bool((got[e, cnt[e]:] == 0).all())
+
+
+@pytest.mark.parametrize("E,C,d,f", [(1, 37, 13, 9), (3, 100, 203, 301)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_padding_matches_reference(E, C, d, f, dtype):
+    """The padding the bfloat16 kernel's wrapper applies for the TMA (d and
+    f to multiples of 8): pad, run the plain version, slice back; it agrees
+    with the reference's padded Pallas kernel (interpret mode)."""
+    (jx, tx) = both(R.normal(size=(E, C, d)).astype(np.float32), dtype)
+    (jw, tw) = both(R.normal(size=(E, d, f)).astype(np.float32), dtype)
+    cnt = R.integers(0, C + 1, size=E).astype(np.int32)
+    cnt[0] = C
+    xp, wp = tgmm.pad_gmm(tx, tw)
+    assert xp.shape[2] % 8 == 0 and wp.shape[1:] == (xp.shape[2], f + (-f) % 8)
+    got = tgmm.plain(xp, wp, torch.from_numpy(cnt))[..., :f]
+    agree(got, jops.moe_gmm(jx, jw, jnp.asarray(cnt)),
+          5e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
 def test_moe_gmm_counts_past_capacity_keep_every_row():
