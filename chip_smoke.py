@@ -26,17 +26,23 @@ family on Jamba 1.5 Large at full width cut to 2 layers (one card holds
 the two bfloat16 MoE prefills it prints a ``torch.profiler`` breakdown of
 one forward: the top device operations and the device's busy share.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--build]
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.  The
 build prints each kernel's ``-Xptxas -v`` summary (registers, spills,
-static shared memory).  The last
+static shared memory); ``--build`` stops there, the first and short call
+after a kernel changes.  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from ``nvidia-smi``, and the one before that a JSON
 ``{"kernels": [...]}`` with each kernel's launches on its path (the suite;
 for flash_attention one TinyLlama prefill forward, for moe_gmm one
 DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut), its
-error against its plain version, and its times beside its bound.
+error against its plain version, and its times beside its bound: ``ms``
+(CUDA events around back-to-back calls of the wrapper) and ``device_ms``
+(the device operations those calls launched, from ``torch.profiler``), the
+same two for the library call, and for the short rows (reduce_sum, scan at
+1 bank, spmv_ell at 256 rows per bank, flash_attention at TinyLlama's
+shape) min / median / max over REPEATS measurements.
 """
 import contextlib
 import dataclasses
@@ -71,7 +77,11 @@ SUITE = ((2048, 1024), (1, 64))     # (banks, make_args scale)
 # bank; SpMV 256 ELL rows of k = 8 per bank over an x of 256
 BANKS, PER, ROWS, COLS = 2048, 32768, 256, 256
 SPMV_K, SPMV_LARGE_ROWS = 8, 4096   # and a per-bank height past the L2
+# the suite's 1-bank run: SCAN on 65536 * 64 values in one bank, the
+# longest chain of tiles on the main path
+SCAN_ONE_BANK = 65536 * SUITE[1][1]
 TIMED_ITERS = 20
+REPEATS = 5                         # measurements of each short row
 # the session phase: the suite's 2,048 banks as 32 ranks of 64 DPUs
 RANKS, BANKS_PER_RANK = 32, 64
 TRACE = os.path.join(ROOT, "build", "repro_torch", "chip_smoke_trace.json")
@@ -141,7 +151,9 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after warm-up."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls between two
+    CUDA events, after warm-up: the device's time when the device is the
+    slower side, the host's when each call's host work is longer."""
     for _ in range(min(3, iters)):
         fn()
     torch.cuda.synchronize()
@@ -153,6 +165,56 @@ def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ops(prof) -> list[tuple[float, int, str]]:
+    """(device ms, count, name) of each device operation (kernel, memset,
+    copy) in a profile: operations that ran on the device only, never the
+    host operations that launched them, whose self device time would count
+    the same work twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    return rows
+
+
+def device_ms(fn, iters: int = TIMED_ITERS,
+              ops_seen: list | None = None) -> float | None:
+    """Device time of one call of ``fn``: the sum of the device time of
+    every device operation that ``iters`` calls launched, under
+    ``torch.profiler``, over ``iters``, after a warm-up call.  Every call
+    launches the same operations, so each count is a multiple of
+    ``iters``; a profile where one is not has lost records (an H100 run
+    without this check read a row below its bound) and is taken again, up
+    to 3 times, then used as it is with a note.  None when the profiler
+    records no device time.  ``ops_seen`` receives the operations
+    (``device_ops``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            rows = device_ops(prof)
+        lost = [(n, name) for _, n, name in rows if n % iters]
+        if not lost:
+            break
+        print(f"    profiler: counts {lost} are no multiple of {iters} "
+              f"calls (attempt {attempt + 1})")
+    if ops_seen is not None:
+        ops_seen[:] = rows
+    return sum(r[0] for r in rows) / iters if rows else None
 
 
 def bound(nbytes: int, nops: int,
@@ -201,11 +263,14 @@ def random_ell(banks: int, rows: int, k: int, n: int, g, dev):
     return vals.view(banks, rows, k), cols.view(banks, rows, k), keep
 
 
-def spmv_case(name: str, rows: int, n: int, g, dev, tol=1e-4) -> dict:
+def spmv_case(name: str, rows: int, n: int, g, dev, tol=1e-4,
+              repeats: int = 1) -> dict:
     """One timed spmv_ell case at (2048, rows, k): the kernel, its plain
     version, and cuSPARSE's CSR product over the same stored entries
     (built outside the timed window).  Bytes: all of cols, the stored
-    vals, x, y; operations: 2 per stored entry."""
+    vals, x, y; operations: 2 per stored entry.  ``read_once``: vals and
+    cols each read once by ``torch.sum``, the device time any ELL kernel
+    that reads both whole would need."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import spmv as kspmv
 
@@ -228,7 +293,9 @@ def spmv_case(name: str, rows: int, n: int, g, dev, tol=1e-4) -> dict:
         plain=lambda: kspmv.plain(flat(vals), flat(cols), x).view(BANKS, rows),
         library=lambda: csr @ x,
         nbytes=cols.nbytes + nnz * 4 + x.nbytes + BANKS * rows * 4,
-        nops=2 * nnz, tol=tol)
+        nops=2 * nnz, tol=tol, repeats=repeats,
+        read_once=lambda: (torch.sum(cols, dtype=torch.int32),
+                           torch.sum(vals)))
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -267,6 +334,12 @@ def kernel_phase(dev) -> list[dict]:
           1e-6 * xf.abs().sum(-1))
     check("scan_inclusive f32", ops.scan_inclusive(xf),
           kscan.plain(xf, block), 1e-6 * xf.abs().cumsum(-1))
+    check("scan_exclusive f32", ops.scan_exclusive(xf),
+          kscan.plain(xf, block) - xf, 1e-6 * xf.abs().cumsum(-1))
+    x1f = torch.randn((1, SCAN_ONE_BANK), generator=g, device=dev)
+    check("scan_inclusive f32 1 bank", ops.scan_inclusive(x1f),
+          kscan.plain(x1f, block), 1e-6 * x1f.abs().cumsum(-1))
+    del x1f
     pw = torch.randint(-8, nbins + 8, (banks, per), generator=g, device=dev,
                        dtype=torch.int32)
     check("histogram clipped", ops.histogram(pw, nbins),
@@ -310,7 +383,8 @@ def kernel_phase(dev) -> list[dict]:
              kernel=lambda: ops.reduce_sum(x),
              plain=lambda: kred.plain(x, block),
              library=lambda: torch.sum(x, dim=-1, dtype=torch.int32),
-             nbytes=x.nbytes + banks * 4, nops=x.numel(), tol=0),
+             nbytes=x.nbytes + banks * 4, nops=x.numel(), tol=0,
+             repeats=REPEATS),
         dict(name="scan_inclusive", source="src/repro_torch/csrc/scan.cu",
              replaces="src/repro/kernels/scan.py:20",
              kernel=lambda: ops.scan_inclusive(xs),
@@ -332,9 +406,25 @@ def kernel_phase(dev) -> list[dict]:
              library=lambda: torch.mv(a.view(-1, COLS), v),
              nbytes=a.nbytes + v.nbytes + banks * ROWS * 4,
              nops=2 * a.numel(), tol=1e-4),
-        spmv_case("spmv_ell", ROWS, COLS, g, dev),
+        spmv_case("spmv_ell", ROWS, COLS, g, dev, repeats=REPEATS),
     ]
     rows = [timed(c) for c in cases]
+    # scan_inclusive at the suite's 1-bank shape, and the exclusive scan
+    # the suite calls (ops.scan_exclusive) at 2,048 banks; both ride in the
+    # scan_inclusive row
+    x1 = torch.randint(0, 9, (1, SCAN_ONE_BANK), generator=g, device=dev,
+                       dtype=torch.int32)
+    scan = next(r for r in rows if r["name"] == "scan_inclusive")
+    scan["at_1_bank_4194304"] = dict_of(timed(dict(
+        cases[1], kernel=lambda: ops.scan_inclusive(x1),
+        plain=lambda: kscan.plain(x1, block),
+        library=lambda: torch.cumsum(x1, dim=-1, dtype=torch.int32),
+        nbytes=2 * x1.nbytes, nops=x1.numel(), repeats=REPEATS)))
+    scan["exclusive_at_2048_banks"] = dict_of(timed(dict(
+        cases[1], kernel=lambda: ops.scan_exclusive(xs),
+        plain=lambda: kscan.plain(xs, block) - xs,
+        library=lambda: torch.cumsum(xs, dim=-1, dtype=torch.int32) - xs)))
+    del x1
     # the same kernel at 4,096 rows per bank, past the 50 MB L2; its numbers
     # ride in the spmv_ell row
     large = timed(spmv_case("spmv_ell", SPMV_LARGE_ROWS, COLS, g, dev))
@@ -346,8 +436,11 @@ def kernel_phase(dev) -> list[dict]:
 
 
 def dict_of(row: dict) -> dict:
-    return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")}
+    """A row's numbers, to ride in another row of the same kernel."""
+    return {k: row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "library_device_ms", "read_once_device_ms",
+                                "spread") if k in row}
 
 
 def live_pairs(S: int, T: int, window) -> int:
@@ -425,8 +518,9 @@ def flash_rows(g, dev) -> dict:
             assert bool((got[:, :, :S - T] == 0).all()), "masked rows not 0"
 
     cfg = get_config(LM_ARCH)
-    row = timed(flash_case("flash_attention", 1, cfg.n_heads, cfg.n_kv_heads,
-                           PREFILL, PREFILL, cfg.hd, cfg.window, g, dev))
+    row = timed(dict(flash_case("flash_attention", 1, cfg.n_heads,
+                                cfg.n_kv_heads, PREFILL, PREFILL, cfg.hd,
+                                cfg.window, g, dev), repeats=REPEATS))
     d = DANUBE
     large = timed(flash_case("flash_attention", 1, d["H"], d["KVH"], d["S"],
                              d["S"], d["D"], d["window"], g, dev))
@@ -568,11 +662,20 @@ def ssd_rows(g, dev) -> dict:
     return row
 
 
+def fmt(t) -> str:
+    return "-" if t is None else f"{t:.4f}"
+
+
 def timed(c: dict) -> dict:
     """Check one case against its plain version, then time kernel, plain
     version and library call (``library`` None: no one PyTorch call
-    computes the function); one row of the kernels line.  A case's
-    ``check`` (optional) compares further outputs, e.g. a second result."""
+    computes the function); one row of the kernels line.  ``ms`` is
+    ``cuda_ms``, ``device_ms`` the device operations of the same calls
+    under the profiler (``device_ms()``), for the kernel's wrapper and the
+    library call.  A case with ``repeats`` measures kernel and library that
+    many times and keeps the medians, with min / median / max under
+    ``spread``.  A case's ``check`` (optional) compares further outputs,
+    e.g. a second result."""
     want = c["plain"]()
     got = c["kernel"]()
     if "check" in c:
@@ -580,18 +683,46 @@ def timed(c: dict) -> dict:
     err = check(c["name"], got, want, rel(want, c["tol"]) if c["tol"] else 0)
     del got, want
     iters = c.get("iters", TIMED_ITERS)
-    ms, plain_ms = cuda_ms(c["kernel"], iters), cuda_ms(c["plain"], iters)
-    lib_ms = cuda_ms(c["library"], iters) if c["library"] else None
+    lib = c["library"]
+    runs = {"ms": [], "device_ms": [], "library_ms": [],
+            "library_device_ms": []}
+    seen: list = []
+    for _ in range(c.get("repeats", 1)):
+        runs["ms"].append(cuda_ms(c["kernel"], iters))
+        runs["device_ms"].append(device_ms(c["kernel"], iters, seen))
+        runs["library_ms"].append(cuda_ms(lib, iters) if lib else None)
+        runs["library_device_ms"].append(device_ms(lib, iters) if lib
+                                         else None)
+    plain_ms = cuda_ms(c["plain"], iters)
     bound_ms, bound_by = bound(c["nbytes"], c["nops"],
                                c.get("ops_per_s", F32_OPS_PER_S))
-    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "-"
-    print(f"  {c['name']:15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-          f"  library {lib}  bound {bound_ms:.4f} ms "
+    times = {k: (None if None in v else float(np.median(v)))
+             for k, v in runs.items()}
+    print(f"  {c['name']:15s} kernel {fmt(times['ms'])} ms (device "
+          f"{fmt(times['device_ms'])})  plain {plain_ms:.4f} ms  library "
+          f"{fmt(times['library_ms'])} ms (device "
+          f"{fmt(times['library_device_ms'])})  bound {bound_ms:.4f} ms "
           f"({bound_by}, {c['nbytes'] / 1e6:.1f} MB)")
-    return {"name": c["name"], "route": "cuda", "source": c["source"],
-            "replaces": c["replaces"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms}
+    print("    device operations of the kernel's calls: " + "; ".join(
+        f"{name[:60]} x{n} {t:.4f} ms" for t, n, name in sorted(seen,
+                                                                reverse=True)))
+    row = {"name": c["name"], "route": "cuda", "source": c["source"],
+           "replaces": c["replaces"], "max_abs_err": err, "ms": times["ms"],
+           "device_ms": times["device_ms"], "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": times["library_ms"],
+           "library_device_ms": times["library_device_ms"]}
+    if "read_once" in c:
+        row["read_once_device_ms"] = device_ms(c["read_once"], iters)
+        print(f"    read vals and cols once (torch.sum): device "
+              f"{fmt(row['read_once_device_ms'])} ms")
+    if c.get("repeats", 1) > 1:
+        row["spread"] = {k: [min(v), float(np.median(v)), max(v)]
+                         for k, v in runs.items() if None not in v}
+        print(f"    {len(runs['ms'])} repeats, min / median / max: "
+              + "; ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v)
+                          for k, v in row["spread"].items()))
+    return row
 
 
 def phase_row(label: str, t) -> str:
@@ -753,7 +884,6 @@ def device_breakdown(fn, ms: float, top: int = 8) -> None:
     the device's busy share, their sum over ``ms`` (the same forward's
     unprofiled host-clock time).  Says so when the profiler records no
     device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -763,13 +893,7 @@ def device_breakdown(fn, ms: float, top: int = 8) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
-    rows = []
-    for e in events:
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and us > 0:
-            rows.append((us / 1e3, e.count, e.key))
+        rows = device_ops(prof)
     if not rows:
         print("  profiler: no device time recorded")
         return
@@ -1088,6 +1212,8 @@ def main() -> int:
           + ", ".join(os.path.relpath(p, ROOT) for p in paths))
     for line in ptxas_summary(log):
         print(f"  ptxas: {line}")
+    if "--build" in sys.argv[1:]:
+        return 0
 
     print("kernels (2,048 banks; against the plain PyTorch version):")
     rows = kernel_phase(torch.device("cuda", 0))

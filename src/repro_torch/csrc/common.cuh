@@ -20,9 +20,6 @@ namespace repro {
 // dtype codes shared with the Python wrappers (kernels/cuda_lib.py)
 enum Dtype : int { kInt32 = 0, kFloat32 = 1, kBFloat16 = 2 };
 
-// largest per-block tile the reduce / scan kernels take (elements)
-constexpr int kMaxBlock = 4096;
-
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);

@@ -34,7 +34,7 @@ _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 #: C entry point -> (source stem under csrc/, argument types, the stream last)
 _SIGNATURES = {
     "repro_reduce_sum": ("reduce", [_P, _P, _P, _I64, _I64, _I, _I, _P]),
-    "repro_scan_inclusive": ("scan", [_P, _P, _P, _P, _I64, _I64, _I, _I, _P]),
+    "repro_scan_inclusive": ("scan", [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P]),
     "repro_histogram": ("histogram", [_P, _P, _I64, _I64, _I, _I, _P]),
     "repro_gemv": ("gemv", [_P, _P, _P, _I64, _I, _I, _P]),
     "repro_spmv_ell": ("spmv", [_P, _P, _P, _P, _I64, _I, _I, _I, _P]),
@@ -115,12 +115,16 @@ def library() -> dict[str, ctypes.CDLL]:
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call ``name`` with ``args`` and the current stream of ``device``;
+    """Call ``name`` with ``args`` and the current stream of ``device``,
+    with ``device`` made the current device for the call when it is not;
     raise when the launch reports a CUDA error."""
     lib = library()[_SIGNATURES[name][0]]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
         err = getattr(lib, name)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, name)(*args, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}: "
                            f"{lib.repro_error_string(err).decode()}")

@@ -117,16 +117,26 @@ def reduce_sum(x: torch.Tensor, *, block: int = 4096):
     return out if x.dim() == 2 else out[0]
 
 
-def scan_inclusive(x: torch.Tensor, *, block: int = 4096):
+def _scan_rows(x: torch.Tensor, block: int, exclusive: bool):
     xb = _banked(x, 1)
     n = xb.shape[-1]
     b = _block(n, block)
-    out = _scan.scan_inclusive(_pad_last(xb, b).contiguous(), block=b)[:, :n]
+    out = _scan.scan_inclusive(_pad_last(xb, b).contiguous(), block=b,
+                               exclusive=exclusive)[:, :n]
     return out if x.dim() == 2 else out[0]
 
 
+def scan_inclusive(x: torch.Tensor, *, block: int = 4096):
+    return _scan_rows(x, block, exclusive=False)
+
+
 def scan_exclusive(x: torch.Tensor, *, block: int = 4096):
-    return scan_inclusive(x, block=block) - x
+    """``scan_inclusive(x) - x``, as the reference computes it
+    (``ops.py:124-125``).  On a CUDA tensor the kernel writes it in the same
+    pass, with the same subtraction from its inclusive result."""
+    if x.device.type == "cpu":
+        return scan_inclusive(x, block=block) - x
+    return _scan_rows(x, block, exclusive=True)
 
 
 # -- histogram ------------------------------------------------------------------
@@ -147,24 +157,15 @@ def histogram(values: torch.Tensor, nbins: int, *, block: int = 4096):
 
 # -- spmv ---------------------------------------------------------------------------
 
-def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
-             block_rows: int = 128):
+def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor):
     """ELL SpMV for vals / cols (rows, k) or bank-batched (banks, rows, k),
-    x (n,) shared by every bank.  Rows are padded as the reference pads
-    them (``ops.py:151``): to ``min(block_rows, max(8, next_pow2(rows)))``
-    with vals 0 and cols -1, then sliced back."""
-    vb, cb = _banked(vals, 2), _banked(cols, 2)
-    banks, rows, k = vb.shape
-    br = min(block_rows, max(8, 1 << (rows - 1).bit_length()))
-    pad = (-rows) % br
-    if pad:
-        vb = F.pad(vb, (0, 0, 0, pad))
-        cb = F.pad(cb, (0, 0, 0, pad), value=-1)
-    rp = rows + pad
-    y = _spmv.spmv_ell(vb.reshape(banks * rp, k).contiguous(),
-                       cb.reshape(banks * rp, k).contiguous(), x)
-    y = y.reshape(banks, rp)[:, :rows]
-    return y if vals.dim() == 3 else y[0]
+    x (n,) shared by every bank.  The reference pads the rows to its row
+    block with vals 0 and cols -1 and slices back (``ops.py:151``); a
+    padded row gives 0 and is cut away, and neither the kernel nor its
+    plain version needs whole blocks, so the rows go in as they are."""
+    if vals.dim() not in (2, 3):
+        raise ValueError(f"expected 2 or 3 dims, got {tuple(vals.shape)}")
+    return _spmv.spmv_ell(vals.contiguous(), cols.contiguous(), x)
 
 
 # -- moe grouped matmul ------------------------------------------------------------

@@ -101,6 +101,97 @@ def test_int32_wraps(dev):
     close(ops.scan_inclusive(x), kscan.plain(x, 4096))
 
 
+# -- scan: the single-pass look-back -------------------------------------------------
+
+def scan_both(x):
+    """The kernel's inclusive and exclusive scans of ``x`` against the
+    plain version (int32 exact, float32 within 1e-6 * sum |x| over the
+    prefix); the exclusive int32 scan also bit for bit against the
+    formula ``scan_inclusive(x) - x``."""
+    n = x.shape[-1]
+    b = min(4096, max(128, 1 << (n - 1).bit_length()))
+    want = kscan.plain(torch.nn.functional.pad(x, (0, (-n) % b)), b)[:, :n]
+    floats = x.dtype == torch.float32
+    cum = 1e-6 * x.abs().cumsum(-1) if floats else 0
+    close(ops.scan_inclusive(x), want, cum)
+    ex = ops.scan_exclusive(x)
+    close(ex, want - x, cum)
+    if not floats:
+        assert torch.equal(ex, ops.scan_inclusive(x) - x)
+
+
+@pytest.mark.parametrize("shape", [(1, 1 << 22), (1, (1 << 24) + 123),
+                                   (2048, 32768), (5, 4100)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_scan_look_back_chains(dev, shape, dtype):
+    """A bank of 2^22 values is 512 tiles of 8,192 whose prefixes chain
+    through the look-back; 2^24 + 123 ends in a ragged tile; 2,048 banks
+    of 4 tiles each must never look back into the bank before; 4,100
+    values are padded to 8,192, one ragged tile a bank."""
+    scan_both(make(shape, dtype, dev, lo=-50, hi=50))
+
+
+def test_scan_int32_wraps_across_tile_borders(dev):
+    """Prefixes pass 2^31 inside tiles and at their borders, and the
+    look-back adds wrapped tile totals: uint32 arithmetic, exact."""
+    t = kscan.TILE
+    x = torch.full((3, 5 * t), (1 << 31) - 1, device=dev, dtype=torch.int32)
+    x[:, t - 1::t] = 1 << 30
+    scan_both(x)
+
+
+def test_scan_int32_same_on_every_call(dev):
+    x = make((64, 1 << 16), torch.int32, dev, lo=-1000, hi=1000)
+    first = ops.scan_inclusive(x)
+    for _ in range(2):
+        assert torch.equal(ops.scan_inclusive(x), first)
+    first = ops.scan_exclusive(x)
+    for _ in range(2):
+        assert torch.equal(ops.scan_exclusive(x), first)
+
+
+def test_scan_calls_in_a_row_reuse_the_status_words(dev):
+    """Back-to-back calls without a synchronize: the caching allocator
+    hands the second call the first call's (cleared) status words."""
+    xs = [make((16, 40000), torch.int32, dev, lo=i, hi=100 + i)
+          for i in range(3)]
+    outs = [ops.scan_exclusive(x) for x in xs] + [ops.scan_inclusive(x)
+                                                  for x in xs]
+    for x, ex, inc in zip(xs, outs[:3], outs[3:]):
+        close(inc, x.cumsum(-1, dtype=torch.int32))
+        close(ex, x.cumsum(-1, dtype=torch.int32) - x)
+
+
+def test_scan_on_two_streams(dev):
+    """Two scans in flight at once on two streams: each has its own
+    status words and tile counter."""
+    a = make((1, 1 << 23), torch.int32, dev, lo=-9, hi=9)
+    b = make((300, 1 << 15), torch.int32, dev, lo=0, hi=5)
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            ya = ops.scan_inclusive(a)
+        with torch.cuda.stream(s2):
+            yb = ops.scan_exclusive(b)
+        outs.append((ya, yb))
+    torch.cuda.synchronize()
+    for ya, yb in outs:
+        close(ya, a.cumsum(-1, dtype=torch.int32))
+        close(yb, b.cumsum(-1, dtype=torch.int32) - b)
+
+
+def test_scan_refuses_bad_inputs(dev):
+    with pytest.raises(TypeError):
+        kscan.scan_inclusive(make((2, 128), torch.int32, dev).to(torch.int64),
+                             block=128)
+    with pytest.raises(ValueError):
+        kscan.scan_inclusive(make((2, 130), torch.int32, dev), block=130)
+    odd = make((1, 129), torch.int32, dev)[:, 1:]     # contiguous, 4 B off
+    close(kscan.scan_inclusive(odd, block=128), kscan.plain(odd, 128))
+
+
 @pytest.mark.parametrize("n,nbins", [(4096, 256), (10000, 64), (500, 1024),
                                      (3000, 20000)])
 def test_histogram_matches_plain(dev, n, nbins):
@@ -165,6 +256,39 @@ def test_spmv_matches_plain(dev, banks, rows, k, n, dtype):
     got = ops.spmv_ell(vals, cols, x)
     want = kspmv.plain(vals.view(-1, k), cols.view(-1, k), x).view(banks, rows)
     assert torch.isfinite(got.float()).all()
+    close(got, want, rel(want, 2e-2 if dtype == torch.bfloat16 else 1e-4))
+
+
+@pytest.mark.parametrize("k", [4, 8, 16, 32, 12, 64, 5])
+@pytest.mark.parametrize("n", [256, 8192, 10000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmv_lane_paths(dev, k, n, dtype):
+    """k % 4 == 0 reads a row with min(k / 4, 8) lanes (the power of two
+    below: 2 at k = 12, 8 at k = 64, looping), k = 5 one thread a row; x
+    up to 8,192 values is staged in shared memory, 10,000 is gathered
+    through __ldg.  Columns past n read x[n-1]; an inf in a padded slot is
+    skipped."""
+    cols = make((2, 3000, k), torch.int32, dev, lo=-1, hi=n + 4)
+    vals = make((2, 3000, k), torch.float32, dev)
+    vals = torch.where(cols < 0, float("inf"), vals).to(dtype)
+    x = make((n,), torch.float32, dev)
+    got = ops.spmv_ell(vals, cols, x)
+    want = kspmv.plain(vals.view(-1, k), cols.view(-1, k), x).view(2, 3000)
+    assert torch.isfinite(got.float()).all()
+    close(got, want, rel(want, 2e-2 if dtype == torch.bfloat16 else 1e-4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmv_unaligned_views(dev, dtype):
+    """vals and cols that start 4 or 2 bytes past an alignment take the
+    one-thread-a-row path with scalar loads."""
+    rows, k, n = 999, 8, 300
+    cbuf = make((rows * k + 1,), torch.int32, dev, lo=-1, hi=n + 2)
+    vbuf = make((rows * k + 1,), torch.float32, dev).to(dtype)
+    cols, vals = cbuf[1:].view(rows, k), vbuf[1:].view(rows, k)
+    x = make((n,), torch.float32, dev)
+    got = kspmv.spmv_ell(vals, cols, x)
+    want = kspmv.plain(vals, cols, x)
     close(got, want, rel(want, 2e-2 if dtype == torch.bfloat16 else 1e-4))
 
 

@@ -34,6 +34,7 @@ from repro_torch.kernels import mamba_scan as tmamba
 from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import scan as tscan
 from repro_torch.kernels import spmv as tspmv
 
 R = np.random.default_rng(7)
@@ -98,6 +99,26 @@ def test_banked_rows_match_reference_per_bank(op, dtype):
         agree(got[b], getattr(jops, op)(both(x[b], dtype)[0]), tol)
 
 
+@pytest.mark.parametrize("banks", [1, 2, 5, 8])
+@pytest.mark.parametrize("n", [1, 127, 4097])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_scan_exclusive_ragged_banks_match_reference(banks, n, dtype):
+    """``ops.scan_exclusive`` (on the card one pass of the kernel, here
+    inclusive - x) per bank against the reference's, and the kernel
+    module's ``exclusive`` path alike."""
+    x = data((banks, n), dtype)
+    tx = torch.from_numpy(x)
+    got = tops.scan_exclusive(tx)
+    tol = 0 if dtype == torch.int32 else 1e-4
+    for b in range(banks):
+        agree(got[b], jops.scan_exclusive(both(x[b], dtype)[0]), tol)
+    b = min(4096, max(128, 1 << (n - 1).bit_length()))
+    xp = torch.nn.functional.pad(tx, (0, (-n) % b))
+    ex = tscan.scan_inclusive(xp, block=b, exclusive=True)[:, :n]
+    assert torch.equal(ex, tscan.plain(xp, b)[:, :n] - tx)
+    assert torch.equal(ex, got)
+
+
 # -- histogram --------------------------------------------------------------------
 
 @pytest.mark.parametrize("n,nbins", [(4096, 256), (10000, 64), (500, 1024)])
@@ -157,6 +178,28 @@ def test_spmv_matches_reference(rows, k, n, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     agree(tops.spmv_ell(tv, tc, tx), jops.spmv_ell(jv, jc, jx), tol)
     agree(tref.spmv_ell(tv, tc, tx), jref.spmv_ell(jv, jc, jx), tol)
+
+
+@pytest.mark.parametrize("banks", [0, 3])
+@pytest.mark.parametrize("rows", [1, 7, 129, 300])
+def test_spmv_rows_that_need_padding_match_reference(banks, rows):
+    """Row counts that are no multiple of the reference's row block, one
+    bank (2-D) and three: the reference pads to its block and slices
+    back, the wrapper passes the rows as they are, and the kernel module
+    takes (..., k) whole."""
+    shape = (banks, rows, 8) if banks else (rows, 8)
+    vals = R.normal(size=shape).astype(np.float32)
+    cols = R.integers(-1, 40, size=shape).astype(np.int32)
+    x = R.normal(size=40).astype(np.float32)
+    tv, tc, tx = (torch.from_numpy(a) for a in (vals, cols, x))
+    got = tops.spmv_ell(tv, tc, tx)
+    assert tuple(got.shape) == shape[:-1]
+    agree(tspmv.spmv_ell(tv, tc, tx), got.numpy(), 0)
+    for b in range(banks or 1):
+        want = jops.spmv_ell(jnp.asarray(vals[b] if banks else vals),
+                             jnp.asarray(cols[b] if banks else cols),
+                             jnp.asarray(x))
+        agree(got[b] if banks else got, want, 1e-4)
 
 
 def test_spmv_columns_past_n_read_the_last_x():
