@@ -26,12 +26,13 @@ family on Jamba 1.5 Large at full width cut to 2 layers (one card holds
 the two bfloat16 MoE prefills it prints a ``torch.profiler`` breakdown of
 one forward: the top device operations and the device's busy share.
 
-    python3 chip_smoke.py [--build]
+    python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.  The
 build prints each kernel's ``-Xptxas -v`` summary (registers, spills,
 static shared memory); ``--build`` stops there, the first and short call
-after a kernel changes.  The last
+after a kernel changes.  ``--only kernels,hybrid`` runs those of PHASES
+alone, e.g. to time a parent commit's kernels in the same call.  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from ``nvidia-smi``, and the one before that a JSON
 ``{"kernels": [...]}`` with each kernel's launches on its path (the suite;
@@ -40,9 +41,12 @@ DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut), its
 error against its plain version, and its times beside its bound: ``ms``
 (CUDA events around back-to-back calls of the wrapper) and ``device_ms``
 (the device operations those calls launched, from ``torch.profiler``), the
-same two for the library call, and for the short rows (reduce_sum, scan at
-1 bank, spmv_ell at 256 rows per bank, flash_attention at TinyLlama's
-shape) min / median / max over REPEATS measurements.
+same two for the library call, the CUDA launches of the port's kernels per
+wrapper call, and for the short rows (reduce_sum at 2,048 banks and at 1
+bank, gemv, scan at 1 bank, spmv_ell at 256 rows per bank,
+flash_attention at TinyLlama's shape) min / median / max over REPEATS
+measurements.  gemv's row says whether it loses to ``torch.mv`` by more
+than the two rows' spread.
 """
 import contextlib
 import dataclasses
@@ -101,6 +105,12 @@ MOE_ARCH, MOE_F32_LAYERS = "deepseek-moe-16b", 4
 # parameters (47.6 GB in float32, 23.8 GB in bfloat16) of its 397.5 B
 HYBRID_ARCH, HYBRID_LAYERS = "jamba-1.5-large-398b", 2
 BIG_ITERS = 3                       # timed launches of the largest rows
+# the phases, in order; ``--only a,b`` runs those alone (the session phase
+# needs the suite's arguments)
+PHASES = ("kernels", "suite", "session", "lm", "moe", "hybrid")
+# a forward's device time spent in each kernel of the port: the part of the
+# CUDA kernels' names that marks them
+SHARES = {"flash_attention": "flash_", "moe_gmm": "gmm_", "ssd_scan": "ssd_"}
 
 
 def smi_line() -> str:
@@ -217,6 +227,17 @@ def device_ms(fn, iters: int = TIMED_ITERS,
     return sum(r[0] for r in rows) / iters if rows else None
 
 
+def own_launches(ops_seen: list, iters: int) -> float | None:
+    """Launches of the port's own kernels per call in a ``device_ms``
+    profile of ``iters`` calls: every device operation but PyTorch's
+    (``at::``: the fills of ``torch.zeros``) and memsets or copies."""
+    if not ops_seen:
+        return None
+    own = sum(n for _, n, name in ops_seen if "at::" not in name
+              and not name.startswith(("Memset", "Memcpy")))
+    return own / iters
+
+
 def bound(nbytes: int, nops: int,
           ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
@@ -300,8 +321,9 @@ def spmv_case(name: str, rows: int, n: int, g, dev, tol=1e-4,
 
 def kernel_phase(dev) -> list[dict]:
     """Each kernel at the suite's 2,048-bank shapes: the error against its
-    plain version on the same inputs, and its times.  spmv_ell is also
-    timed at 4,096 rows per bank, whose bytes leave the L2."""
+    plain version on the same inputs, and its times.  reduce_sum and
+    scan_inclusive are also timed at the suite's 1-bank shape, spmv_ell at
+    4,096 rows per bank, whose bytes leave the L2."""
     from repro_torch.kernels import gemv as kgemv
     from repro_torch.kernels import histogram as khist
     from repro_torch.kernels import ops
@@ -330,8 +352,12 @@ def kernel_phase(dev) -> list[dict]:
     # 1e-4; bfloat16 GEMV, compared in float32, by 2e-2, one output
     # rounding step being 2^-8 of the value.
     xf = torch.randn((banks, per), generator=g, device=dev)
-    check("reduce_sum f32", ops.reduce_sum(xf), kred.plain(xf, block),
+    first = ops.reduce_sum(xf)
+    check("reduce_sum f32", first, kred.plain(xf, block),
           1e-6 * xf.abs().sum(-1))
+    assert all(torch.equal(ops.reduce_sum(xf), first) for _ in range(2)), (
+        "reduce_sum f32 differs between calls")
+    print("  check reduce_sum f32 3 calls          bit for bit equal")
     check("scan_inclusive f32", ops.scan_inclusive(xf),
           kscan.plain(xf, block), 1e-6 * xf.abs().cumsum(-1))
     check("scan_exclusive f32", ops.scan_exclusive(xf),
@@ -405,10 +431,20 @@ def kernel_phase(dev) -> list[dict]:
              plain=lambda: kgemv.plain(a.view(-1, COLS), v).view(banks, ROWS),
              library=lambda: torch.mv(a.view(-1, COLS), v),
              nbytes=a.nbytes + v.nbytes + banks * ROWS * 4,
-             nops=2 * a.numel(), tol=1e-4),
+             nops=2 * a.numel(), tol=1e-4, repeats=REPEATS),
         spmv_case("spmv_ell", ROWS, COLS, g, dev, repeats=REPEATS),
     ]
     rows = [timed(c) for c in cases]
+    # reduce_sum at the suite's 1-bank shape, beside torch.sum
+    x1 = torch.randint(0, 99, (1, SCAN_ONE_BANK), generator=g, device=dev,
+                       dtype=torch.int32)
+    rows[0]["at_1_bank_4194304"] = dict_of(timed(dict(
+        cases[0], kernel=lambda: ops.reduce_sum(x1),
+        plain=lambda: kred.plain(x1, block),
+        library=lambda: torch.sum(x1, dim=-1, dtype=torch.int32),
+        nbytes=x1.nbytes + 4, nops=x1.numel())))
+    del x1
+    gemv_verdict(next(r for r in rows if r["name"] == "gemv"))
     # scan_inclusive at the suite's 1-bank shape, and the exclusive scan
     # the suite calls (ops.scan_exclusive) at 2,048 banks; both ride in the
     # scan_inclusive row
@@ -435,12 +471,30 @@ def kernel_phase(dev) -> list[dict]:
     return rows
 
 
+def gemv_verdict(row: dict) -> None:
+    """Whether gemv loses to torch.mv by more than the two rows' spread
+    (max - min over REPEATS measurements), on the device times where the
+    profiler gave them, else on the event times; kept in the row."""
+    sp = row["spread"]
+    k, lib = (("device_ms", "library_device_ms") if "device_ms" in sp
+              and "library_device_ms" in sp else ("ms", "library_ms"))
+    gap = sp[k][1] - sp[lib][1]
+    spread = (sp[k][2] - sp[k][0]) + (sp[lib][2] - sp[lib][0])
+    row["verdict"] = (
+        "slower than torch.mv beyond the spread: first for the next redesign"
+        if gap > spread else
+        "no slower than torch.mv within spread; left alone (rule 2)")
+    print(f"  gemv vs torch.mv ({k}): median gap {gap:.4f} ms, spread "
+          f"{spread:.4f} ms: {row['verdict']}")
+
+
 def dict_of(row: dict) -> dict:
     """A row's numbers, to ride in another row of the same kernel."""
     return {k: row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
                                 "bound_ms", "bound_by", "library_ms",
                                 "library_device_ms", "read_once_device_ms",
-                                "spread") if k in row}
+                                "cuda_launches_per_call", "spread")
+            if k in row}
 
 
 def live_pairs(S: int, T: int, window) -> int:
@@ -698,6 +752,7 @@ def timed(c: dict) -> dict:
                                c.get("ops_per_s", F32_OPS_PER_S))
     times = {k: (None if None in v else float(np.median(v)))
              for k, v in runs.items()}
+    launches = own_launches(seen, iters)
     print(f"  {c['name']:15s} kernel {fmt(times['ms'])} ms (device "
           f"{fmt(times['device_ms'])})  plain {plain_ms:.4f} ms  library "
           f"{fmt(times['library_ms'])} ms (device "
@@ -706,12 +761,15 @@ def timed(c: dict) -> dict:
     print("    device operations of the kernel's calls: " + "; ".join(
         f"{name[:60]} x{n} {t:.4f} ms" for t, n, name in sorted(seen,
                                                                 reverse=True)))
+    print(f"    CUDA launches of the port's kernels per wrapper call: "
+          f"{fmt(launches)}")
     row = {"name": c["name"], "route": "cuda", "source": c["source"],
            "replaces": c["replaces"], "max_abs_err": err, "ms": times["ms"],
            "device_ms": times["device_ms"], "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": times["library_ms"],
-           "library_device_ms": times["library_device_ms"]}
+           "library_device_ms": times["library_device_ms"],
+           "cuda_launches_per_call": launches}
     if "read_once" in c:
         row["read_once_device_ms"] = device_ms(c["read_once"], iters)
         print(f"    read vals and cols once (torch.sum): device "
@@ -903,6 +961,12 @@ def device_breakdown(fn, ms: float, top: int = 8) -> None:
           f" top {top} by device time:")
     for t, n, name in sorted(rows, reverse=True)[:top]:
         print(f"    {t:9.3f} ms {t / busy:6.1%} x{n:<5d} {name[:100]}")
+    for kernel, mark in SHARES.items():
+        own = [(t, n) for t, n, name in rows if mark in name]
+        if own:
+            t = sum(r[0] for r in own)
+            print(f"    {kernel}: {t:.3f} ms ({t / busy:.1%} of the device "
+                  f"time) in {sum(r[1] for r in own)} launches")
 
 
 def prefill_phase(model, dev) -> int:
@@ -1199,6 +1263,11 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import cuda_lib
 
+    argv = sys.argv[1:]
+    only = (set(argv[argv.index("--only") + 1].split(","))
+            if "--only" in argv else None)
+    assert only is None or only <= set(PHASES), f"--only takes {PHASES}"
+    run = lambda phase: only is None or phase in only  # noqa: E731
     kind, smi = torch.cuda.get_device_name(0), smi_line()
     print(f"device: {kind}  ({smi}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -1212,63 +1281,81 @@ def main() -> int:
           + ", ".join(os.path.relpath(p, ROOT) for p in paths))
     for line in ptxas_summary(log):
         print(f"  ptxas: {line}")
-    if "--build" in sys.argv[1:]:
+    if "--build" in argv:
         return 0
 
-    print("kernels (2,048 banks; against the plain PyTorch version):")
-    rows = kernel_phase(torch.device("cuda", 0))
-    args_2048: dict = {}
-    t0 = time.perf_counter()
-    counts, serialized = suite_phase(args_2048)
-    print(f"suite: {time.perf_counter() - t0:.2f} s; launches {counts}")
-    # every kernel has a row; each row's launches come from the path that
-    # runs it: the suite's five kernels from the suite, flash_attention
-    # from one TinyLlama prefill forward, moe_gmm from one DeepSeek-MoE
-    # forward, ssd_scan from one forward of the Jamba cut (phases below)
-    assert sorted(counts) == sorted(r["name"] for r in rows), counts
-    for r in rows:
-        r["launches"] = counts[r["name"]]
-    for kernel in ("flash_attention", "moe_gmm", "ssd_scan"):
-        assert counts[kernel] == 0, counts
-    t0 = time.perf_counter()
-    session_counts = session_phase(args_2048, serialized)
-    print(f"session: {time.perf_counter() - t0:.2f} s; launches "
-          f"{session_counts} (the chunked phases run the plain oracles)")
-    t0 = time.perf_counter()
-    flat_session_phase(args_2048)
-    print(f"flat session: {time.perf_counter() - t0:.2f} s")
-    del args_2048, serialized
-
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    # one seeded float32 TinyLlama for the three LM legs; only the bf16
-    # timing leg of prefill_phase builds its own
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer
-    model = transformer.init(
-        dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32),
-        seed=0, device=dev)
-    flash = next(r for r in rows if r["name"] == "flash_attention")
-    flash["launches"] = prefill_phase(model, dev)
-    consistency_phase(model, dev)
-    print(f"prefill + consistency: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    decode_phase(model, dev)
-    print(f"decode: {time.perf_counter() - t0:.2f} s")
-    del model
-    torch.cuda.empty_cache()
+    rows: list[dict] = []
+    if run("kernels"):
+        print("kernels (2,048 banks; against the plain PyTorch version):")
+        rows = kernel_phase(dev)
     row = {r["name"]: r for r in rows}
-    t0 = time.perf_counter()
-    counts = family_phase(MOE_ARCH, MOE_F32_LAYERS,
-                          get_config(MOE_ARCH).n_layers, 1e-3, dev)
-    row["moe_gmm"]["launches"] = counts["moe_gmm"]
-    print(f"moe: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    counts = family_phase(HYBRID_ARCH, HYBRID_LAYERS, HYBRID_LAYERS, 5e-3, dev)
-    row["ssd_scan"]["launches"] = counts["ssd_scan"]
-    print(f"hybrid: {time.perf_counter() - t0:.2f} s")
-    missing = [r["name"] for r in rows if r["launches"] <= 0]
-    assert not missing, f"the main path launched no {missing}"
+    if run("suite"):
+        args_2048: dict = {}
+        t0 = time.perf_counter()
+        counts, serialized = suite_phase(args_2048)
+        print(f"suite: {time.perf_counter() - t0:.2f} s; launches {counts}")
+        # every kernel has a row; each row's launches come from the path
+        # that runs it: the suite's five kernels from the suite,
+        # flash_attention from one TinyLlama prefill forward, moe_gmm from
+        # one DeepSeek-MoE forward, ssd_scan from one forward of the Jamba
+        # cut (phases below)
+        assert not rows or sorted(counts) == sorted(row), counts
+        for name, r in row.items():
+            r["launches"] = counts[name]
+        for kernel in ("flash_attention", "moe_gmm", "ssd_scan"):
+            assert counts[kernel] == 0, counts
+        if run("session"):
+            t0 = time.perf_counter()
+            session_counts = session_phase(args_2048, serialized)
+            print(f"session: {time.perf_counter() - t0:.2f} s; launches "
+                  f"{session_counts} (the chunked phases run the plain "
+                  f"oracles)")
+            t0 = time.perf_counter()
+            flat_session_phase(args_2048)
+            print(f"flat session: {time.perf_counter() - t0:.2f} s")
+        del args_2048, serialized
+
+    from repro_torch.configs import get_config
+    if run("lm"):
+        t0 = time.perf_counter()
+        # one seeded float32 TinyLlama for the three LM legs; only the bf16
+        # timing leg of prefill_phase builds its own
+        from repro_torch.models import transformer
+        model = transformer.init(
+            dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32),
+            seed=0, device=dev)
+        launches = prefill_phase(model, dev)
+        if "flash_attention" in row:
+            row["flash_attention"]["launches"] = launches
+        consistency_phase(model, dev)
+        print(f"prefill + consistency: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        decode_phase(model, dev)
+        print(f"decode: {time.perf_counter() - t0:.2f} s")
+        del model
+        torch.cuda.empty_cache()
+    if run("moe"):
+        t0 = time.perf_counter()
+        counts = family_phase(MOE_ARCH, MOE_F32_LAYERS,
+                              get_config(MOE_ARCH).n_layers, 1e-3, dev)
+        if "moe_gmm" in row:
+            row["moe_gmm"]["launches"] = counts["moe_gmm"]
+        print(f"moe: {time.perf_counter() - t0:.2f} s")
+    if run("hybrid"):
+        t0 = time.perf_counter()
+        counts = family_phase(HYBRID_ARCH, HYBRID_LAYERS, HYBRID_LAYERS, 5e-3,
+                              dev)
+        if "ssd_scan" in row:
+            row["ssd_scan"]["launches"] = counts["ssd_scan"]
+        print(f"hybrid: {time.perf_counter() - t0:.2f} s")
+    for r in rows:
+        print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "
+              f"on its path; {fmt(r['cuda_launches_per_call'])} CUDA "
+              f"launches per wrapper call")
+    if only is None:
+        missing = [r["name"] for r in rows if r["launches"] <= 0]
+        assert not missing, f"the main path launched no {missing}"
 
     print(json.dumps({"kernels": rows}))
     print(smi)

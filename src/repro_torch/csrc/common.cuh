@@ -79,15 +79,6 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* total) {
   return woff[warp] + ex;
 }
 
-// Sum of one tile of `block` elements, accumulated in T (float or
-// uint32_t) in a fixed order; valid in thread 0.
-template <typename T>
-__device__ __forceinline__ T tile_sum(const T* __restrict__ x, int block) {
-  T acc = T(0);
-  for (int i = threadIdx.x; i < block; i += blockDim.x) acc += x[i];
-  return block_sum(acc);
-}
-
 }  // namespace repro
 
 extern "C" const char* repro_error_string(int err) {

@@ -1,7 +1,8 @@
 // Thin inline-PTX helpers for the port's Hopper (sm_90a) kernels: mbarriers,
 // TMA tensor loads, the wgmma fences and groups, the shared-memory matrix
 // descriptor of the 128-byte swizzle, the dense bf16 wgmma instructions the
-// kernels use, setmaxnreg, and the host-side tensor-map encoder.
+// kernels use, the warp-level bf16 mma.sync and ldmatrix, setmaxnreg, and
+// the host-side tensor-map encoder.
 //
 // Layout conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate"): a tile is loaded by TMA in boxes of 64 bf16
@@ -224,6 +225,39 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b
 }
 
 #undef D8
+
+// ---- warp-level mma.sync (PTX ISA, "Matrix Fragments for mma.m16n8k16") ------
+//
+// For a thread with g = lane / 4 and q = lane % 4, each 32-bit register
+// holds two bf16 values, the lower k index in the low half:
+//   A (16 x 16, row-major): a[0] (row g, k 2q..2q+1), a[1] (row g+8, k 2q..),
+//                           a[2] (row g, k 2q+8..),   a[3] (row g+8, k 2q+8..);
+//   B (16 x 8):             b0 (k 2q..2q+1, col g),   b1 (k 2q+8.., col g);
+//   D (16 x 8, f32):        d[0..1] (row g, cols 2q..2q+1), d[2..3] (row g+8).
+// Two D tiles side by side (cols 0-7, 8-15) are, value for value, the A
+// fragment of a 16 x 16 tile: the first gives a[0..1], the second a[2..3].
+
+// d += a b, bf16 inputs, f32 accumulator.  Not volatile: it touches
+// registers only, so the compiler may interleave independent products.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7
+// give the row addresses of matrix i, and r[i] receives matrix i.  With the
+// rows of a row-major (k x n) tile, r[0], r[1] are the B fragment (b0, b1)
+// of columns n0..n0+7 when lanes 0-15 address rows k0..k0+15 at n0, and
+// r[2], r[3] that of n0+8.. when lanes 16-31 address the same rows at n0+8.
+__device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
 
 // ---- warp specialisation -----------------------------------------------------
 

@@ -33,7 +33,7 @@ DTYPES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 #: C entry point -> (source stem under csrc/, argument types, the stream last)
 _SIGNATURES = {
-    "repro_reduce_sum": ("reduce", [_P, _P, _P, _I64, _I64, _I, _I, _P]),
+    "repro_reduce_sum": ("reduce", [_P, _P, _P, _I64, _I64, _I64, _I, _P]),
     "repro_scan_inclusive": ("scan", [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P]),
     "repro_histogram": ("histogram", [_P, _P, _I64, _I64, _I, _I, _P]),
     "repro_gemv": ("gemv", [_P, _P, _P, _I64, _I, _I, _P]),
@@ -42,8 +42,8 @@ _SIGNATURES = {
                               [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _P]),
     "repro_moe_gmm": ("moe_gmm", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "repro_ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _P]),
+    "repro_ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _P]),
 }
 
 

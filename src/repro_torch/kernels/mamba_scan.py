@@ -8,18 +8,25 @@ lower-triangular decay matrix, y = ((C Bᵀ) ∘ D) X + exp(cum) · (C h0) with
 D[t, s] = exp(cum_t − cum_s) for t ≥ s, and the (N, P) float32 state is
 carried from chunk to chunk.  The TPU kernel's grid is (B, H, chunks) with
 the chunk axis sequential and the state in VMEM scratch; its wrapper pads
-S to a whole chunk with a = 1.  On Hopper, ``csrc/ssd_scan.cu`` gives each
-(b, h) one block that loops over the chunks itself with the state in shared
-memory, and masks the ragged tail of S instead of padding it.
+S to a whole chunk with a = 1.  On Hopper, ``csrc/ssd_scan.cu`` runs the
+chunks in parallel, in three launches: every chunk's own state (B ∘ w)ᵀ X
+into a float32 scratch (B, chunks, H, N, P) that this wrapper allocates;
+the carry over the chunks, a thread per (b, h, n, p); and every output,
+with C Bᵀ computed once per (b, chunk) block of four heads.  bfloat16
+inputs run on the tensor cores (``mma.sync``, float32 operands as hi + lo
+bf16 pairs), float32 inputs on the CUDA cores.  The kernel masks the
+ragged tail of S instead of padding it.
 
 Three functions compute the scan here:
 
 - :func:`ssd_scan` — the wrapper: a CUDA tensor goes to the kernel, a CPU
   tensor to :func:`chunked`;
-- :func:`chunked` — the kernel's arithmetic (chunk by chunk, the same
-  padding) in plain PyTorch, the counterpart of the reference running its
-  Pallas kernel in interpret mode, so that ``use_kernel=True`` on the CPU
-  is the reference's algorithm and not another one;
+- :func:`chunked` — the kernel's three steps (every chunk's state in one
+  batched product, the carry over chunks, every output in one batched
+  product) in plain PyTorch, with the reference's padding: the
+  counterpart of the reference running its Pallas kernel in interpret
+  mode, so that ``use_kernel=True`` on the CPU is the reference's
+  algorithm and not another one;
 - :func:`plain` — the sequential oracle ``ref.ssd_scan``, which
   ``models/mamba.apply(use_kernel=False)`` runs, and the yardstick the
   kernel is held against on the card.  The chunked and sequential forms
@@ -34,18 +41,39 @@ import torch.nn.functional as F
 from . import cuda_lib, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-#: the kernel's cumsum gives each step of a chunk one of its 256 threads
+#: the kernel's cumsum takes two steps of a chunk on each of its 128 threads
 MAX_CHUNK = 256
+#: heads one block of the kernel holds (``csrc/ssd_scan.cu:kHeads``)
+HEADS = 4
 #: shared memory a block may use on Hopper (227 KB), less the kernel's
 #: static scan scratch
 _SMEM_LIMIT = 232448 - 512
 
 
-def smem_bytes(L: int, P: int, N: int) -> int:
-    """Shared memory one block needs: x (L, P), bᵀ and c (L, N) each, the
-    masked (L, L + 1) matrix, the (N, P) state and three L-vectors, as
-    float32 (``csrc/ssd_scan.cu:smem_floats``)."""
-    return 4 * (L * P + 2 * L * N + L * (L + 1) + N * P + 3 * L)
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def smem_bytes(L: int, P: int, N: int, dtype: torch.dtype) -> int:
+    """Shared memory the larger of the kernel's two chunk kernels needs for
+    a chunk of L steps (``csrc/ssd_scan.cu``: ``StatesBf16`` and ``OutBf16``
+    for bfloat16, ``StatesF32`` and ``OutF32`` for float32)."""
+    if dtype == torch.bfloat16:
+        L16, P16, N16 = _up(L, 16), _up(P, 16), _up(N, 16)
+        T16 = L16 // 16
+        states = 4 * L16 * (HEADS + 2) + 2 * (L16 * (P16 + 8)
+                                               + N16 * (L16 + 8))
+        out = (4 * (256 * T16 * (T16 + 1) // 2 + L16 * (HEADS + 1))
+               + 2 * (2 * L16 * (N16 + 8) + 2 * P16 * (N16 + 8)
+                      + L16 * (P16 + 8)))
+    else:
+        L4, P4, N16 = _up(L, 4), _up(P, 4), _up(N, 16)
+        rq = L4 // 4
+        tri = 8 * rq * (rq + 1)
+        states = 4 * (L4 * (HEADS + 2) + L4 * P4 + L4 * N16)
+        out = 4 * (tri + max(tri, L4 * N) + L4 * P4 + N * L4
+                   + L4 * (HEADS + 1))
+    return max(states, out)
 
 
 def plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -59,8 +87,8 @@ def chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             c: torch.Tensor, chunk: int):
     """The chunked form with chunks of ``chunk`` steps, S padded to a whole
     chunk with x = b = c = 0 and a = 1 (log a = 0), as the reference's
-    wrapper pads it.  Returns y (B, S, H, P) in x's dtype and the final h
-    (B, H, N, P) in float32."""
+    wrapper pads it, in the kernel's three steps.  Returns y (B, S, H, P)
+    in x's dtype and the final h (B, H, N, P) in float32."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     L = chunk
@@ -75,27 +103,29 @@ def chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     xf = x.to(f32).reshape(B, n, L, H, P)
     bf = b.to(f32).reshape(B, n, L, N)
     cf = c.to(f32).reshape(B, n, L, N)
-    cum = torch.log(a.to(f32)).reshape(B, n, L, H).cumsum(2)
-    lower = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    cum = torch.log(a.to(f32)).reshape(B, n, L, H).cumsum(2)   # (B, n, L, H)
+    # 1. every chunk's own state (B o w)^T X and its decay exp(cum_L)
+    w = (cum[:, :, -1:] - cum).exp()
+    states = torch.einsum("bcshn,bcshp->bchnp",
+                          bf[:, :, :, None, :] * w[..., None], xf)
+    decay = cum[:, :, -1].exp()                                 # (B, n, H)
+    # 2. the carry: h_in[c] = exp(cum_L[c-1]) h_in[c-1] + s[c-1]
     h = torch.zeros((B, H, N, P), dtype=f32, device=x.device)
-    ys = []
+    h_in = []
     for i in range(n):
-        cu = cum[:, i]                                     # (B, L, H)
-        diff = cu[:, :, None, :] - cu[:, None, :, :]       # (B, t, s, H)
-        decay = diff.masked_fill(~lower[None, :, :, None], float("-inf")).exp()
-        g = torch.einsum("btn,bsn->bts", cf[:, i], bf[:, i])
-        y_intra = torch.einsum("btsh,bshp->bthp", g[..., None] * decay,
-                               xf[:, i])
-        y_carry = cu.exp()[..., None] * torch.einsum("btn,bhnp->bthp",
-                                                     cf[:, i], h)
-        ys.append(y_intra + y_carry)
-        w = (cu[:, -1:] - cu).exp()                        # (B, L, H)
-        h = cu[:, -1].exp()[:, :, None, None] * h + torch.einsum(
-            "bshn,bshp->bhnp", bf[:, i][:, :, None, :] * w[..., None],
-            xf[:, i])
-    y = (torch.stack(ys, 1).reshape(B, n * L, H, P)[:, :S] if ys
-         else xf.new_zeros((B, 0, H, P)))
-    return y.to(x.dtype), h
+        h_in.append(h)
+        h = decay[:, i, :, None, None] * h + states[:, i]
+    # 3. every output: ((C B^T) o D) X + exp(cum) (C h_in)
+    if not n:
+        return xf.new_zeros((B, 0, H, P)).to(x.dtype), h
+    h_in = torch.stack(h_in, 1)                                 # (B, n, H, N, P)
+    lower = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B, n, t, s, H)
+    d = diff.masked_fill(~lower[:, :, None], float("-inf")).exp()
+    g = torch.einsum("bctn,bcsn->bcts", cf, bf)
+    y = (torch.einsum("bctsh,bcshp->bcthp", g[..., None] * d, xf)
+         + cum.exp()[..., None] * torch.einsum("bctn,bchnp->bcthp", cf, h_in))
+    return y.reshape(B, n * L, H, P)[:, :S].to(x.dtype), h
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -120,15 +150,22 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          f"{tuple(c.shape)}")
     B, S, H, P = x.shape
     N = b.shape[-1]
-    if not 1 <= chunk <= MAX_CHUNK or smem_bytes(chunk, P, N) > _SMEM_LIMIT:
+    if not 1 <= chunk <= MAX_CHUNK \
+            or smem_bytes(chunk, P, N, x.dtype) > _SMEM_LIMIT:
         raise ValueError(f"ssd_scan kernel takes chunk <= {MAX_CHUNK} whose "
                          f"tiles fit in shared memory; got chunk {chunk}, "
-                         f"P {P}, N {N} ({smem_bytes(chunk, P, N)} bytes)")
+                         f"P {P}, N {N} "
+                         f"({smem_bytes(chunk, P, N, x.dtype)} bytes)")
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    chunks = -(-S // chunk)
+    # every chunk's state, then its h_in, and its decay exp(cum_L)
+    scratch = torch.empty(B * chunks * H * (N * P + 1), dtype=torch.float32,
+                          device=x.device)
     cuda_lib.launch("repro_ssd_scan", x.device, x.data_ptr(), a.data_ptr(),
                     b.data_ptr(), c.data_ptr(), y.data_ptr(), h.data_ptr(),
-                    B, S, H, P, N, chunk, cuda_lib.DTYPES[x.dtype])
+                    scratch.data_ptr(), B, S, H, P, N, chunk,
+                    cuda_lib.DTYPES[x.dtype])
     ssd_scan.launches += 1
     return y, h
 

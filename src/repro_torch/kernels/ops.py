@@ -110,10 +110,14 @@ def gemv(a: torch.Tensor, x: torch.Tensor, *, block_n: int = 512):
 # -- reduce / scan -------------------------------------------------------------
 
 def reduce_sum(x: torch.Tensor, *, block: int = 4096):
-    """Sum over the last axis, in x's dtype (int32 wraps)."""
+    """Sum over the last axis, in x's dtype (int32 wraps).  A CPU tensor is
+    padded to the reference's clamped block (``ops.py:105-110``); the
+    CUDA kernel takes any n, so a CUDA tensor goes in as it is."""
     xb = _banked(x, 1)
     b = _block(xb.shape[-1], block)
-    out = _red.reduce_sum(_pad_last(xb, b).contiguous(), block=b)
+    if xb.device.type == "cpu":
+        xb = _pad_last(xb, b)
+    out = _red.reduce_sum(xb.contiguous(), block=b)
     return out if x.dim() == 2 else out[0]
 
 

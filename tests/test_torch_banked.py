@@ -27,6 +27,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.prim import common as tcommon
 from repro_torch.prim.registry import REGISTRY as TREG
 
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 R = np.random.default_rng(11)
 

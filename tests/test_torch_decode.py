@@ -30,6 +30,10 @@ from repro_torch.models import convert, pim_bridge, transformer
 from repro_torch.pim.decode import PIM_GROUPS, PROJ_WORKLOADS, DecodeEngine
 from repro_torch.runtime.trace import NULL_TRACER, set_tracer
 
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
+
 STREAMS, PROMPT, MAX_NEW = 2, 4, 6
 SHAPES = {"1 bank": dict(banks=1), "8 banks": dict(banks=8),
           "2 ranks x 4 banks": dict(ranks=2, banks_per_rank=4)}

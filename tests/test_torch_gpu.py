@@ -101,6 +101,74 @@ def test_int32_wraps(dev):
     close(ops.scan_inclusive(x), kscan.plain(x, 4096))
 
 
+# -- reduce_sum: one launch, spans combined by the last block -----------------------
+
+def wrapped_sum(x):
+    """The int32 sum of each row with two's-complement wrap, from int64."""
+    s = x.to(torch.int64).sum(-1)
+    return (torch.remainder(s + (1 << 31), 1 << 32) - (1 << 31)).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(1, 128), (1, 1000), (3, 12345),
+                                   (64, 4096), (2, 1 << 20)])
+def test_reduce_int32_exact_and_wraps(dev, shape):
+    """Values near 2^30: every row's sum passes 2^31 and wraps, at each
+    shape of test_reduce_and_scan_match_plain."""
+    x = make(shape, torch.int32, dev, lo=1 << 30, hi=(1 << 31) - 1)
+    close(ops.reduce_sum(x), wrapped_sum(x))
+
+
+@pytest.mark.parametrize("shape", [(2048, 32768), (1, 1 << 22), (3, 12345)])
+def test_reduce_float32_same_on_every_call(dev, shape):
+    x = make(shape, torch.float32, dev)
+    first = ops.reduce_sum(x)
+    for _ in range(2):
+        assert torch.equal(ops.reduce_sum(x), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_reduce_unaligned_view(dev, dtype):
+    """A base 4 bytes past a 16-byte boundary and rows of odd length: each
+    row starts on another alignment, its head and tail added by scalar
+    loads."""
+    x = make((3 * 5001 + 1,), dtype, dev, lo=-1000, hi=1000)[1:].view(3, 5001)
+    assert x.data_ptr() % 16 == 4
+    want = kred.plain(torch.nn.functional.pad(x, (0, 8192 - 5001)), 4096)
+    floats = dtype == torch.float32
+    close(ops.reduce_sum(x), want, 1e-6 * x.abs().sum(-1) if floats else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_reduce_one_bank_4194304(dev, dtype):
+    """The suite's 1-bank shape: one bank cut into many spans, whose
+    partials the last block sums."""
+    x = make((1, 1 << 22), dtype, dev, lo=-1000, hi=1000)
+    floats = dtype == torch.float32
+    close(ops.reduce_sum(x), kred.plain(x, 4096),
+          1e-6 * x.abs().sum(-1) if floats else 0)
+
+
+def test_reduce_on_two_streams(dev):
+    """Reductions in flight at once on two streams: each call has its own
+    arrival counters."""
+    a = make((1, 1 << 22), torch.int32, dev, lo=-9, hi=9)
+    b = make((300, 1 << 15), torch.float32, dev)
+    want_a, want_b = wrapped_sum(a), ops.reduce_sum(b)
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            ra = ops.reduce_sum(a)
+        with torch.cuda.stream(s2):
+            rb = ops.reduce_sum(b)
+        outs.append((ra, rb))
+    torch.cuda.synchronize()
+    for ra, rb in outs:
+        close(ra, want_a)
+        assert torch.equal(rb, want_b)
+
+
 # -- scan: the single-pass look-back -------------------------------------------------
 
 def scan_both(x):
@@ -454,6 +522,9 @@ SSD_CASES = [   # B, S, H, P, N, chunk
     (1, 100, 2, 16, 4, 32),      # S no multiple of the chunk
     (1, 2048, 8, 64, 16, 128),   # the Jamba cut's shape, 8 of its 256 heads
     (2, 5, 3, 8, 4, 128),        # S below 8: the chunk clamps to 8
+    (2, 2048, 8, 64, 16, 128),   # many chunks, B > 1
+    (1, 256, 5, 64, 16, 64),     # H = 5: no multiple of the 4-head block
+    (1, 1000, 4, 64, 16, 64),    # chunk 64, a ragged tail of 40 steps
 ]
 
 

@@ -37,6 +37,10 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import scan as tscan
 from repro_torch.kernels import spmv as tspmv
 
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
+
 R = np.random.default_rng(7)
 
 JNP = {torch.int32: jnp.int32, torch.float32: jnp.float32,
@@ -454,6 +458,26 @@ def test_ssd_scan_clamps_the_chunk_and_pads_the_tail(S, chunk):
     sy, sh = tmamba.plain(*tin)
     agree(y, np.asarray(sy), 5e-3)
     agree(h, np.asarray(sh), 5e-3)
+
+
+@pytest.mark.parametrize("S", [33, 64, 100])
+def test_chunked_carry_keeps_h_across_chunk_boundaries(S):
+    """The chunked form's three steps (every chunk's state, the carry over
+    chunks, every output) against the sequential oracle on prefixes that
+    end one step past a boundary, on a boundary, and in a ragged chunk of
+    4 steps (100 = 3 x 32 + 4): h and y at 5e-3 (chunked against
+    sequential), and like against like with the reference's kernel at
+    1e-4."""
+    jin, tin = ssd_inputs(2, 100, 3, 8, 4)
+    tin = [t[:, :S] for t in tin]
+    jin = [t[:, :S] for t in jin]
+    y, h = tmamba.chunked(*tin, 32)
+    sy, sh = tref.ssd_scan(*tin)
+    agree(h, np.asarray(sh), 5e-3)
+    agree(y, np.asarray(sy), 5e-3)
+    jy, jh = jops.ssd_scan(*jin, chunk=32)
+    agree(h, jh, 1e-4)
+    agree(y, jy, 1e-4)
 
 
 def test_ssd_oracle_takes_an_initial_state():

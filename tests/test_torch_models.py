@@ -27,6 +27,10 @@ from repro.models import transformer as jt
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import attention, convert, layers, transformer
 
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
+
 DENSE = ["tinyllama-1.1b", "h2o-danube-3-4b", "codeqwen1.5-7b", "stablelm-12b"]
 TOL = 1e-4
 

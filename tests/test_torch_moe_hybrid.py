@@ -45,6 +45,10 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import convert, moe, transformer
 
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
+
 MOE = ["deepseek-moe-16b", "kimi-k2-1t-a32b"]
 HYBRID = ["jamba-1.5-large-398b"]
 TOL = 1e-4

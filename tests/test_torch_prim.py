@@ -14,6 +14,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from repro import prim as jprim
 from repro.prim.registry import REGISTRY as JREG
@@ -21,6 +22,10 @@ from repro_torch import prim as tprim
 from repro_torch.core import make_bank_grid
 from repro_torch.prim.registry import (PIPELINEABLE, REGISTRY as TREG,
                                        SERIALIZED_ONLY)
+
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
 
 BANKS = [1, 8]
 

@@ -37,6 +37,10 @@ from repro_torch.runtime import resident as tres
 from repro_torch.runtime import trace as ttrace
 from repro_torch.runtime.telemetry import RequestRecord, Telemetry
 
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
+
 NAMES = ("GEMV", "SpMV", "HST", "RED", "SCAN")
 GEMV_NBYTES = 512 * 256 * 4
 

@@ -31,6 +31,10 @@ from repro_torch.runtime.elastic import RankAllocator as TAllocator
 from repro_torch.runtime.qos import TenantState as TTenant
 from repro_torch.runtime.qos import resolve_options
 
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
+
 PORTED = ("GEMV", "GEMV-B", "GEMV-G", "SpMV", "HST", "RED", "SCAN")
 
 
