@@ -45,8 +45,10 @@ same two for the library call, the CUDA launches of the port's kernels per
 wrapper call, and for the short rows (reduce_sum at 2,048 banks and at 1
 bank, gemv, scan at 1 bank, spmv_ell at 256 rows per bank,
 flash_attention at TinyLlama's shape) min / median / max over REPEATS
-measurements.  gemv's row says whether it loses to ``torch.mv`` by more
-than the two rows' spread.
+measurements, each time over the repeats whose profile recorded it (their
+count beside it).  gemv's row says whether it loses to ``torch.mv`` by
+more than the two rows' spread, on the device times when VERDICT_MIN
+repeats of both rows have them.
 """
 import contextlib
 import dataclasses
@@ -86,6 +88,10 @@ SPMV_K, SPMV_LARGE_ROWS = 8, 4096   # and a per-bank height past the L2
 SCAN_ONE_BANK = 65536 * SUITE[1][1]
 TIMED_ITERS = 20
 REPEATS = 5                         # measurements of each short row
+VERDICT_MIN = 3                     # gemv's verdict on device times from
+                                    # this many repeats of both rows
+# the suite's 1-bank GEMV: 32,768 rows of 256 (make_args at scale 64)
+GEMV_ONE_BANK_ROWS = 32768
 # the session phase: the suite's 2,048 banks as 32 ranks of 64 DPUs
 RANKS, BANKS_PER_RANK = 32, 64
 TRACE = os.path.join(ROOT, "build", "repro_torch", "chip_smoke_trace.json")
@@ -200,10 +206,12 @@ def device_ms(fn, iters: int = TIMED_ITERS,
     ``torch.profiler``, over ``iters``, after a warm-up call.  Every call
     launches the same operations, so each count is a multiple of
     ``iters``; a profile where one is not has lost records (an H100 run
-    without this check read a row below its bound) and is taken again, up
-    to 3 times, then used as it is with a note.  None when the profiler
-    records no device time.  ``ops_seen`` receives the operations
-    (``device_ops``)."""
+    without this check read a row below its bound), and one that records
+    no device time at all has lost every record: either is taken again, up
+    to 3 attempts, each printed.  None when no attempt gives a whole
+    profile: a lossy one reads low, so its time is left out.  ``ops_seen``
+    receives the operations of the whole profile (``device_ops``) and is
+    left as it was when there is none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -218,13 +226,15 @@ def device_ms(fn, iters: int = TIMED_ITERS,
                 torch.cuda.synchronize()
             rows = device_ops(prof)
         lost = [(n, name) for _, n, name in rows if n % iters]
-        if not lost:
-            break
-        print(f"    profiler: counts {lost} are no multiple of {iters} "
-              f"calls (attempt {attempt + 1})")
-    if ops_seen is not None:
-        ops_seen[:] = rows
-    return sum(r[0] for r in rows) / iters if rows else None
+        if rows and not lost:
+            if ops_seen is not None:
+                ops_seen[:] = rows
+            return sum(r[0] for r in rows) / iters
+        print("    profiler: " + (f"counts {lost} are no multiple of {iters} "
+                                  f"calls" if rows else "no device time "
+                                  "recorded") + f" (attempt {attempt + 1})")
+    print("    profiler: no whole profile in 3 attempts: device time left out")
+    return None
 
 
 def own_launches(ops_seen: list, iters: int) -> float | None:
@@ -321,7 +331,7 @@ def spmv_case(name: str, rows: int, n: int, g, dev, tol=1e-4,
 
 def kernel_phase(dev) -> list[dict]:
     """Each kernel at the suite's 2,048-bank shapes: the error against its
-    plain version on the same inputs, and its times.  reduce_sum and
+    plain version on the same inputs, and its times.  reduce_sum, gemv and
     scan_inclusive are also timed at the suite's 1-bank shape, spmv_ell at
     4,096 rows per bank, whose bytes leave the L2."""
     from repro_torch.kernels import gemv as kgemv
@@ -431,7 +441,8 @@ def kernel_phase(dev) -> list[dict]:
              plain=lambda: kgemv.plain(a.view(-1, COLS), v).view(banks, ROWS),
              library=lambda: torch.mv(a.view(-1, COLS), v),
              nbytes=a.nbytes + v.nbytes + banks * ROWS * 4,
-             nops=2 * a.numel(), tol=1e-4, repeats=REPEATS),
+             nops=2 * a.numel(), tol=1e-4, repeats=REPEATS,
+             read_once=lambda: torch.sum(a)),
         spmv_case("spmv_ell", ROWS, COLS, g, dev, repeats=REPEATS),
     ]
     rows = [timed(c) for c in cases]
@@ -444,7 +455,20 @@ def kernel_phase(dev) -> list[dict]:
         library=lambda: torch.sum(x1, dim=-1, dtype=torch.int32),
         nbytes=x1.nbytes + 4, nops=x1.numel())))
     del x1
-    gemv_verdict(next(r for r in rows if r["name"] == "gemv"))
+    # gemv at the suite's 1-bank shape, beside torch.mv
+    a1 = torch.randn((1, GEMV_ONE_BANK_ROWS, COLS), generator=g, device=dev)
+    gemv = next(r for r in rows if r["name"] == "gemv")
+    gemv["at_1_bank_32768_rows"] = dict_of(timed(dict(
+        cases[3], kernel=lambda: ops.gemv(a1, v),
+        plain=lambda: kgemv.plain(a1.view(-1, COLS), v).view(1, -1),
+        library=lambda: torch.mv(a1.view(-1, COLS), v),
+        nbytes=a1.nbytes + v.nbytes + GEMV_ONE_BANK_ROWS * 4,
+        nops=2 * a1.numel(), read_once=lambda: torch.sum(a1))))
+    gemv["at_1_bank_32768_rows"]["note"] = (
+        "A's 33.5 MB fit the 50 MB L2, so back-to-back calls may run under "
+        "the HBM bound: the share of the bound is not read")
+    del a1
+    gemv_verdict(gemv)
     # scan_inclusive at the suite's 1-bank shape, and the exclusive scan
     # the suite calls (ops.scan_exclusive) at 2,048 banks; both ride in the
     # scan_inclusive row
@@ -473,26 +497,32 @@ def kernel_phase(dev) -> list[dict]:
 
 def gemv_verdict(row: dict) -> None:
     """Whether gemv loses to torch.mv by more than the two rows' spread
-    (max - min over REPEATS measurements), on the device times where the
-    profiler gave them, else on the event times; kept in the row."""
+    (max - min over REPEATS measurements), on the device times when at
+    least VERDICT_MIN of the repeats of both rows have them, else on the
+    event times; kept in the row with the times it used."""
     sp = row["spread"]
-    k, lib = (("device_ms", "library_device_ms") if "device_ms" in sp
-              and "library_device_ms" in sp else ("ms", "library_ms"))
+    k, lib = (("device_ms", "library_device_ms")
+              if min(row["device_ms_n"], row["library_device_ms_n"])
+              >= VERDICT_MIN else ("ms", "library_ms"))
     gap = sp[k][1] - sp[lib][1]
     spread = (sp[k][2] - sp[k][0]) + (sp[lib][2] - sp[lib][0])
     row["verdict"] = (
         "slower than torch.mv beyond the spread: first for the next redesign"
         if gap > spread else
         "no slower than torch.mv within spread; left alone (rule 2)")
-    print(f"  gemv vs torch.mv ({k}): median gap {gap:.4f} ms, spread "
-          f"{spread:.4f} ms: {row['verdict']}")
+    row["verdict_on"] = (f"{k} ({row.get(k + '_n', REPEATS)} of {REPEATS} "
+                         f"repeats), {lib} ({row.get(lib + '_n', REPEATS)} of "
+                         f"{REPEATS})")
+    print(f"  gemv vs torch.mv ({row['verdict_on']}): median gap {gap:.4f} "
+          f"ms, spread {spread:.4f} ms: {row['verdict']}")
 
 
 def dict_of(row: dict) -> dict:
     """A row's numbers, to ride in another row of the same kernel."""
     return {k: row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
                                 "bound_ms", "bound_by", "library_ms",
-                                "library_device_ms", "read_once_device_ms",
+                                "library_device_ms", "device_ms_n",
+                                "library_device_ms_n", "read_once_device_ms",
                                 "cuda_launches_per_call", "spread")
             if k in row}
 
@@ -728,8 +758,12 @@ def timed(c: dict) -> dict:
     under the profiler (``device_ms()``), for the kernel's wrapper and the
     library call.  A case with ``repeats`` measures kernel and library that
     many times and keeps the medians, with min / median / max under
-    ``spread``.  A case's ``check`` (optional) compares further outputs,
-    e.g. a second result."""
+    ``spread``; a repeat whose profile gave no device time is left out of
+    that time's median and spread, and ``<time>_n`` counts the repeats
+    each time has.  A case's ``check`` (optional) compares further
+    outputs, e.g. a second result; its ``read_once`` (optional) reads the
+    operands once, a plain read whose device time (``read_once_device_ms``)
+    is a yardstick beside the kernel's."""
     want = c["plain"]()
     got = c["kernel"]()
     if "check" in c:
@@ -750,8 +784,8 @@ def timed(c: dict) -> dict:
     plain_ms = cuda_ms(c["plain"], iters)
     bound_ms, bound_by = bound(c["nbytes"], c["nops"],
                                c.get("ops_per_s", F32_OPS_PER_S))
-    times = {k: (None if None in v else float(np.median(v)))
-             for k, v in runs.items()}
+    got = {k: [t for t in v if t is not None] for k, v in runs.items()}
+    times = {k: float(np.median(v)) if v else None for k, v in got.items()}
     launches = own_launches(seen, iters)
     print(f"  {c['name']:15s} kernel {fmt(times['ms'])} ms (device "
           f"{fmt(times['device_ms'])})  plain {plain_ms:.4f} ms  library "
@@ -769,16 +803,19 @@ def timed(c: dict) -> dict:
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": times["library_ms"],
            "library_device_ms": times["library_device_ms"],
+           "device_ms_n": len(got["device_ms"]),
+           "library_device_ms_n": len(got["library_device_ms"]),
            "cuda_launches_per_call": launches}
     if "read_once" in c:
         row["read_once_device_ms"] = device_ms(c["read_once"], iters)
-        print(f"    read vals and cols once (torch.sum): device "
+        print(f"    read the operands once (torch.sum): device "
               f"{fmt(row['read_once_device_ms'])} ms")
     if c.get("repeats", 1) > 1:
         row["spread"] = {k: [min(v), float(np.median(v)), max(v)]
-                         for k, v in runs.items() if None not in v}
+                         for k, v in got.items() if v}
         print(f"    {len(runs['ms'])} repeats, min / median / max: "
               + "; ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v)
+                          + f" (n {len(got[k])})"
                           for k, v in row["spread"].items()))
     return row
 

@@ -97,7 +97,7 @@ def gemv(a: torch.Tensor, x: torch.Tensor, *, block_n: int = 512):
 
     The reference pads n to its clamped block (``ops.py:95``); that keeps
     n a multiple of 128 here too, which the kernel's 16-byte loads need.
-    Rows need no padding: a warp owns a row."""
+    Rows need no padding: the kernel masks a warp's last, ragged group."""
     ab = _banked(a, 2)
     banks, m, n = ab.shape
     bn = min(block_n, max(128, 1 << (n - 1).bit_length()))

@@ -268,14 +268,28 @@ def test_histogram_matches_plain(dev, n, nbins):
 
 
 @pytest.mark.parametrize("m,n", [(128, 512), (64, 64), (100, 300),
-                                 (7, 1000), (33, 5000)])
+                                 (7, 1000), (33, 5000), (1, 256), (7, 256),
+                                 (33, 256), (33, 9000), (2048 * 256, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemv_matches_plain(dev, m, n, dtype):
+    """Three banks of (m, n): n = 256 (the suite's), n past one shared-memory
+    tile of x (9000), rows that are no multiple of a warp's row group, and
+    the suite's 2,048 x 256 rows a bank (a grid of 24,576 blocks)."""
     a = make((3, m, n), dtype, dev)
     x = make((n,), dtype, dev)
     got = ops.gemv(a, x)
     want = kgemv.plain(a.reshape(-1, n), x).reshape(3, m)
     close(got, want, rel(want, 2e-2 if dtype == torch.bfloat16 else 1e-4))
+
+
+@pytest.mark.parametrize("shape", [(2048, 256, 256), (3, 33, 9000)])
+def test_gemv_float32_same_on_every_call(dev, shape):
+    """A row's sum order depends only on n (no atomics): bit for bit over
+    3 calls, on the short-row path and the tiled long-row path."""
+    a = make(shape, torch.float32, dev)
+    x = make(shape[-1:], torch.float32, dev)
+    first = ops.gemv(a, x)
+    assert all(torch.equal(ops.gemv(a, x), first) for _ in range(2))
 
 
 def test_launch_counts_and_refusals(dev):

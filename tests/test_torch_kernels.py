@@ -143,9 +143,13 @@ def test_histogram_banked_pad_correction():
 
 # -- gemv ------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m,n", [(128, 512), (64, 64), (100, 300), (7, 1000)])
+@pytest.mark.parametrize("m,n", [(128, 512), (64, 64), (100, 300), (7, 1000),
+                                 (1, 256), (7, 256), (33, 256), (33, 9000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemv_matches_reference(m, n, dtype):
+    """The shapes the CUDA kernel branches on: n = 256 (the suite's), n
+    past one shared-memory tile of x (9000 -> 9216 after padding), rows
+    that are no multiple of a warp's row group (1, 7, 33)."""
     ja, ta = both(R.normal(size=(m, n)).astype(np.float32), dtype)
     jx, tx = both(R.normal(size=n).astype(np.float32), dtype)
     agree(tops.gemv(ta, tx), jops.gemv(ja, jx),
