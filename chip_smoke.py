@@ -2,13 +2,16 @@
 """Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain PyTorch
 version at the shapes its path gives it and times it, drives the suite's
-banked path (GEMV, GEMV-B, GEMV-G, SpMV, HST, RED, SCAN) through the
-registry at 2,048 banks,
-checks every result against ``ref()``, shows that the suite went through
-the kernels, and then drives the same workloads through the session
-façade, ``repro_torch.pim.session(ranks=32, banks_per_rank=64)``: ``run``,
-``map``, ``pin`` with warm hits, a two-tenant serving block and a trace
-export, every result checked with the registry's comparator.  Then the LM
+banked path (all 16 PrIM workloads of the registry) at 2,048 banks and at
+1 bank, checks every result against ``ref()``, shows that the suite went
+through the kernels, and then drives the same workloads through the
+session façade, ``repro_torch.pim.session(ranks=32, banks_per_rank=64)``:
+``run`` of all 16, ``map``, ``pin`` with warm hits (GEMV, SpMV and MLP
+scatter nothing; BS skips its broadcast but scatters its queries), a
+two-tenant serving block and a trace export, and then a flat 2,048-bank
+session, every result checked with the registry's comparator.  NW runs at
+scale 32 and TRNS on 64 banks in the 2,048-bank leg (``suite_plan``).
+Then the LM
 serving stack on TinyLlama 1.1B at its published width (seeded weights):
 the prefill ``transformer.forward(use_kernel=True)`` through the
 ``flash_attention`` kernel, checked against the plain forward and timed,
@@ -78,6 +81,14 @@ F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
 
 SUITE = ((2048, 1024), (1, 64))     # (banks, make_args scale)
+# NW in every leg and phase: 2,048 bases a sequence, a 2,049^2 int32 score
+# matrix in 127 block diagonals.  Its ref() is an O(m n) Python loop, and
+# at scale 1024 the host's score matrix alone would be 17 GB.
+NW_SCALE = 32
+# TRNS in the 2,048-bank leg: make_args fixes N = 512, so N' = 64 rows of
+# tiles, and the reference's assertion asks N' to divide across the banks
+TRNS_BANKS = 64
+TRNS_NP = 512 // 8
 # the kernels' shapes on the suite's 2,048-bank run: RED / SCAN / HST hold
 # 65536 * 1024 int32 values, 32,768 per bank; GEMV 256 rows of 256 per
 # bank; SpMV 256 ELL rows of k = 8 per bank over an x of 256
@@ -830,11 +841,22 @@ PHASE_HEAD = (f"{'bench':14s} {'cpu_dpu':>10s} {'dpu':>10s} {'inter':>10s} "
               f"{'dpu_cpu':>10s} {'total':>10s}")
 
 
+def suite_plan(banks: int, scale: int, names) -> dict[str, tuple[int, int]]:
+    """Each workload's (banks, make_args scale) in the leg of ``banks`` at
+    ``scale``: the leg's own, but for NW (NW_SCALE) and TRNS (at most
+    TRNS_BANKS banks)."""
+    plan = {name: (banks, scale) for name in names}
+    plan["NW"] = (banks, NW_SCALE)
+    plan["TRNS"] = (min(banks, TRNS_BANKS), scale)
+    return plan
+
+
 def suite_phase(args_2048: dict) -> tuple[dict[str, int], dict]:
     """The PrIM suite's banked path through the registry, as
-    examples/prim_suite.py drives the reference.  Returns the kernels'
-    launch counts from this run alone and the 2,048-bank rows' phase
-    times; fills ``args_2048`` with the 2,048-bank arguments."""
+    examples/prim_suite.py drives the reference, at each leg of SUITE.
+    Returns the kernels' launch counts from this run alone and the
+    2,048-bank rows' phase times; fills ``args_2048`` with the 2,048-bank
+    leg's (arguments, ref() output) of every workload."""
     from repro_torch import make_bank_grid
     from repro_torch.kernels import ops
     from repro_torch.prim.registry import REGISTRY
@@ -842,24 +864,37 @@ def suite_phase(args_2048: dict) -> tuple[dict[str, int], dict]:
     serialized = {}
     ops.reset_launch_counts()
     for banks, scale in SUITE:
-        grid = make_bank_grid(banks)
+        plan = suite_plan(banks, scale, REGISTRY)
+        grids = {}
         rng = np.random.default_rng(0)
         print(f"{PHASE_HEAD}   ({banks} banks, scale {scale})")
         for entry in REGISTRY.values():
-            args = entry.make_args(rng, scale=scale)
-            if banks == BANKS:
-                args_2048[entry.name] = args
+            b, sc = plan[entry.name]
+            grid = grids.setdefault(b, make_bank_grid(b))
+            args = entry.make_args(rng, scale=sc)
+            t0 = time.perf_counter()
             gold = entry.ref(*args)
+            t_ref = time.perf_counter() - t0
+            if banks == BANKS:
+                args_2048[entry.name] = (args, gold)
             variants = dict(entry.run_variants())
             if entry.name in ("GEMV", "SpMV"):
                 variants[f"{entry.name}-kernel"] = functools.partial(
                     entry.pim, use_kernel=True)
+            where = "" if (b, sc) == (banks, scale) else (
+                f" ({b} banks, scale {sc})")
             for label, fn in variants.items():
+                # the first call pays one-off costs (cuBLAS handles, the
+                # lazy loading of each new device kernel): the row is the
+                # second call's, the first's total printed beside it
+                cold = fn(grid, *args)[1].total
                 out, t = fn(grid, *args)
                 entry.compare(out, gold)
-                print(phase_row(label, t) + "   ok")
+                print(phase_row(label, t) + f"   ok  cold {cold * 1e3:.3f}m"
+                      f"  ref {t_ref:.2f}s{where}")
                 if banks == BANKS:
                     serialized.setdefault(entry.name, (label, t))
+        del grids
     return ops.launch_counts(), serialized
 
 
@@ -870,28 +905,76 @@ def served(rec) -> str:
             f"{rec.n_chunks} chunks{', hit' if rec.cache_hit else ''})")
 
 
+def refuses_trns(s, args) -> None:
+    """TRNS on more banks than its N' rows: the reference's assertion,
+    raised through the session's future.  Any other outcome fails."""
+    req = s.submit("TRNS", *args)
+    try:
+        req.result(timeout=300)
+    except AssertionError as e:
+        assert "N' must divide across banks" in str(e), e
+        print(f"TRNS on {s.n_banks} banks: AssertionError({e}) as the "
+              f"reference's (N' = {TRNS_NP})")
+        return
+    raise AssertionError(f"TRNS ran on {s.n_banks} banks with N' = {TRNS_NP}")
+
+
 def flat_session_phase(args_2048: dict) -> None:
     """The same workloads through a flat 2,048-bank session (one rank, one
-    stream set): cold, then warm where the operand is resident."""
+    stream set): cold, then warm where the operand is resident.  TRNS's
+    N' = 64 does not divide across 2,048 banks: it must raise the
+    reference's assertion."""
     from repro_torch import pim
 
     print(f"flat session: {BANKS} banks, 1 rank")
     print(PHASE_HEAD)
     with pim.session(banks=BANKS) as s:
         for name, entry in pim.registry().items():
-            args = args_2048[name]
+            args, gold = args_2048[name]
+            if name == "TRNS":
+                refuses_trns(s, args)
+                continue
             for leg in ("cold", "warm") if entry.resident else ("cold",):
-                entry.compare(s.submit(name, *args).result(timeout=300),
-                              entry.ref(*args))
+                entry.compare(s.submit(name, *args).result(timeout=300), gold)
                 rec = s.telemetry.records[-1]
+                assert rec.cache_hit == (leg == "warm"), (name, leg)
                 print(phase_row(f"{name} {leg}", rec.phases) + served(rec))
+
+
+def warm_runs(s, entry, args, gold) -> None:
+    """``pin``, then two warm ``run``s of a resident workload.  A
+    chunk-resident operand (GEMV, SpMV, MLP) scatters nothing; BS's sorted
+    array lives in the resident meta: its queries still scatter, and each
+    warm request emits one ``scatter:cached`` span for the broadcast it
+    skips."""
+    name, spans = entry.name, s.tracer.spans
+    s.pin(name, *args)
+    pushed = sum(sp.name == "scatter" for sp in spans)
+    cached = sum(sp.name == "scatter:cached" for sp in spans)
+    chunks = 0
+    for _ in range(2):
+        entry.compare(s.run(name, *args), gold)
+        rec = s.telemetry.records[-1]
+        assert rec.cache_hit, (name, "warm run missed the cache")
+        chunks += rec.n_ranks * rec.n_chunks
+        print(phase_row(f"{name} warm", rec.phases) + served(rec))
+    pushed = sum(sp.name == "scatter" for sp in spans) - pushed
+    cached = sum(sp.name == "scatter:cached" for sp in spans) - cached
+    if entry.chunked.meta_resident:
+        assert pushed == chunks, (name, "query chunks", pushed, chunks)
+        assert cached == 2, (name, "a warm request broadcast again", cached)
+    else:
+        assert pushed == 0, f"a warm {name} request scattered a chunk"
+        assert cached == chunks, (name, cached, chunks)
+    print(f"{name} warm: {pushed} chunk scatters, {cached} cached spans")
 
 
 def session_phase(args_2048: dict, serialized: dict) -> dict[str, int]:
     """The session façade over 32 ranks of 64 banks: ``run`` of each
-    workload against its registry comparator, ``map``, ``pin`` with warm
-    hits that scatter nothing, a two-tenant serving block, and a trace
-    export.  Returns the kernels' launch counts from this phase (the
+    workload against its registry comparator (NW and BFS fall back to
+    their serialized ``pim()``; TRNS runs on the 64-bank rank views),
+    ``map``, ``pin`` with warm hits, a two-tenant serving block, and a
+    trace export.  Returns the kernels' launch counts from this phase (the
     chunked phases use the plain oracles, as the reference's do)."""
     from repro_torch import pim
     from repro_torch.kernels import ops
@@ -904,41 +987,30 @@ def session_phase(args_2048: dict, serialized: dict) -> dict[str, int]:
     reg = pim.registry()
     try:
         for name, entry in reg.items():
-            args = args_2048[name]
+            args, gold = args_2048[name]
             out = s.run(name, *args)
-            entry.compare(out, entry.ref(*args))
+            entry.compare(out, gold)
             rec = s.telemetry.records[-1]
             label, ser = serialized[name]
-            print(phase_row(f"{name} pipelined", rec.phases) + served(rec))
+            kind = "pipelined" if entry.pipelineable else "fallback"
+            print(phase_row(f"{name} {kind}", rec.phases) + served(rec))
             print(phase_row(f"{label} serial", ser))
         rng = np.random.default_rng(1)
         reds = [reg["RED"].make_args(rng, scale=256) for _ in range(4)]
         for out, args in zip(s.map("RED", reds), reds):
             reg["RED"].compare(out, reg["RED"].ref(*args))
         print("map: 4 RED requests ok")
-        spans = s.tracer.spans
-        for name in ("GEMV", "SpMV"):
-            s.pin(name, *args_2048[name])
-            pushed = sum(sp.name == "scatter" for sp in spans)
-            cached = sum(sp.name == "scatter:cached" for sp in spans)
-            for _ in range(2):
-                out = s.run(name, *args_2048[name])
-                reg[name].compare(out, reg[name].ref(*args_2048[name]))
-                rec = s.telemetry.records[-1]
-                assert rec.cache_hit, (name, "warm run missed the cache")
-                print(phase_row(f"{name} warm", rec.phases) + served(rec))
-            assert sum(sp.name == "scatter" for sp in spans) == pushed, (
-                f"a warm {name} request scattered a chunk")
-            assert sum(sp.name == "scatter:cached" for sp in spans) > cached
+        for name in ("GEMV", "SpMV", "MLP", "BS"):
+            warm_runs(s, reg[name], *args_2048[name])
         cache = s.stats()["cache"]
         print(f"cache: {cache}")
-        assert cache["hits"] > 0, cache
+        assert cache["hits"] >= 8, cache
         path = s.trace_export(TRACE)
     finally:
         s.close()
     with open(path) as f:
         names = {ev["name"] for ev in json.load(f)["traceEvents"]}
-    missing = {"scatter", "compute", "retrieve", "merge"} - names
+    missing = {"scatter", "compute", "retrieve", "merge", "serialized"} - names
     assert not missing, f"trace lacks {missing}"
     print(f"trace: {len(names)} span names, {os.path.getsize(path)} bytes")
 

@@ -1,15 +1,15 @@
 """PrIM workload registry of the port — the counterpart of
-``repro.prim.registry`` for the workloads ported so far.
+``repro.prim.registry``, with all of its 16 entries in its order.
 
 One :class:`WorkloadEntry` per paper workload module (Table 2) with the
 reference's ``section``, ``ref``, ``pim``, ``chunked``, ``make_args``,
-``compare`` and ``variants``.  ``make_args`` is a copy of the reference's
-generators: the same seed gives byte-identical arrays, which is how both
-packages see the same inputs (there are no weights to carry across).
-
-Ported: GEMV, GEMV-B, GEMV-G, SpMV, HST, RED, SCAN.  Still to come, in
-the reference's order: VA, SEL, UNI, BS, TS, BFS, MLP, NW, TRNS.  The
-``cost_profile`` method waits for the cost model.
+``compare``, ``reason`` and ``variants``.  ``make_args`` is a copy of the
+reference's generators: the same seed gives byte-identical arrays, which is
+how both packages see the same inputs (there are no weights to carry
+across).  NW and BFS register as serialized-only with the reference's
+reasons: their inter-DPU exchange feeds every bank's next step, so the
+runtime falls back to ``pim()`` for them.  The ``cost_profile`` method
+waits for the cost model.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from typing import Callable, Mapping
 import numpy as np
 
 from repro_torch.core.transfer import tree_nbytes
-from . import gemv, gemv_fused, hist, red, scan, spmv
+from . import bfs, bs, gemv, gemv_fused, hist, mlp, nw, red, scan, sel, spmv
+from . import trns, ts, uni, va
 from .common import CHUNKED, ChunkedWorkload
 
 
@@ -33,6 +34,12 @@ def assert_exact(a, b) -> None:
 def assert_close(a, b) -> None:
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                rtol=1e-4, atol=1e-4)
+
+
+def assert_ts(a, b) -> None:
+    """(min_dist, argmin) pairs: distances within 1e-3, indices equal."""
+    assert abs(a[0] - b[0]) < 1e-3, (a, b)
+    assert int(a[1]) == int(b[1]), (a, b)
 
 
 # -- entry -------------------------------------------------------------------
@@ -78,6 +85,12 @@ class WorkloadEntry:
 # Sizes at scale=1 are test-sized; benchmarks pass larger scales.  Leading
 # dimensions grow linearly with ``scale``.
 
+def _args_va(rng, scale=1):
+    n = 65536 * scale
+    return (rng.integers(0, 99, n).astype(np.int32),
+            rng.integers(0, 99, n).astype(np.int32))
+
+
 def _args_gemv(rng, scale=1):
     return (rng.normal(size=(512 * scale, 256)).astype(np.float32),
             rng.normal(size=256).astype(np.float32))
@@ -102,6 +115,40 @@ def _args_spmv(rng, scale=1):
     return vals, cols, rng.normal(size=256).astype(np.float32)
 
 
+def _args_sel(rng, scale=1):
+    return (rng.integers(0, 999, 65536 * scale).astype(np.int32),)
+
+
+def _args_uni(rng, scale=1):
+    return (np.sort(rng.integers(0, 99, 65536 * scale)).astype(np.int32),)
+
+
+def _args_bs(rng, scale=1):
+    return (np.sort(rng.integers(0, 1 << 20, 1 << 15)).astype(np.int32),
+            rng.integers(0, 1 << 20, 4096 * scale).astype(np.int32))
+
+
+def _args_ts(rng, scale=1):
+    return (rng.normal(size=8192 * scale).astype(np.float32),
+            rng.normal(size=64).astype(np.float32))
+
+
+def _args_bfs(rng, scale=1):
+    return bfs.random_graph(512 * scale, 4,
+                            seed=int(rng.integers(1 << 30))), 0
+
+
+def _args_mlp(rng, scale=1):
+    return ([rng.normal(size=(256 * scale, 512)).astype(np.float32),
+             rng.normal(size=(128, 256 * scale)).astype(np.float32)],
+            rng.normal(size=512).astype(np.float32))
+
+
+def _args_nw(rng, scale=1):
+    return (rng.integers(0, 4, 64 * scale).astype(np.int32),
+            rng.integers(0, 4, 64 * scale).astype(np.int32))
+
+
 def _args_hst(rng, scale=1):
     return rng.integers(0, 256, 65536 * scale).astype(np.int32), 256
 
@@ -114,9 +161,25 @@ def _args_scan(rng, scale=1):
     return (rng.integers(0, 9, 65536 * scale).astype(np.int32),)
 
 
+def _args_trns(rng, scale=1):
+    # N=512 keeps N' = 64 divisible by any simulated bank count up to 64
+    return (rng.normal(size=(64 * scale, 512)).astype(np.float32),)
+
+
+_NO_CHUNKS_NW = ("block anti-diagonal wavefront: every diagonal's boundaries "
+                 "feed the next via the host (paper §4.10, Key Obs. 16) — "
+                 "chunks are never independent; falls back to serialized "
+                 "pim()")
+_NO_CHUNKS_BFS = ("iterative frontier expansion: each level's host-side "
+                  "frontier union feeds every bank's next level (paper §4.8, "
+                  "Key Obs. 16) — chunks are never independent; falls back "
+                  "to serialized pim()")
+
+
 def _entries():
     e = WorkloadEntry
     return [
+        e("VA", "§4.1", va, va.ref, va.pim, va.chunked, _args_va),
         e("GEMV", "§4.2", gemv, gemv.ref, gemv.pim, gemv.chunked,
           _args_gemv, assert_close),
         e("GEMV-B", "§4.2", gemv_fused, gemv_fused.ref_b, gemv_fused.pim_b,
@@ -125,6 +188,16 @@ def _entries():
           gemv_fused.chunked_g, _args_gemv_g, assert_close),
         e("SpMV", "§4.3", spmv, spmv.ref, spmv.pim, spmv.chunked,
           _args_spmv, assert_close),
+        e("SEL", "§4.4", sel, sel.ref, sel.pim, sel.chunked, _args_sel),
+        e("UNI", "§4.5", uni, uni.ref, uni.pim, uni.chunked, _args_uni),
+        e("BS", "§4.6", bs, bs.ref, bs.pim, bs.chunked, _args_bs),
+        e("TS", "§4.7", ts, ts.ref, ts.pim, ts.chunked, _args_ts, assert_ts),
+        e("BFS", "§4.8", bfs, bfs.ref, bfs.pim, None, _args_bfs,
+          reason=_NO_CHUNKS_BFS),
+        e("MLP", "§4.9", mlp, mlp.ref, mlp.pim, mlp.chunked,
+          _args_mlp, assert_close),
+        e("NW", "§4.10", nw, nw.ref, nw.pim, None, _args_nw,
+          reason=_NO_CHUNKS_NW),
         e("HST", "§4.11", hist, hist.ref, hist.pim_short, hist.chunked,
           _args_hst,
           variants={"HST-S": hist.pim_short, "HST-L": hist.pim_long}),
@@ -132,6 +205,8 @@ def _entries():
         e("SCAN", "§4.13", scan, scan.ref, scan.pim_ssa, scan.chunked,
           _args_scan,
           variants={"SCAN-SSA": scan.pim_ssa, "SCAN-RSS": scan.pim_rss}),
+        e("TRNS", "§4.14", trns, trns.ref, trns.pim, trns.chunked,
+          _args_trns),
     ]
 
 

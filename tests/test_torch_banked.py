@@ -24,7 +24,9 @@ from repro_torch.core import banked as tbanked
 from repro_torch.core import make_bank_grid, make_rank_grid
 from repro_torch.core import transfer as ttx
 from repro_torch.kernels import ops as tops
+from repro_torch.prim import bfs as tbfs
 from repro_torch.prim import common as tcommon
+from repro_torch.prim import nw as tnw
 from repro_torch.prim.registry import REGISTRY as TREG
 
 # the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
@@ -240,6 +242,7 @@ def _phases():
     grid = cpu_grid(8)
     ch = {n: TREG[n].chunked for n in TREG}
     ints = lambda: R.integers(-20, 300, (8, 300)).astype(np.int32)  # noqa: E731
+    full = torch.full((8,), 300, dtype=torch.int32)   # every slot valid
     return grid, {
         "ops.reduce_sum": (ints, tops.reduce_sum),
         "ops.scan_inclusive": (ints, tops.scan_inclusive),
@@ -263,7 +266,45 @@ def _phases():
                          lambda v: ch["SpMV"].compute(
                              grid, {"dx": torch.arange(40.0)},
                              (v, _spmv_cols(v)))),
+        "VA.compute": (ints, lambda x: ch["VA"].compute(grid, {}, (x, x))),
+        # all odd, so the perturbed bank keeps nothing: its count moves
+        "SEL.compute": (lambda: ints() * 2 + 1,
+                        lambda x: ch["SEL"].compute(grid, {}, (x, full))),
+        # first value 5, last 0: the perturbed bank starts with 1, its
+        # previous value, so its count moves
+        "UNI.compute": (_uni_rows, lambda x: ch["UNI"].compute(
+            grid, {}, (x, torch.ones(8, dtype=torch.int32), full))),
+        "BS.compute": (ints, lambda q: ch["BS"].compute(
+            grid, {"darr": torch.arange(0, 1000, 3, dtype=torch.int32)}, q)),
+        "TS.compute": (lambda: R.normal(size=(8, 100)).astype(np.float32),
+                       lambda sb: ch["TS"].compute(
+                           grid, {"dq": torch.linspace(-1, 1, 16) ** 3}, sb)),
+        "MLP.compute": (lambda: R.normal(size=(8, 16, 64)).astype(np.float32),
+                        lambda w: ch["MLP"].compute(
+                            grid, {"dh": torch.ones(64)}, w)),
+        # 8 of TRNS's N' rows, one a bank, each of M' = 2 tiles of m = 8
+        "TRNS.compute": (lambda: R.normal(size=(8, 16, 8)).astype(np.float32),
+                         lambda x: ch["TRNS"].compute(
+                             grid, {"m": 8, "n": 8}, x)),
+        # one block a bank: top, left, corner, then the two 32-base pieces
+        "nw.nw_blocks": (lambda: R.integers(-40, 40, (8, 129)).astype(np.int32),
+                         lambda x: tnw.nw_blocks(
+                             x[:, :32], x[:, 32:64], x[:, 64],
+                             x[:, 65:97] % 4, x[:, 97:] % 4)),
+        # 30 owned rows of 4 neighbours a bank; every vertex in the
+        # frontier, none visited
+        "bfs.expand": (lambda: R.integers(-1, 240, (8, 30, 4)).astype(np.int32),
+                       lambda a: tbfs.expand(
+                           a.clamp(-1, 239), torch.ones(240, dtype=torch.uint8),
+                           torch.zeros(240, dtype=torch.uint8),
+                           torch.arange(8, dtype=torch.int32) * 30)),
     }
+
+
+def _uni_rows():
+    x = R.integers(0, 4, (8, 300)).astype(np.int32)
+    x[:, 0], x[:, -1] = 5, 0
+    return x
 
 
 def _spmv_cols(v: torch.Tensor) -> torch.Tensor:

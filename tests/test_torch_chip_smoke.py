@@ -1,4 +1,6 @@
-"""chip_smoke.py's kernel timing, rehearsed on the CPU with scripted clocks.
+"""chip_smoke.py's kernel timing, rehearsed on the CPU with scripted clocks,
+and its suite plan and suite / session phases, rehearsed on the CPU at a
+small size.
 
 ``device_ms`` takes a profile again when it lost records (a count that is
 no multiple of the calls) or recorded no device time, up to 3 attempts, and
@@ -6,7 +8,9 @@ gives None when no attempt is whole.  ``timed`` keeps each median over the
 repeats that have that time and counts them (``device_ms_n``).
 ``gemv_verdict`` decides on device times when VERDICT_MIN repeats of both
 rows have them, else on the event times.  The profiler, the CUDA events
-and the device clock are replaced here, so no card is needed.
+and the device clock are replaced here, so no card is needed.  Every
+registry workload has a (banks, scale) in each leg of the suite, with NW
+at its own scale and TRNS on banks that divide its N' = 64.
 """
 import contextlib
 import importlib.util
@@ -18,6 +22,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ITERS = 4
+
+# the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
+# a worker keep these modules from starving the reference's timing-gated tests
+torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
@@ -155,3 +163,60 @@ def test_timed_then_verdict_skips_a_repeat_without_device_time(cs,
     assert row["device_ms_n"] == 4
     assert row["verdict_on"].startswith("device_ms (4 of 5")
     assert row["verdict"].startswith("no slower")
+
+
+# -- the suite's plan and phases --------------------------------------------------
+
+def test_suite_plan_covers_every_workload(cs):
+    """Both legs give every workload the leg's banks and scale, BFS too;
+    NW runs at NW_SCALE = 32 and TRNS on banks that divide N' = 64, which
+    the flat 2,048-bank session's do not."""
+    from repro_torch.prim.registry import REGISTRY
+    assert cs.SUITE == ((2048, 1024), (1, 64)) and cs.NW_SCALE == 32
+    (x,) = REGISTRY["TRNS"].make_args(np.random.default_rng(0), scale=1)
+    assert cs.TRNS_NP == x.shape[1] // 8 == 64
+    assert cs.TRNS_NP % cs.BANKS and cs.BANKS == 2048
+    for banks, scale in cs.SUITE:
+        plan = cs.suite_plan(banks, scale, REGISTRY)
+        assert list(plan) == list(REGISTRY)
+        for name, (b, sc) in plan.items():
+            if name == "NW":
+                assert (b, sc) == (banks, 32)
+            elif name == "TRNS":
+                assert cs.TRNS_NP % b == 0 and (b, sc) == (
+                    min(banks, 64), scale)
+            else:
+                assert (b, sc) == (banks, scale), name
+
+
+def test_suite_and_session_phases_rehearse_on_the_cpu(cs, monkeypatch,
+                                                      tmp_path, capsys):
+    """The suite's two legs, the ranked session and the flat session at
+    128 banks (2 ranks of 64) on the CPU: every result is checked, the warm
+    hits scatter as asserted, and TRNS on 128 banks raises the reference's
+    assertion."""
+    import functools
+
+    import repro_torch
+    from repro_torch import pim
+    monkeypatch.setattr(repro_torch, "make_bank_grid", functools.partial(
+        repro_torch.make_bank_grid, device="cpu"))
+    monkeypatch.setattr(pim, "session", functools.partial(pim.session,
+                                                          device="cpu"))
+    for name, value in (("SUITE", ((128, 1), (1, 1))), ("BANKS", 128),
+                        ("RANKS", 2), ("BANKS_PER_RANK", 64),
+                        ("NW_SCALE", 2), ("TRACE", str(tmp_path / "t.json"))):
+        monkeypatch.setattr(cs, name, value)
+    args: dict = {}
+    counts, serialized = cs.suite_phase(args)
+    assert set(args) == set(serialized) == set(pim.registry())
+    assert not any(counts.values())          # CPU tensors launch no kernel
+    cs.session_phase(args, serialized)
+    cs.flat_session_phase(args)
+    out = capsys.readouterr().out
+    assert "TRNS on 128 banks: AssertionError(N' must divide across banks)" \
+        in out
+    for name in ("GEMV", "SpMV", "MLP"):
+        assert f"{name} warm: 0 chunk scatters, 16 cached spans" in out
+    assert "BS warm: 16 chunk scatters, 2 cached spans" in out
+    assert "NW fallback" in out and "BFS fallback" in out

@@ -24,8 +24,9 @@ products).  ssd_scan agrees with its sequential plain version at 5e-3 (the
 reference's chunked-vs-sequential tolerance) and with its chunked form in
 plain PyTorch at 1e-3 (float32 sums over a chunk in another order, the
 device's expf / logf); with bfloat16 x, both round one float32 value to
-bfloat16, so y is held at 2e-2.  The session and pipeline cases hold
-results to the registry's comparators against ``ref()``.
+bfloat16, so y is held at 2e-2.  The session and pipeline cases, and
+the cases of VA, SEL, UNI, BS, TS, BFS, MLP, NW and TRNS on 64 banks of
+the card, hold results to the registry's comparators against ``ref()``.
 """
 import threading
 import zlib
@@ -621,6 +622,30 @@ def test_rank_views_get_distinct_streams(dev):
                                         sb.h2d, sb.compute, sb.d2h)}) == 6
 
 
+NEW_WORKLOADS = ("VA", "SEL", "UNI", "BS", "TS", "BFS", "MLP", "NW", "TRNS")
+
+
+@pytest.mark.parametrize("name", NEW_WORKLOADS)
+def test_workload_on_the_card_matches_ref(dev, name):
+    """Each workload's serialized ``pim`` on 64 banks of the card, and its
+    chunked phases where it has them, at make_args scale 2."""
+    from repro_torch import make_bank_grid
+    entry = REGISTRY[name]
+    args = entry.make_args(np.random.default_rng(zlib.crc32(name.encode())),
+                           scale=2)
+    gold = entry.ref(*args)
+    g = make_bank_grid(64, device=dev)
+    out, times = entry.pim(g, *args)
+    entry.compare(out, gold)
+    assert times.total > 0
+    if entry.chunked is not None:
+        w = entry.chunked
+        meta, chunks = w.split(g, 3, *args)
+        parts = [w.retrieve(g, meta, w.compute(g, meta, w.scatter(g, meta, c)))
+                 for c in chunks]
+        entry.compare(w.merge(g, meta, parts), gold)
+
+
 def test_session_pipelined_matches_ref(dev):
     with pim.session(ranks=2, banks_per_rank=4) as s:
         for name, entry in pim.registry().items():
@@ -630,8 +655,8 @@ def test_session_pipelined_matches_ref(dev):
                           entry.ref(*args))
             entry.compare(s.submit(name, *args).result(timeout=120),
                           entry.ref(*args))          # warm where resident
-        # GEMV, GEMV-B, GEMV-G and SpMV
-        assert s.stats()["cache"]["hits"] == 4
+        # GEMV, GEMV-B, GEMV-G, SpMV, BS and MLP
+        assert s.stats()["cache"]["hits"] == 6
 
 
 def test_pinned_staging_reused_under_two_ranks(dev):
