@@ -11,7 +11,13 @@ scatter nothing; BS skips its broadcast but scatters its queries), a
 two-tenant serving block and a trace export, and then a flat 2,048-bank
 session, every result checked with the registry's comparator.  NW runs at
 scale 32 and TRNS on 64 banks in the 2,048-bank leg (``suite_plan``).
-Then the LM
+Then the tune phase: the paper's characterization sweeps on the flat
+2,048 banks (one line a sweep, the fitted stage models and CostModel, the
+measured HBM rate beside the data sheet's), and ``pim.session(...)
+.autotune`` on the suite's scale-1024 arguments — the 14 pipelineable
+workloads (TRNS on 64 banks), the cost-model pre-filter on GEMV / RED /
+SpMV, and the rank count over 32 ranks — each plan held to tuned >=
+default and each served result to ``ref()``.  Then the LM
 serving stack on TinyLlama 1.1B at its published width (seeded weights):
 the prefill ``transformer.forward(use_kernel=True)`` through the
 ``flash_attention`` kernel, checked against the plain forward and timed,
@@ -35,10 +41,12 @@ Needs one CUDA device and ``nvcc``; exits non-zero without them.  The
 build prints each kernel's ``-Xptxas -v`` summary (registers, spills,
 static shared memory); ``--build`` stops there, the first and short call
 after a kernel changes.  ``--only kernels,hybrid`` runs those of PHASES
-alone, e.g. to time a parent commit's kernels in the same call.  The last
+alone, e.g. to time a parent commit's kernels in the same call
+(``--only tune`` makes the suite's arguments itself).  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from ``nvidia-smi``, and the one before that a JSON
-``{"kernels": [...]}`` with each kernel's launches on its path (the suite;
+``{"kernels": [...]}`` with each kernel's launches in the tune phase
+(``tune_launches``) and on its path (``launches``: the suite;
 for flash_attention one TinyLlama prefill forward, for moe_gmm one
 DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut), its
 error against its plain version, and its times beside its bound: ``ms``
@@ -122,9 +130,22 @@ MOE_ARCH, MOE_F32_LAYERS = "deepseek-moe-16b", 4
 # parameters (47.6 GB in float32, 23.8 GB in bfloat16) of its 397.5 B
 HYBRID_ARCH, HYBRID_LAYERS = "jamba-1.5-large-398b", 2
 BIG_ITERS = 3                       # timed launches of the largest rows
+# the tune phase: characterization on the flat 2,048 banks, then the
+# autotuner on the suite's scale-1024 arguments: 13 workloads on a flat
+# 2,048-bank session, TRNS on 64 banks (its N' = 64), the constructor's
+# autotune= on 64 banks at scale 64, a cost-model leg and a ranked leg
+TUNE_SCALE, TUNE_REPS = 1024, 2
+COST_TUNE = ("GEMV", "RED", "SpMV")
+RANK_TUNE = ("GEMV", "RED", "SpMV")
+# stream_wram and rank_parallel_sweep at sizes past the card's 50 MB L2
+# (the reference's defaults, 4 MB, would time the L2)
+STREAM_N = 1 << 28                  # int32 elements: 1 GiB an array
+RANK_SWEEP_BYTES = 1 << 28
+TRANSFER_MB_PER_BANK = 1            # transfer_sweep: 2 GiB over 2,048 banks
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
-# needs the suite's arguments)
-PHASES = ("kernels", "suite", "session", "lm", "moe", "hybrid")
+# needs the suite's arguments; the tune phase makes them itself when the
+# suite did not run)
+PHASES = ("kernels", "suite", "session", "tune", "lm", "moe", "hybrid")
 # a forward's device time spent in each kernel of the port: the part of the
 # CUDA kernels' names that marks them
 SHARES = {"flash_attention": "flash_", "moe_gmm": "gmm_", "ssd_scan": "ssd_"}
@@ -1033,6 +1054,202 @@ def session_phase(args_2048: dict, serialized: dict) -> dict[str, int]:
     return ops.launch_counts()
 
 
+def tune_args(args_2048: dict) -> dict:
+    """The suite's 2,048-bank (arguments, ref() output) of the pipelineable
+    workloads: those the suite phase filled in ``args_2048``, or made the
+    same way (one seeded generator over the registry in its order, at
+    each workload's scale in ``suite_plan``)."""
+    from repro_torch.prim.registry import REGISTRY
+
+    if not args_2048:
+        rng = np.random.default_rng(0)
+        for name, (_, sc) in suite_plan(*SUITE[0], REGISTRY).items():
+            entry = REGISTRY[name]
+            args = entry.make_args(rng, scale=sc)
+            if entry.pipelineable:
+                args_2048[name] = (args, entry.ref(*args))
+    return {n: v for n, v in args_2048.items()
+            if REGISTRY[n].pipelineable}
+
+
+def characterize_phase():
+    """The paper's §3 characterization on the flat 2,048 banks of the card,
+    one line a sweep; returns the flat grid and the fitted CostModel."""
+    from repro_torch import make_bank_grid, make_rank_grid
+    from repro_torch.core import characterize as ch
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.perfmodel import GpuModel
+    from repro_torch.runtime.autotune import calibrate
+
+    grid = make_bank_grid(BANKS)
+
+    def show(label, rows, keys):
+        rows = rows if isinstance(rows, list) else [rows]
+        print(f"  {label}: " + "; ".join(
+            " ".join(f"{k}={r[k]:.6g}" if isinstance(r[k], float)
+                     else f"{k}={r[k]}" for k in keys) for r in rows))
+
+    show("push_pull_sweep", ch.push_pull_sweep(grid),
+         ("nbytes", "push_s", "pull_s"))
+    show("bank_compute_sweep", ch.bank_compute_sweep(grid),
+         ("nbytes", "compute_s"))
+    show("op_throughput_sweep", ch.op_throughput_sweep(grid),
+         ("op", "dtype", "elements", "seconds", "mops"))
+    stream = [ch.stream_wram(w, n=STREAM_N, device=grid.device)
+              for w in ("copy", "add", "scale", "triad")]
+    show(f"stream_wram (n = {STREAM_N})", stream, ("stream", "mbps",
+                                                   "seconds"))
+    show(f"transfer_sweep ({TRANSFER_MB_PER_BANK} MB a bank)",
+         ch.transfer_sweep(grid, mb_per_bank=TRANSFER_MB_PER_BANK),
+         ("kind", "nbytes", "gbps"))
+    show(f"rank_parallel_sweep ({RANKS} x {BANKS_PER_RANK}, "
+         f"{RANK_SWEEP_BYTES} bytes)",
+         ch.rank_parallel_sweep(make_rank_grid(RANKS, BANKS_PER_RANK),
+                                nbytes=RANK_SWEEP_BYTES),
+         ("ranks", "push_gbps", "pull_gbps"))
+    stages = calibrate(grid)
+    print("  StageFits: " + "; ".join(
+        f"{k} alpha {v.alpha_s * 1e6:.3f} us, {v.bytes_per_s / 1e9:.3f} GB/s"
+        for k, v in stages.items()))
+    cm = CostModel.calibrate(grid)
+    print(f"  CostModel: push {cm.push.bytes_per_s / 1e9:.3f} GB/s + "
+          f"{cm.push.setup_s * 1e6:.3f} us, pull "
+          f"{cm.pull.bytes_per_s / 1e9:.3f} GB/s + "
+          f"{cm.pull.setup_s * 1e6:.3f} us, dispatch "
+          f"{cm.dispatch_s * 1e6:.3f} us; per op (ps): " + ", ".join(
+              f"{op}:{dt} {c.per_op_s * 1e12:.4f}"
+              for (op, dt), c in sorted(cm.ops.items())))
+    measured = GpuModel.from_stream_rows(stream)
+    print(f"  GpuModel: HBM {measured.hbm_bw / 1e12:.4f} TB/s measured "
+          f"(stream_wram) against the data sheet's "
+          f"{GpuModel().hbm_bw / 1e12:.2f} TB/s")
+    return grid, cm
+
+
+def plan_line(name: str, plan, prof) -> str:
+    """A tuned plan: its adopted counts, the probed times, the model's
+    predictions, and the stage fits of its workload profile."""
+    m = " ".join(f"{c}:{t * 1e3:.3f}" for c, t in sorted(plan.measured_s.items()))
+    r = " ".join(f"{c}:{t * 1e3:.3f}"
+                 for c, t in sorted(plan.rank_measured_s.items()))
+    fits = " ".join(f"{k} {f.alpha_s * 1e6:.1f} us + {f.bytes_per_s / 1e9:.4g}"
+                    f" GB/s" for k, f in (("push", prof.push),
+                                          ("compute", prof.compute),
+                                          ("pull", prof.pull)))
+    return (f"  {name:7s} n_chunks {plan.n_chunks} (warm "
+            f"{plan.warm_n_chunks}) batch {plan.max_batch_requests} "
+            f"ranks {plan.n_ranks}; measured ms {{{m}}}"
+            + (f" ranks ms {{{r}}}" if r else "")
+            + f"; predicted serialized {plan.predicted_serialized_s * 1e3:.3f}"
+            f" pipelined {plan.predicted_pipelined_s * 1e3:.3f} warm "
+            f"{plan.warm_predicted_pipelined_s * 1e3:.3f} ms; fits {fits}")
+
+
+def check_tuned(s, result, args: dict) -> list[float]:
+    """Print each tuned plan, hold it to the tuned >= default invariant
+    (a probed plan's time at its adopted chunk count is no more than at
+    DEFAULT_N_CHUNKS, which is always probed), then serve each workload
+    once on ``s`` and hold the result to ``ref()`` with the registry's
+    comparator, printing the plan's predicted overlap beside the achieved
+    one (the measured serialized baseline over the request's wall time).
+    Returns the cost model's accuracy ratios (predicted over measured
+    stage seconds, or the inverse, whichever is >= 1) of the plans that
+    carry its stage predictions."""
+    from repro_torch import pim
+    from repro_torch.runtime.autotune import DEFAULT_N_CHUNKS
+
+    ratios = []
+    for name, plan in result.plans.items():
+        print(plan_line(name, plan, result.profiles[name]))
+        m = plan.measured_s
+        if m:
+            assert DEFAULT_N_CHUNKS in m, (name, "default not probed", m)
+            assert m[plan.n_chunks] <= m[DEFAULT_N_CHUNKS], (
+                f"{name}: adopted {plan.n_chunks} chunks measured "
+                f"{m[plan.n_chunks]} s, over the default's "
+                f"{m[DEFAULT_N_CHUNKS]} s")
+    for name, plan in result.plans.items():
+        entry = pim.registry()[name]
+        a, gold = args[name]
+        entry.compare(s.run(name, *a), gold)
+        rec = s.telemetry.records[-1]
+        assert rec.tuned, name
+        rec.serialized_s = plan.predicted_serialized_s
+        line = (f"  {name:7s} served ok: predicted overlap "
+                f"{plan.predicted_overlap:.3f}, achieved "
+                f"{rec.overlap_speedup:.3f} (wall "
+                f"{rec.service_s * 1e3:.3f} ms, {rec.n_ranks} ranks x "
+                f"{rec.n_chunks} chunks)")
+        if plan.predicted_stage_s:
+            meas = rec.phases.cpu_dpu + rec.phases.dpu + rec.phases.dpu_cpu
+            pred = sum(plan.predicted_stage_s.values())
+            ratios.append(max(pred / max(meas, 1e-9), meas / max(pred, 1e-9)))
+            line += (f"; stages predicted {pred * 1e3:.3f} ms, measured "
+                     f"{meas * 1e3:.3f} ms")
+        print(line)
+    return ratios
+
+
+def tune_phase(args_2048: dict) -> dict[str, int]:
+    """Characterization, then ``pim.session(...).autotune`` on the card:
+    the 13 pipelineable workloads on a flat 2,048-bank session and TRNS
+    on 64 banks at scale 1024, probed; the constructor's ``autotune=`` on
+    64 banks; GEMV / RED / SpMV with the calibrated CostModel (a session
+    without the resident cache, so the cold path the model prices runs);
+    and GEMV / RED / SpMV over 32 ranks of 64 banks, the rank count probed
+    over the 6 divisors of 32.  Every tuned plan is held to tuned >=
+    default and every served result to ``ref()``.  Returns the kernels'
+    launch counts from this phase."""
+    from repro_torch import pim
+    from repro_torch.core.costmodel import geomean_ratio
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.autotune import rank_candidates
+
+    args = tune_args(args_2048)
+    pipe = list(args)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    print(f"characterization: {BANKS} banks")
+    _, cm = characterize_phase()
+    print(f"characterization: {time.perf_counter() - t0:.2f} s")
+    flat = [n for n in pipe if n != "TRNS"]
+    for banks, names in ((BANKS, flat), (TRNS_BANKS, ["TRNS"])):
+        with pim.session(banks=banks) as s:
+            t0 = time.perf_counter()
+            result = s.autotune(names, scale=TUNE_SCALE, reps=TUNE_REPS,
+                                probe=True)
+            print(f"tuned {len(names)} on {banks} banks at scale "
+                  f"{TUNE_SCALE}: {time.perf_counter() - t0:.2f} s")
+            check_tuned(s, result, args)
+    with pim.session(banks=TRNS_BANKS, autotune={"scale": 64, "reps": 1,
+                                                 "probe": False}) as s:
+        assert set(s.plans) == set(pipe), sorted(s.plans)
+        print(f"session(banks={TRNS_BANKS}, autotune=...): plans for "
+              f"{len(s.plans)} workloads")
+    with pim.session(banks=BANKS, resident=False) as s:
+        result = s.autotune(COST_TUNE, scale=TUNE_SCALE, reps=TUNE_REPS,
+                            probe=True, cost_model=cm)
+        for name, plan in result.plans.items():
+            model = " ".join(f"{c}:{t * 1e3:.3f}" for c, t
+                             in sorted(plan.model_candidate_s.items()))
+            print(f"  {name:7s} model_candidate_s ms {{{model}}}; probed "
+                  f"{sorted(plan.measured_s)}")
+        ratios = check_tuned(s, result, args)
+        print(f"cost model: geomean of predicted over measured stage "
+              f"seconds {geomean_ratio(ratios):.3f} over {len(ratios)}")
+    with pim.session(ranks=RANKS, banks_per_rank=BANKS_PER_RANK) as s:
+        t0 = time.perf_counter()
+        result = s.autotune(RANK_TUNE, scale=TUNE_SCALE, reps=TUNE_REPS,
+                            probe=True)
+        print(f"tuned {len(RANK_TUNE)} on {RANKS} x {BANKS_PER_RANK}: "
+              f"{time.perf_counter() - t0:.2f} s")
+        for name, plan in result.plans.items():
+            assert sorted(plan.rank_measured_s) == rank_candidates(RANKS), (
+                name, plan.rank_measured_s)
+        check_tuned(s, result, args)
+    return ops.launch_counts()
+
+
 def host_ms(fn, iters: int = 3) -> float:
     """Mean host-clock time of ``fn`` (work that ends in a synchronize),
     after one warm-up call."""
@@ -1423,7 +1640,17 @@ def main() -> int:
             t0 = time.perf_counter()
             flat_session_phase(args_2048)
             print(f"flat session: {time.perf_counter() - t0:.2f} s")
-        del args_2048, serialized
+        del serialized
+    else:
+        args_2048 = {}
+    if run("tune"):
+        t0 = time.perf_counter()
+        tune_counts = tune_phase(args_2048)
+        print(f"tune: {time.perf_counter() - t0:.2f} s; launches "
+              f"{tune_counts}")
+        for name, r in row.items():
+            r["tune_launches"] = tune_counts[name]
+    del args_2048
 
     from repro_torch.configs import get_config
     if run("lm"):

@@ -1,17 +1,33 @@
-"""The UPMEM DPU model of the paper (§3) — the ported part of
-``repro.core.perfmodel``: :class:`DpuModel` (Eqs. 1-4 with the paper's
-measured constants), :func:`mram_capacity_bytes`, the residency budget of
-the resident-operand cache, and :func:`fit_affine`, the least-squares fit
-the autotuner's stage models use.  Pure Python, copied from the reference.
+"""Analytical performance models — the PyTorch counterpart of
+``repro.core.perfmodel``.
+
+1. ``DpuModel`` / ``DpuSystemModel`` — the UPMEM DPU and system model of
+   the paper (§2-3): Eqs. 1-4 with the paper's measured constants, and a
+   full system of ``n_dpus`` DPUs behind the host bus.  Pure Python,
+   copied from the reference, as are :func:`fit_affine` (the least-squares
+   fit of the autotuner's stage models), :func:`mram_capacity_bytes` (the
+   residency budget) and the analytic ``min_hbm_bytes_*`` /
+   ``model_flops_*`` counts.
+
+2. ``GpuModel`` — the roofline target of the port, in place of the
+   reference's TPU model: one NVIDIA H100 SXM from its data sheet (HBM3
+   at 3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s
+   dense bfloat16, NVLink at 900 GB/s), or with the HBM rate that
+   ``characterize.stream_wram`` measured on the card
+   (:meth:`GpuModel.from_stream_rows`).  ``RooflineTerms`` keeps the
+   reference's three terms over it:
+     compute term    = FLOPs / (chips * peak_flops)
+     memory term     = bytes / (chips * hbm_bw)
+     collective term = collective_bytes / (chips * link_bw)
 
 The residency budget stays the reference's MRAM model, not the card's
 memory: 64 MB per bank with half reserved, so 2,048 banks budget 64 GiB,
-which fits the H100's 80 GB.  ``DpuSystemModel`` and the TPU roofline
-model are not ported.
+which fits the H100's 80 GB.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping
 
 
@@ -153,3 +169,175 @@ def mram_capacity_bytes(n_banks: int, model: DpuModel = DpuModel(),
     if not 0.0 <= reserve_frac < 1.0:
         raise ValueError(f"reserve_frac must be in [0, 1), got {reserve_frac}")
     return int(n_banks * model.mram_bytes * (1.0 - reserve_frac))
+
+
+@dataclasses.dataclass(frozen=True)
+class DpuSystemModel:
+    """A full UPMEM system = n_dpus independent DpuModels + host bus (paper §2.1/3.4)."""
+
+    dpu: DpuModel = DpuModel()
+    n_dpus: int = 2556
+    dpus_per_rank: int = 64
+    # host<->MRAM sustained bandwidths measured in the paper (Fig. 10, 64 DPUs)
+    cpu_dpu_bw: float = 6.68e9       # parallel, bytes/s per rank
+    dpu_cpu_bw: float = 4.74e9
+    broadcast_bw: float = 16.88e9
+    serial_bw: float = 0.33e9        # single-DPU copy bandwidth
+
+    @property
+    def aggregate_mram_bw(self) -> float:
+        return self.n_dpus * self.dpu.mram_bandwidth(2048)
+
+    @property
+    def peak_gops(self) -> float:
+        """Peak int32-add throughput of all DPUs (paper Table 4: 894.6 GOPS
+        counts 1 op/cycle/DPU)."""
+        return self.n_dpus * self.dpu.freq_hz
+
+    def transfer_time(self, nbytes: int, kind: str = "parallel",
+                      n_dpus: int | None = None) -> float:
+        """Host<->banks transfer time (paper §3.4). 'serial' scales with DPU
+        count; 'parallel'/'broadcast' use rank-level sustained bandwidth."""
+        n = n_dpus or self.n_dpus
+        ranks = max(1, math.ceil(n / self.dpus_per_rank))
+        if kind == "serial":
+            return nbytes / self.serial_bw
+        if kind == "parallel":
+            return nbytes / (self.cpu_dpu_bw * ranks)
+        if kind == "parallel_from":
+            return nbytes / (self.dpu_cpu_bw * ranks)
+        if kind == "broadcast":
+            return nbytes / (self.broadcast_bw * ranks)
+        raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# NVIDIA H100 model (roofline target)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GpuModel:
+    """One NVIDIA H100 SXM: the data sheet's dense peaks at its 700 W
+    limit, or the HBM rate measured on the card."""
+
+    peak_flops_bf16: float = 989e12   # dense tensor-core FLOP/s
+    peak_flops_f32: float = 67e12     # FLOP/s outside the tensor cores
+    hbm_bw: float = 3.35e12           # B/s, HBM3
+    hbm_bytes: int = 80 * 10**9       # capacity
+    link_bw: float = 900e9            # B/s, NVLink (4th generation)
+
+    @property
+    def ridge_point(self) -> float:
+        """FLOP/B where the card turns compute-bound in bfloat16."""
+        return self.peak_flops_bf16 / self.hbm_bw
+
+    @classmethod
+    def from_stream_rows(cls, rows, **kwargs) -> "GpuModel":
+        """The data sheet's card with ``hbm_bw`` the fastest of
+        ``characterize.stream_wram`` rows measured on it (their ``mbps``
+        count each element's reads and writes once)."""
+        if not rows:
+            raise ValueError("from_stream_rows needs stream_wram rows")
+        return cls(hbm_bw=max(r["mbps"] for r in rows) * 1e6, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflineTerms:
+    """Three-term roofline for one (arch x shape x cards) cell."""
+
+    flops: float                # program FLOPs (all cards)
+    hbm_bytes: float            # bytes accessed
+    collective_bytes: float     # summed collective operand bytes
+    chips: int
+    model_flops: float = 0.0    # 6*N*D useful flops (0 if n/a)
+    model_bytes: float = 0.0    # analytic minimum HBM traffic (0 if n/a)
+    gpu: GpuModel = GpuModel()
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / (self.chips * self.gpu.peak_flops_bf16)
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / (self.chips * self.gpu.hbm_bw)
+
+    @property
+    def t_collective(self) -> float:
+        return self.collective_bytes / (self.chips * self.gpu.link_bw)
+
+    @property
+    def bound(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def t_bound(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def useful_flop_fraction(self) -> float:
+        """MODEL_FLOPS / program FLOPs — catches remat/redundancy waste."""
+        return self.model_flops / self.flops if self.flops else 0.0
+
+    @property
+    def ideal_time(self) -> float:
+        """Best achievable step time: useful flops at peak AND the analytic
+        minimum HBM traffic at full bandwidth, whichever binds."""
+        return max(self.model_flops / (self.chips * self.gpu.peak_flops_bf16),
+                   self.model_bytes / (self.chips * self.gpu.hbm_bw))
+
+    @property
+    def roofline_fraction(self) -> float:
+        """ideal_time / dominant-term time: how close the program is to the
+        roofline for its own useful work."""
+        ideal = self.ideal_time
+        return ideal / self.t_bound if self.t_bound and ideal else 0.0
+
+    def row(self) -> dict:
+        return {
+            "t_compute_s": self.t_compute,
+            "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "bound": self.bound,
+            "hlo_flops": self.flops,
+            "hlo_bytes": self.hbm_bytes,
+            "collective_bytes": self.collective_bytes,
+            "model_flops": self.model_flops,
+            "model_bytes": self.model_bytes,
+            "useful_flop_frac": self.useful_flop_fraction,
+            "useful_byte_frac": (self.model_bytes / self.hbm_bytes
+                                 if self.hbm_bytes else 0.0),
+            "roofline_frac": self.roofline_fraction,
+        }
+
+
+def min_hbm_bytes_train(cfg, tokens: float) -> float:
+    """Analytic minimum HBM traffic for one train step: bf16 params read
+    fwd+bwd + written (6·N) + f32 master/m/v read+write (48·N) + one
+    activation save/restore per layer boundary (4·tokens·d·L bytes)."""
+    n = cfg.total_params()
+    act = 4.0 * tokens * cfg.d_model * cfg.n_layers
+    return 54.0 * n + act
+
+
+def min_hbm_bytes_decode(cfg, batch: float, cache_bytes: float) -> float:
+    """One decode step: active params read once (2·N_active... all-expert
+    worst case is batch-dependent; use active set per token × batch capped by
+    total) + the whole cache read + written slice (negligible)."""
+    n_read = min(cfg.active_params() * max(batch, 1), cfg.total_params())
+    return 2.0 * n_read + cache_bytes
+
+
+def min_hbm_bytes_prefill(cfg, tokens: float) -> float:
+    return 2.0 * cfg.total_params() + 4.0 * tokens * cfg.d_model * cfg.n_layers
+
+
+def model_flops_train(n_params_active: float, tokens: float) -> float:
+    """6*N*D rule for a train step."""
+    return 6.0 * n_params_active * tokens
+
+
+def model_flops_decode(n_params_active: float, tokens: float) -> float:
+    """2*N per generated token (forward only)."""
+    return 2.0 * n_params_active * tokens

@@ -205,3 +205,134 @@ def pull_serial(grid: BankGrid, xs: Sequence):
     nbytes = sum(_nbytes(h) for h in host)
     return host, _trace_xfer(TransferRecord(
         "dpu_cpu_serial", nbytes, time.perf_counter() - t0), t0)
+
+
+# -- async variants (double-buffering building blocks) -----------------------
+#
+# The synchronous modes above block until the copy lands, as the UPMEM SDK
+# does.  The async variants only *enqueue* the copy.  On the card a push is
+# staged through the grid's pinned staging and copied on its ``h2d``
+# stream, and a pull copies into pinned memory on its ``d2h`` stream
+# (``core/streams.py``); ``resolve()`` waits on that copy's event, never on
+# the whole device.  The caller's current stream is ordered after a push's
+# copy, so later device work on it reads the landed data without the host
+# waiting.  Their records account the enqueue cost of a push and the
+# blocking tail of a pull.  On a CPU grid every call is synchronous.
+
+def _pushed(view: BankGrid, x):
+    """``view.to_banks(x)`` through the view's pinned staging on its
+    ``h2d`` stream; the current stream waits for the copy on the device."""
+    st = view.streams
+    if st is None:
+        return view.to_banks(x)
+    with st.scattering():
+        out = view.to_banks(x)
+    current = torch.cuda.current_stream(view.device)
+    current.wait_stream(st.h2d)
+    out.record_stream(current)
+    return out
+
+
+def _pulling(xs: Sequence, streams: Sequence):
+    """Begin each ``xs[i]``'s D2H copy into pinned memory on
+    ``streams[i]``'s ``d2h`` stream, behind the work already enqueued on
+    the current stream.  Returns the host tensors (or ``xs[i]`` itself when
+    it needs no copy) and the events to wait on."""
+    hosts, events = [], []
+    for x, st in zip(xs, streams):
+        if st is None or not (isinstance(x, torch.Tensor) and x.is_cuda):
+            hosts.append(x)
+            events.append(None)
+            continue
+        after = torch.cuda.Event()
+        after.record(torch.cuda.current_stream(x.device))
+        host, ev = st.prefetch(x, after)
+        hosts.append(host)
+        events.append(ev)
+    return hosts, events
+
+
+def _streams_of(x, grid: BankGrid | None):
+    """The stream set a pull of ``x`` copies on: the grid's, or a stream
+    set of its own for a CUDA tensor pulled without one."""
+    if grid is not None:
+        return grid.streams
+    if isinstance(x, torch.Tensor) and x.is_cuda:
+        from .streams import RankStreams
+        return RankStreams(x.device)
+    return None
+
+
+def _host_array(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def push_parallel_async(grid: BankGrid, x):
+    """Parallel CPU→bank scatter without the completion barrier."""
+    t0 = time.perf_counter()
+    out = _pushed(grid, x)
+    return out, _trace_xfer(TransferRecord(
+        "cpu_dpu_async", _nbytes(np.asarray(x)),
+        time.perf_counter() - t0), t0)
+
+
+def pull_async(x, grid: BankGrid | None = None):
+    """Begin an async bank→CPU copy of ``x`` (on ``grid``'s ``d2h`` stream
+    when given); returns ``resolve()`` which blocks for completion and
+    yields (host_array, TransferRecord).  The record's seconds measure only
+    the blocking tail, i.e. whatever the overlap didn't hide."""
+    (host,), (ev,) = _pulling([x], [_streams_of(x, grid)])
+
+    def resolve():
+        t0 = time.perf_counter()
+        if ev is not None:
+            ev.synchronize()
+        out = _host_array(host)
+        return out, _trace_xfer(TransferRecord(
+            "dpu_cpu_async", _nbytes(out), time.perf_counter() - t0), t0)
+    return resolve
+
+
+# -- rank-parallel transfers (DESIGN.md §10) ---------------------------------
+#
+# On a real UPMEM system CPU↔DPU transfers to *different ranks* proceed in
+# parallel.  On the card each rank view owns its streams, so one enqueue per
+# rank puts every rank's copy in flight at once; how far that scales with
+# the card's copy engines is what ``characterize.rank_parallel_sweep``
+# measures.
+
+def push_ranks_async(grid, per_rank: Sequence):
+    """Rank-parallel CPU→bank scatter: issue ``per_rank[r]`` to rank ``r``'s
+    banks, each on that rank's ``h2d`` stream (no completion barrier).
+    Returns (per-rank device tensors, TransferRecord accounting enqueue
+    cost)."""
+    if len(per_rank) > grid.n_ranks:
+        raise ValueError(f"{len(per_rank)} payloads for {grid.n_ranks} ranks")
+    t0 = time.perf_counter()
+    outs = [_pushed(grid.rank_view(r), x) for r, x in enumerate(per_rank)]
+    nbytes = sum(_nbytes(np.asarray(x)) for x in per_rank)
+    return outs, _trace_xfer(TransferRecord(
+        "cpu_dpu_rank_async", nbytes, time.perf_counter() - t0), t0)
+
+
+def pull_ranks_async(xs: Sequence, grid=None):
+    """Begin async bank→CPU copies from every rank at once (``xs[r]`` on
+    rank ``r``'s ``d2h`` stream of the :class:`RankGrid` ``grid`` when
+    given); returns ``resolve()`` which blocks for all of them and yields
+    (host_arrays, TransferRecord) — the rank-parallel :func:`pull_async`."""
+    streams = ([grid.rank_view(r).streams for r in range(len(xs))]
+               if grid is not None else [_streams_of(x, None) for x in xs])
+    hosts, events = _pulling(xs, streams)
+
+    def resolve():
+        t0 = time.perf_counter()
+        for ev in events:
+            if ev is not None:
+                ev.synchronize()
+        host = [_host_array(h) for h in hosts]
+        nbytes = sum(_nbytes(h) for h in host)
+        return host, _trace_xfer(TransferRecord(
+            "dpu_cpu_rank_async", nbytes, time.perf_counter() - t0), t0)
+    return resolve

@@ -40,10 +40,9 @@ mirroring the scheduler underneath:
   owns all device work and serves ``submit()`` futures as they arrive.
 
 ``run()`` auto-picks execution per registry entry: pipelineable workloads go
-through the chunk pipeline (tuned plan if one is installed), serialized-only
-workloads (none ported yet; NW and BFS in the reference) fall back to the
-faithful ``pim()``.  Calibrating plans (``autotune``) is not ported yet
-(ROADMAP queue 1, item 8): it raises instead of running untuned.
+through the chunk pipeline (tuned plan if one is installed, from
+``autotune`` or ``plans=``), serialized-only workloads (NW, BFS) fall back
+to the faithful ``pim()``.
 ``PimScheduler`` / ``run_pipelined*`` remain the documented internal layer
 (DESIGN.md §5) — reachable via :attr:`PimSession.scheduler` when the façade
 is too coarse.
@@ -71,11 +70,6 @@ if TYPE_CHECKING:  # annotation-only: importing repro_torch.prim pulls the suite
 
     from repro_torch.runtime.autotune import TunedPlan
 
-#: what :meth:`PimSession.autotune` and ``session(autotune=True)`` raise
-_NO_AUTOTUNE = ("autotune() is not ported yet: its calibration needs "
-                "core/characterize.py (ROADMAP queue 1, item 8); pass "
-                "plans= or run untuned without autotune=")
-
 
 def session(banks: int | None = None, *, ranks: int | None = None,
             banks_per_rank: int | None = None,
@@ -92,8 +86,11 @@ def session(banks: int | None = None, *, ranks: int | None = None,
     (``ranks=1``-equivalent, or the ``REPRO_RANKS`` env var when set and
     divisible) keeps today's flat behavior.
 
-    ``autotune=True`` (or an options dict) raises ``NotImplementedError``:
-    the calibration is not ported yet.  Remaining ``kwargs`` go to
+    ``autotune=True`` calibrates the grid's device and installs
+    per-workload tuned plans before the first request (DESIGN.md §8) —
+    including the rank-count dimension on a ranked grid; pass a dict
+    (e.g. ``autotune={"reps": 2, "probe": False}``) to forward options to
+    :meth:`PimSession.autotune`.  Remaining ``kwargs`` go to
     :class:`PimSession`.
     """
     return PimSession(banks=banks, ranks=ranks,
@@ -138,9 +135,6 @@ class PimSession:
                                  or device is not None):
             raise ValueError("pass either grid= or a banks/ranks shape, "
                              "not both")
-        # an empty options mapping still means "autotune with defaults"
-        if autotune or isinstance(autotune, Mapping):
-            raise NotImplementedError(_NO_AUTOTUNE)
         if banks_per_rank is not None and ranks is None:
             raise ValueError("banks_per_rank= needs ranks=")
         if grid is not None:
@@ -192,6 +186,10 @@ class PimSession:
                              if self._tracer is not None else None)
         self._closed = False
         self._serving = False
+        # an empty options mapping still means "autotune with defaults"
+        if autotune or isinstance(autotune, Mapping):
+            self.autotune(**(dict(autotune) if isinstance(autotune, Mapping)
+                             else {}))
 
     # -- handle state ---------------------------------------------------------
 
@@ -230,7 +228,8 @@ class PimSession:
 
     @property
     def tuning(self) -> TuningResult | None:
-        """The TuningResult passed as ``plans=``; None when untuned."""
+        """Full calibration result of the last :meth:`autotune` (or the
+        TuningResult passed as ``plans=``); None when untuned."""
         return self._tuning
 
     @property
@@ -313,13 +312,26 @@ class PimSession:
 
     # -- tuning ---------------------------------------------------------------
 
-    def autotune(self, entries: Sequence | None = None, **kwargs):
-        """Calibrate the backend and install solved plans (DESIGN.md §8):
-        not ported yet (ROADMAP queue 1, item 8), so it raises
-        ``NotImplementedError`` rather than leave the session untuned
-        without saying so.  Plans solved elsewhere go in via ``plans=``."""
+    def autotune(self, entries: Sequence | None = None, *, scale: int = 1,
+                 reps: int = 3, probe: bool = True, **kwargs) -> TuningResult:
+        """Calibrate the grid's device, fit per-workload stage models, and
+        install the solved plans (chunk count + batch size) on this session
+        — :meth:`PimScheduler.autotuned` behind the façade (DESIGN.md §8).
+
+        ``entries`` restricts tuning to a subset (registry names or
+        WorkloadEntry objects); the result also lands in :attr:`tuning`.
+        Re-tuning updates plans in place.
+        """
+        from repro_torch.runtime.autotune import autotune as _autotune
         self._check_open("autotune")
-        raise NotImplementedError(_NO_AUTOTUNE)
+        if entries is not None:
+            reg = registry()
+            entries = [reg[e] if isinstance(e, str) else e for e in entries]
+        result = _autotune(self._grid, entries, scale=scale, reps=reps,
+                           probe=probe, **kwargs)
+        self._sched.plans.update(result.plans)
+        self._tuning = result
+        return result
 
     # -- launch verbs ---------------------------------------------------------
 

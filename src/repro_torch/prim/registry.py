@@ -8,8 +8,8 @@ reference's generators: the same seed gives byte-identical arrays, which is
 how both packages see the same inputs (there are no weights to carry
 across).  NW and BFS register as serialized-only with the reference's
 reasons: their inter-DPU exchange feeds every bank's next step, so the
-runtime falls back to ``pim()`` for them.  The ``cost_profile`` method
-waits for the cost model.
+runtime falls back to ``pim()`` for them.  ``cost_profile`` builds the
+cost model's op table (``core/costmodel.py``).
 """
 from __future__ import annotations
 
@@ -79,6 +79,16 @@ class WorkloadEntry:
     def arg_nbytes(self, args) -> int:
         """Input payload bytes of one invocation."""
         return tree_nbytes(args)
+
+    def cost_profile(self, grid, args):
+        """Op-count table + payload bytes for the cost model (DESIGN.md
+        §15): pipelineable workloads count the aten ops of the chunked
+        ``compute`` phase — the callable the pipeline runs — on a CPU grid
+        of the same banks, so the profile cannot drift from the phase;
+        NW/BFS decompose through host loops and return an ``untraced``
+        profile with an empty op table."""
+        from repro_torch.core.costmodel import profile_entry
+        return profile_entry(grid, self, args)
 
 
 # -- canonical argument generators (copies of the reference's) ---------------

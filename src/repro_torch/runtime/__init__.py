@@ -3,13 +3,14 @@
 
 The chunk pipeline (its three stages on CUDA streams), the multi-tenant
 scheduler and its QoS surface, the resident-operand cache, telemetry,
-metrics and the span tracer, with the autotuner's plan types and the
-serving side of ``elastic`` / ``straggler``.  Prefer ``repro_torch.pim``
-as the entry point.  Not ported yet: ``autotune()`` and its calibration
-(ROADMAP queue 1, item 8) and the train-side mesh helpers of ``elastic``.
+metrics and the span tracer, the characterization-driven autotuner, and
+the serving side of ``elastic`` / ``straggler``.  Prefer
+``repro_torch.pim`` as the entry point.  Not ported yet: the train-side
+mesh helpers of ``elastic`` (ROADMAP queue 1, item 9).
 """
 from .autotune import (DEFAULT_N_CHUNKS, StageFit, TunedPlan, TuningResult,
-                       WorkloadProfile)
+                       WorkloadProfile, autotune, calibrate, plan_for,
+                       probe_plan, probe_ranks, rank_candidates)
 from .elastic import RankAllocator
 from .metrics import Histogram, Metrics, merge_snapshots
 from .pipeline import (PipelineResult, run_pipelined, run_pipelined_many,
@@ -35,4 +36,5 @@ __all__ = ["PipelineResult", "run_pipelined", "run_pipelined_many",
            "Histogram", "Metrics", "merge_snapshots",
            "NULL_TRACER", "Span", "Tracer", "get_tracer", "set_tracer",
            "DEFAULT_N_CHUNKS", "StageFit", "TunedPlan", "TuningResult",
-           "WorkloadProfile"]
+           "WorkloadProfile", "autotune", "calibrate", "plan_for",
+           "probe_plan", "probe_ranks", "rank_candidates"]

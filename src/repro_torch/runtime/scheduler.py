@@ -29,9 +29,9 @@ weight); the scheduler owns the grid and decides execution order:
   ``max_batch_bytes``) and streamed through a single chunk pipeline, so
   the banks never drain between them (``pipeline.run_pipelined_many``);
   coalescing never crosses tenants or jumps a higher-ranked request;
-* **tuned plans** — per-workload chunk counts and batch sizes may come in
-  via ``plans=`` (:class:`~repro_torch.runtime.autotune.TunedPlan`; the
-  calibration that solves them is not ported yet);
+* **tuned plans** — per-workload chunk counts and batch sizes may come from
+  the characterization-driven autotuner (``runtime.autotune``, DESIGN.md §8)
+  via ``plans=`` or :meth:`PimScheduler.autotuned`;
 * **elastic rank placement** — on a
   :class:`~repro_torch.core.banked.RankGrid`
   (DESIGN.md §10) every pipelineable batch is sharded across ranks
@@ -179,9 +179,9 @@ class PimScheduler:
         #: resident-operand cache (runtime.resident, DESIGN.md §12); None
         #: keeps the pre-residency scatter-every-request behavior
         self.cache = cache
-        #: per-workload TunedPlan overrides (chunk count + batch size);
-        #: workloads without a plan keep the constants above as the
-        #: untuned fallback
+        #: per-workload TunedPlan overrides (chunk count + batch size) from
+        #: runtime.autotune; workloads without a plan keep the constants
+        #: above as the untuned fallback
         self.plans: dict[str, TunedPlan] = dict(plans or {})
         self.serialized: dict[str, Any] = {}
         if workloads is None:
@@ -218,6 +218,16 @@ class PimScheduler:
         self._cv = threading.Condition()
         self._thread: threading.Thread | None = None
         self._stopping = False
+
+    @classmethod
+    def autotuned(cls, grid: BankGrid, *, scale: int = 1, probe: bool = True,
+                  **kwargs) -> "PimScheduler":
+        """Calibrate the grid's device and construct a scheduler whose
+        per-workload chunk counts and batch sizes come from the fitted model
+        (runtime.autotune, DESIGN.md §8) instead of the constants above."""
+        from .autotune import autotune
+        result = autotune(grid, scale=scale, probe=probe)
+        return cls(grid, plans=result.plans, **kwargs)
 
     # -- submission -----------------------------------------------------------
 

@@ -220,3 +220,99 @@ def test_suite_and_session_phases_rehearse_on_the_cpu(cs, monkeypatch,
         assert f"{name} warm: 0 chunk scatters, 16 cached spans" in out
     assert "BS warm: 16 chunk scatters, 2 cached spans" in out
     assert "NW fallback" in out and "BFS fallback" in out
+
+
+# -- the tune phase ------------------------------------------------------------------
+
+def tuned_cpu_session(names, banks=4):
+    from repro_torch import pim
+    from repro_torch.prim.registry import REGISTRY
+    rng = np.random.default_rng(0)
+    args = {}
+    for name in names:
+        a = REGISTRY[name].make_args(rng, 1)
+        args[name] = (a, REGISTRY[name].ref(*a))
+    s = pim.session(banks=banks, device="cpu")
+    result = s.autotune(names, scale=1, reps=1, probe=True,
+                        calib_nbytes=(1 << 12, 1 << 14))
+    return s, result, args
+
+
+def test_check_tuned_formats_and_checks_on_the_cpu(cs, capsys):
+    """check_tuned prints each plan with its probed times and serves each
+    workload against ref() on a CPU 4-bank session at scale 1."""
+    names = ["VA", "GEMV", "RED", "SpMV"]
+    s, result, args = tuned_cpu_session(names)
+    try:
+        assert cs.check_tuned(s, result, args) == []     # no cost model
+    finally:
+        s.close()
+    out = capsys.readouterr().out
+    for name in names:
+        plan = result.plans[name]
+        assert f"  {name:7s} n_chunks {plan.n_chunks} " in out
+        assert f"  {name:7s} served ok: predicted overlap " in out
+        assert 4 in plan.measured_s
+
+
+def test_check_tuned_fails_a_plan_slower_than_the_default(cs):
+    import dataclasses
+
+    from repro_torch.runtime.autotune import TuningResult
+    s, result, args = tuned_cpu_session(["RED"])
+    bad = dataclasses.replace(result.plans["RED"], n_chunks=2,
+                              measured_s={2: 0.002, 4: 0.001})
+    try:
+        with pytest.raises(AssertionError, match="over the default"):
+            cs.check_tuned(s, TuningResult({}, result.profiles,
+                                           {"RED": bad}), args)
+        unprobed = dataclasses.replace(result.plans["RED"],
+                                       measured_s={2: 0.001})
+        with pytest.raises(AssertionError, match="default not probed"):
+            cs.check_tuned(s, TuningResult({}, result.profiles,
+                                           {"RED": unprobed}), args)
+    finally:
+        s.close()
+
+
+def test_check_tuned_fails_a_result_unlike_ref(cs):
+    s, result, args = tuned_cpu_session(["RED", "GEMV"])
+    a, gold = args["GEMV"]
+    try:
+        with pytest.raises(AssertionError):
+            cs.check_tuned(s, result, {**args, "GEMV": (a, gold + 1.0)})
+    finally:
+        s.close()
+
+
+def test_tune_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
+    """The whole tune phase at 8 banks (2 ranks of 4) and scale 1 on the
+    CPU, the suite's arguments made by the phase itself."""
+    import functools
+
+    import repro_torch
+    from repro_torch import pim
+    for fn in ("make_bank_grid", "make_rank_grid"):
+        monkeypatch.setattr(repro_torch, fn, functools.partial(
+            getattr(repro_torch, fn), device="cpu"))
+    monkeypatch.setattr(pim, "session", functools.partial(pim.session,
+                                                          device="cpu"))
+    for name, value in (("SUITE", ((8, 1), (1, 1))), ("BANKS", 8),
+                        ("RANKS", 2), ("BANKS_PER_RANK", 4),
+                        ("TRNS_BANKS", 8), ("NW_SCALE", 2),
+                        ("TUNE_SCALE", 1), ("STREAM_N", 1 << 12),
+                        ("RANK_SWEEP_BYTES", 1 << 14)):
+        monkeypatch.setattr(cs, name, value)
+    args: dict = {}
+    counts = cs.tune_phase(args)
+    assert not any(counts.values())          # CPU tensors launch no kernel
+    assert len(args) == 16 - 2               # made here: all but NW and BFS
+    out = capsys.readouterr().out
+    for sweep in ("push_pull_sweep", "bank_compute_sweep",
+                  "op_throughput_sweep", "stream_wram", "transfer_sweep",
+                  "rank_parallel_sweep", "StageFits", "CostModel",
+                  "GpuModel"):
+        assert f"  {sweep}" in out, sweep
+    assert out.count("served ok") == 14 + 3 + 3
+    assert "session(banks=8, autotune=...): plans for 14 workloads" in out
+    assert "cost model: geomean of predicted over measured" in out

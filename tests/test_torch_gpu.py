@@ -699,3 +699,62 @@ def test_rank_threads_fill_concurrently(dev):
     assert not errs, errs
     for out in outs:
         entry.compare(out, want)
+
+
+# -- characterization and the autotuner on the card --------------------------------
+
+def test_async_transfers_match_the_sync_ones(dev):
+    """push_*_async stage through pinned staging on each rank's h2d stream
+    and pull_*_async copy on its d2h stream: the same arrays as the
+    synchronous transfers, device work on the current stream ordered after
+    the push."""
+    from repro_torch.core import transfer as tx
+    g = make_rank_grid(4, 2, device=dev)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 99, (8, 4096)).astype(np.int32)
+    sync, _ = tx.push_parallel(g, x)
+    out, rec = tx.push_parallel_async(g, x)
+    assert rec.kind == "cpu_dpu_async" and out.is_cuda
+    assert torch.equal(out + 0, sync)            # ordered on this stream
+    assert g.streams.stage.allocations >= 1
+    host, rec = tx.pull_async(out * 2, g)()
+    np.testing.assert_array_equal(host, tx.pull_parallel(g, sync * 2)[0])
+    assert rec.kind == "dpu_cpu_async"
+    per_rank = [rng.normal(size=(2, 1024)).astype(np.float32)
+                for _ in range(4)]
+    outs, rec = tx.push_ranks_async(g, per_rank)
+    assert rec.kind == "cpu_dpu_rank_async"
+    hosts, rec = tx.pull_ranks_async([o + 1 for o in outs], g)()
+    assert rec.kind == "dpu_cpu_rank_async"
+    for h, x in zip(hosts, per_rank):
+        np.testing.assert_array_equal(h, x + 1)
+    assert all(v.streams.stage.allocations >= 1 for v in g.rank_views)
+
+
+def test_profile_workload_scatters_through_pinned_staging(dev):
+    """The autotuner times each stage as the pipeline runs it: the
+    scatter goes through the grid's pinned staging, not a pageable copy."""
+    from repro_torch.core.banked import make_bank_grid
+    from repro_torch.runtime.autotune import profile_workload
+    g = make_bank_grid(8, device=dev)
+    entry = REGISTRY["GEMV"]
+    args = entry.make_args(np.random.default_rng(0), scale=8)
+    before = g.streams.stage.allocations + g.streams.stage.reuses
+    prof = profile_workload(g, entry, args, reps=2)
+    staged = g.streams.stage.allocations + g.streams.stage.reuses - before
+    assert g.streams.stage.allocations >= 1
+    assert staged == 2 * (1 + 2)         # two chunk counts, warm-up + reps
+    for fit in (prof.push, prof.compute, prof.pull):
+        assert fit.alpha_s >= 0 and fit.bytes_per_s > 0
+    assert prof.serialized_s > 0
+
+
+def test_session_autotune_on_the_card(dev):
+    with pim.session(banks=8, autotune={"scale": 4, "reps": 1,
+                                        "probe": True}) as s:
+        assert set(s.plans) == set(pim.registry()) - {"NW", "BFS"}
+        for name, plan in s.plans.items():
+            assert plan.measured_s[plan.n_chunks] <= plan.measured_s[4], name
+            entry = pim.registry()[name]
+            args = entry.make_args(np.random.default_rng(1), scale=4)
+            entry.compare(s.run(name, *args), entry.ref(*args))

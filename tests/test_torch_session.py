@@ -1,8 +1,7 @@
 """Port parity: the session façade ``repro_torch.pim`` against ``repro.pim``.
 
-The cases of tests/test_session.py that do not need ``autotune()`` (not
-ported: it raises), and the shed and expiry counting cases of
-tests/test_serving.py, each run on a port session (``device="cpu"``) and
+The cases of tests/test_session.py, and the shed and expiry counting
+cases of tests/test_serving.py, each run on a port session (``device="cpu"``) and
 on a reference session over its one in-process bank with the same inputs:
 both must give the same results (under the registry's comparator) and the
 same records and counters.  All 16 workloads are served; NW and BFS fall
@@ -118,14 +117,31 @@ def test_workload_view_is_the_reference_order_subset(pair):
     assert set(tpim.registry()) == set(PORTED)
 
 
-def test_autotune_is_not_ported_and_says_so(pair):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpim.session(banks=1, device="cpu", autotune=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpim.session(banks=1, device="cpu", autotune={})
-    t, _ = pair()
-    with pytest.raises(NotImplementedError, match="characterize"):
-        t.autotune(["RED"])
+def test_session_autotune_installs_plans(pair):
+    t, j = pair()
+    kw = dict(scale=1, reps=2, probe=False, calib_nbytes=(1 << 14, 1 << 16))
+    result = t.autotune(["VA"], **kw)
+    assert set(result.plans) == {"VA"} == set(j.autotune(["VA"], **kw).plans)
+    assert t.plans["VA"] is result.plans["VA"]
+    assert t.tuning is result
+
+
+@pytest.mark.parametrize("autotune", [
+    {"scale": 1, "reps": 1, "probe": False, "calib_nbytes": (1 << 12,)},
+    {"entries": ["RED", "GEMV"], "reps": 1, "probe": True,
+     "calib_nbytes": (1 << 12, 1 << 14)}])
+def test_session_autotune_option_installs_plans(autotune, rng):
+    s = tpim.session(banks=2, device="cpu", autotune=autotune)
+    try:
+        want = set(autotune.get("entries", PIPELINEABLE))
+        assert set(s.plans) == want == set(s.tuning.plans)
+        args = red_args(rng)
+        assert s.run("RED", *args) == red_ref(args)
+        assert s.telemetry.records[-1].tuned
+        if autotune["probe"]:
+            assert all(p.measured_s for p in s.plans.values())
+    finally:
+        s.close()
 
 
 # -- lifecycle (dpu_free semantics) -------------------------------------------
