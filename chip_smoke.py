@@ -28,12 +28,21 @@ published width: float32 at 4 layers (kernel against plain forward, and
 decode against prefill at a capacity factor that drops nothing), bfloat16
 at all 28 layers (the prefill through ``moe_gmm`` and ``flash_attention``,
 timed beside the plain forward, its dropped pairs and the top-k sets the
-two forwards route differently) and ``greedy_generate``.  Last the hybrid
+two forwards route differently) and ``greedy_generate``.  Then the hybrid
 family on Jamba 1.5 Large at full width cut to 2 layers (one card holds
 11.9 B of its 397.5 B parameters): the same legs, its prefill through
-``ssd_scan``, ``moe_gmm`` and ``flash_attention`` in one forward.  For
-the two bfloat16 MoE prefills it prints a ``torch.profiler`` breakdown of
-one forward: the top device operations and the device's busy share.
+``ssd_scan``, ``moe_gmm`` and ``flash_attention`` in one forward.  Then
+the VLM family on Llama 3.2 Vision 11B at its published width over
+seeded frontend tokens (1,600 of them): float32 at 5 layers (kernel
+against plain forward, decode against prefill through the cross layer's
+cached frontend keys and values), bfloat16 at all 40 (32
+``flash_attention`` launches a prefill) and ``greedy_generate(frontend=)``.
+Last the xLSTM family on xlstm-125m, all 12 layers, no kernel (the
+reference runs none there): each mLSTM layer's parallel form against its
+chunked one, decode against prefill, the bfloat16 prefill timed, and
+``greedy_generate``.  For the bfloat16 prefills of the MoE, hybrid, VLM
+and xLSTM phases it prints a ``torch.profiler`` breakdown of one forward:
+the top device operations and the device's busy share.
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -47,7 +56,8 @@ line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from ``nvidia-smi``, and the one before that a JSON
 ``{"kernels": [...]}`` with each kernel's launches in the tune phase
 (``tune_launches``) and on its path (``launches``: the suite;
-for flash_attention one TinyLlama prefill forward, for moe_gmm one
+for flash_attention one TinyLlama prefill forward, and
+``vision_launches`` one Llama 3.2 Vision forward, for moe_gmm one
 DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut), its
 error against its plain version, and its times beside its bound: ``ms``
 (CUDA events around back-to-back calls of the wrapper) and ``device_ms``
@@ -129,6 +139,20 @@ MOE_ARCH, MOE_F32_LAYERS = "deepseek-moe-16b", 4
 # at full width cut to 2 layers, attention + MoE and Mamba + dense: 11.9 B
 # parameters (47.6 GB in float32, 23.8 GB in bfloat16) of its 397.5 B
 HYBRID_ARCH, HYBRID_LAYERS = "jamba-1.5-large-398b", 2
+# the VLM phase: Llama 3.2 Vision 11B (configs/llama_3_2_vision_11b.py:FULL)
+# on seeded frontend tokens (B, 1,600, 4,096), the stub's patch embeddings;
+# its float32 legs at 5 layers (4 self-attention, 1 cross: 2.14 B
+# parameters, 8.6 GB), bfloat16 at all 40 (9.77 B, 19.5 GB)
+VLM_ARCH, VLM_F32_LAYERS = "llama-3.2-vision-11b", 5
+# the xLSTM phase: xlstm-125m (configs/xlstm_125m.py:FULL) at all 12 layers,
+# the chunked mLSTM at the reference's default chunk of 256.  Each mLSTM
+# layer's parallel and chunked forms agree within the reference's 1e-4
+# (tests/test_kernels.py, 64 positions) scaled by the 2,048 / 64 times as
+# many terms in each float32 sum; through 12 layers the stack moves
+# further (PERF.md), so the stack's gap is printed and the model held to
+# decode against prefill
+XLSTM_ARCH, MLSTM_CHUNK = "xlstm-125m", 256
+MLSTM_TOL = 1e-4 * PREFILL / 64
 BIG_ITERS = 3                       # timed launches of the largest rows
 # the tune phase: characterization on the flat 2,048 banks, then the
 # autotuner on the suite's scale-1024 arguments: 13 workloads on a flat
@@ -145,7 +169,8 @@ TRANSFER_MB_PER_BANK = 1            # transfer_sweep: 2 GiB over 2,048 banks
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
-PHASES = ("kernels", "suite", "session", "tune", "lm", "moe", "hybrid")
+PHASES = ("kernels", "suite", "session", "tune", "lm", "moe", "hybrid",
+          "vlm", "xlstm")
 # a forward's device time spent in each kernel of the port: the part of the
 # CUDA kernels' names that marks them
 SHARES = {"flash_attention": "flash_", "moe_gmm": "gmm_", "ssd_scan": "ssd_"}
@@ -607,9 +632,9 @@ def flash_rows(g, dev) -> dict:
     """flash_attention: small correctness cases (not timed), at the
     reference's kernel-test tolerances (rtol = atol = 2e-3 float32, 2e-2
     bfloat16), then the TinyLlama prefill shape, the H2O-Danube3 shape,
-    and the prefill shapes of DeepSeek-MoE (16 heads of 128) and the Jamba
-    cut (64 query / 8 key-value heads of 128), timed, at 4e-3
-    (``flash_case``)."""
+    and the prefill shapes of DeepSeek-MoE (16 heads of 128), the Jamba
+    cut (64 query / 8 key-value heads of 128) and Llama 3.2 Vision (32 /
+    8 of 128), timed, at 4e-3 (``flash_case``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
@@ -649,6 +674,10 @@ def flash_rows(g, dev) -> dict:
     hybrid = timed(flash_case("flash_attention", 1, jb.n_heads, jb.n_kv_heads,
                               PREFILL, PREFILL, jb.hd, jb.window, g, dev))
     row["at_jamba_cut_prefill"] = dict_of(hybrid)
+    vl = get_config(VLM_ARCH)
+    vision = timed(flash_case("flash_attention", 1, vl.n_heads, vl.n_kv_heads,
+                              PREFILL, PREFILL, vl.hd, vl.window, g, dev))
+    row["at_llama_3_2_vision_prefill"] = dict_of(vision)
     torch.cuda.empty_cache()
     return row
 
@@ -1355,21 +1384,13 @@ def consistency_phase(model, dev) -> None:
     tokens reproduces ``forward(use_kernel=True)``'s logits at the
     reference's rtol = atol = 2e-2."""
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer
 
     cfg = dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32)
     toks = torch.randint(0, cfg.vocab, (1, CONSIST), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(3))
     with torch.no_grad():
-        full, _ = transformer.forward(model, cfg, toks, use_kernel=True)
-        cache = transformer.init_cache(model, cfg, 1, CONSIST)
-        outs = []
-        for i in range(CONSIST):
-            lt, cache = transformer.decode_step(model, cfg, toks[:, i:i + 1],
-                                                cache)
-            outs.append(lt)
-    check(f"decode vs prefill ({CONSIST} tok)", torch.cat(outs, 1), full,
-          rel(full, 2e-2))
+        decode_vs_prefill(model, cfg, toks,
+                          f"decode vs prefill ({CONSIST} tok)")
 
 
 def decode_phase(model, dev) -> None:
@@ -1452,24 +1473,25 @@ def routed_apart(a: list, b: list) -> int:
 
 def expected_launches(model) -> dict[str, int]:
     """Kernel launches of one forward(use_kernel=True): flash_attention per
-    attention layer, moe_gmm twice per MoE layer, ssd_scan per Mamba
-    layer."""
+    self-attention layer (a cross layer runs the plain attention, as the
+    reference's does), moe_gmm twice per MoE layer, ssd_scan per Mamba
+    layer; none for the xLSTM mixers."""
     descs = [blk.desc for blk in model.layers]
     return {"flash_attention": sum(d["mixer"] == "attn" for d in descs),
             "moe_gmm": 2 * sum(d["ffn"] == "moe" for d in descs),
             "ssd_scan": sum(d["mixer"] == "mamba" for d in descs)}
 
 
-def counted_forward(model, cfg, toks) -> dict[str, int]:
-    """One ``forward(use_kernel=True)`` with every count set to 0 just
-    before it: the launches of the path, checked against the layer
+def counted_forward(model, cfg, toks, **kw) -> dict[str, int]:
+    """One ``forward(use_kernel=True, **kw)`` with every count set to 0
+    just before it: the launches of the path, checked against the layer
     plan."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
 
     want = expected_launches(model)
     ops.reset_launch_counts()
-    transformer.forward(model, cfg, toks, use_kernel=True)
+    transformer.forward(model, cfg, toks, use_kernel=True, **kw)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert {k: counts[k] for k in want} == want, (counts, want)
@@ -1498,7 +1520,6 @@ def family_phase(arch: str, f32_layers: int, bf16_layers: int, tol: float,
       (DECODE_PROMPT + DECODE_NEW) tokens.
     """
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
     from repro_torch.models import moe, transformer
 
     full = get_config(arch)
@@ -1529,17 +1550,9 @@ def family_phase(arch: str, f32_layers: int, bf16_layers: int, tol: float,
         free = dataclasses.replace(cfg, moe_capacity_factor=cfg.moe_experts
                                    / cfg.moe_top_k)
         assert moe._capacity(free, CONSIST) >= CONSIST
-        ctoks = toks[:, :CONSIST]
-        prefill, _ = transformer.forward(model, free, ctoks, use_kernel=True)
-        cache = transformer.init_cache(model, free, 1, CONSIST)
-        outs = []
-        for i in range(CONSIST):
-            lt, cache = transformer.decode_step(model, free,
-                                                ctoks[:, i:i + 1], cache)
-            outs.append(lt)
-        check(f"{arch} decode vs prefill", torch.cat(outs, 1), prefill,
-              rel(prefill, 2e-2))
-        del model, prefill, outs, cache
+        decode_vs_prefill(model, free, toks[:, :CONSIST],
+                          f"{arch} decode vs prefill")
+        del model
         torch.cuda.empty_cache()
 
         cfg = dataclasses.replace(full, n_layers=bf16_layers)
@@ -1567,17 +1580,212 @@ def family_phase(arch: str, f32_layers: int, bf16_layers: int, tol: float,
               f" {sum(len(t) for t, _ in klog)} (token, layer); pairs past "
               f"capacity {sum(dropped)} of {PREFILL * cfg.moe_top_k * len(dropped)}"
               f" (per MoE layer {dropped}); launches per forward {counts}")
-        prompt = torch.randint(0, cfg.vocab, (DECODE_STREAMS, DECODE_PROMPT),
-                               device=dev, dtype=torch.int32,
-                               generator=gen.manual_seed(5))
-        t0 = time.perf_counter()
-        tokens = serve.greedy_generate(model, cfg, prompt, DECODE_NEW)
-        torch.cuda.synchronize()
-        greedy_s = time.perf_counter() - t0
+        greedy_leg(model, cfg, gen, dev)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def seeded_frontend(cfg, batch: int, gen, dev) -> torch.Tensor:
+    """The VLM stub's frontend: (batch, n_frontend_tokens, d_model) unit
+    normals in the model's dtype, as the reference's tests make them."""
+    return torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                       generator=gen, device=dev).to(cfg.dtype)
+
+
+def decode_vs_prefill(model, cfg, toks, label: str, **kw) -> None:
+    """The reference's prefill / decode check (tests/test_models.py):
+    teacher-forced ``decode_step`` over the tokens of ``toks`` against
+    ``forward(use_kernel=True)``'s logits at rtol = atol = 2e-2, checked
+    as ``label``; ``frontend=`` goes to both."""
+    from repro_torch.models import transformer
+
+    prefill, _ = transformer.forward(model, cfg, toks, use_kernel=True, **kw)
+    B, S = toks.shape
+    cache = transformer.init_cache(model, cfg, B, S, **kw)
+    outs = []
+    for i in range(S):
+        lt, cache = transformer.decode_step(model, cfg, toks[:, i:i + 1],
+                                            cache, **kw)
+        outs.append(lt)
+    check(label, torch.cat(outs, 1), prefill, rel(prefill, 2e-2))
+
+
+def bf16_prefill(model, cfg, toks, **kw) -> dict[str, int]:
+    """The bfloat16 prefill of ``toks``: its launches from one counted
+    forward (returned), the max logit difference and argmax agreement of
+    the forward with the kernels and the plain one, both timed (mean of 3
+    after a warm-up), and the device operations of one forward with the
+    kernels under ``torch.profiler`` with the device's busy share."""
+    from repro_torch.models import transformer
+
+    counts = counted_forward(model, cfg, toks, **kw)
+    got, _ = transformer.forward(model, cfg, toks, use_kernel=True, **kw)
+    want, _ = transformer.forward(model, cfg, toks, **kw)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    err = float((got.float() - want.float()).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    del got, want
+    ms = host_ms(lambda: transformer.forward(model, cfg, toks,
+                                             use_kernel=True, **kw))
+    plain_ms = host_ms(lambda: transformer.forward(model, cfg, toks, **kw))
+    device_breakdown(lambda: transformer.forward(model, cfg, toks,
+                                                 use_kernel=True, **kw), ms)
+    print(f"  forward bf16, {cfg.n_layers} layers: kernel {ms:.2f} ms "
+          f"({toks.shape[1] / ms * 1e3:.0f} tokens/s), plain {plain_ms:.2f} "
+          f"ms; max |kernel - plain| {err:.3e}, argmax agrees at "
+          f"{agree:.4f} of positions; launches per forward {counts}")
+    return counts
+
+
+def greedy_leg(model, cfg, gen, dev, frontend=None) -> None:
+    """``greedy_generate``, DECODE_STREAMS x (DECODE_PROMPT + DECODE_NEW)
+    tokens, timed; ``frontend`` (DECODE_STREAMS, T, d) for the VLM
+    family."""
+    from repro_torch.launch import serve
+
+    prompt = torch.randint(0, cfg.vocab, (DECODE_STREAMS, DECODE_PROMPT),
+                           device=dev, dtype=torch.int32,
+                           generator=gen.manual_seed(5))
+    t0 = time.perf_counter()
+    tokens = serve.greedy_generate(model, cfg, prompt, DECODE_NEW,
+                                   frontend=frontend)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
     assert tokens.shape == (DECODE_STREAMS, DECODE_PROMPT + DECODE_NEW)
     print(f"  greedy_generate bf16 {DECODE_STREAMS} x ({DECODE_PROMPT} + "
           f"{DECODE_NEW}) tokens in {greedy_s:.2f} s: {tokens.tolist()}")
-    del model, tokens
+
+
+def vlm_phase(dev) -> dict[str, int]:
+    """Llama 3.2 Vision 11B at its published width, seeded weights and
+    seeded frontend tokens, prefill of PREFILL tokens:
+
+    - float32 at VLM_F32_LAYERS (4 self-attention layers and the cross
+      layer): ``forward(use_kernel=True, frontend=)`` against the plain
+      forward at 1e-3 (rtol = atol, as TinyLlama's), teacher-forced decode
+      over CONSIST tokens against the prefill at 2e-2, the cross layer
+      reading its cached frontend keys and values;
+    - bfloat16 at all 40 layers: ``bf16_prefill`` (32 flash_attention
+      launches a forward, returned), then ``greedy_generate(frontend=)``.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    full = get_config(VLM_ARCH)
+    gen = torch.Generator(device=dev)
+    toks = torch.randint(0, full.vocab, (1, PREFILL), device=dev,
+                         generator=gen.manual_seed(1))
+    cfg = dataclasses.replace(full, n_layers=VLM_F32_LAYERS,
+                              dtype=torch.float32)
+    print(f"{VLM_ARCH}: {full.total_params() / 1e9:.2f} B params at "
+          f"{full.n_layers} layers; d_model {full.d_model}, heads "
+          f"{full.n_heads} / {full.n_kv_heads}, a cross layer every "
+          f"{full.cross_attn_every} over {full.n_frontend_tokens} frontend "
+          f"tokens; float32 at {VLM_F32_LAYERS} layers "
+          f"({cfg.total_params() / 1e9:.2f} B), bfloat16 at {full.n_layers}")
+    with torch.no_grad():
+        model = transformer.init(cfg, seed=0, device=dev)
+        fr = seeded_frontend(cfg, 1, gen.manual_seed(2), dev)
+        print(f"  float32 plan: {[b.desc['mixer'] for b in model.layers]}; "
+              f"launches per forward: "
+              f"{counted_forward(model, cfg, toks, frontend=fr)}")
+        got, _ = transformer.forward(model, cfg, toks, frontend=fr,
+                                     use_kernel=True)
+        want, _ = transformer.forward(model, cfg, toks, frontend=fr)
+        check(f"{VLM_ARCH} f32 kernel vs plain", got, want, rel(want, 1e-3))
+        del got, want
+        decode_vs_prefill(model, cfg, toks[:, :CONSIST],
+                          f"{VLM_ARCH} decode vs prefill", frontend=fr)
+        del model, fr
+        torch.cuda.empty_cache()
+
+        model = transformer.init(full, seed=0, device=dev)
+        counts = bf16_prefill(model, full, toks, frontend=seeded_frontend(
+            full, 1, gen.manual_seed(2), dev))
+        greedy_leg(model, full, gen, dev, frontend=seeded_frontend(
+            full, DECODE_STREAMS, gen.manual_seed(6), dev))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mlstm_layer_gaps(model, cfg, toks) -> list[float]:
+    """Each mLSTM layer's parallel form against its chunked form
+    (MLSTM_CHUNK) on the same input, the parallel forward's hidden state
+    before it, held at MLSTM_TOL (rtol = atol); the max gap of each."""
+    from repro_torch.models import transformer, xlstm
+    from repro_torch.models.layers import rms_norm
+
+    x, gaps = model.embed[toks], []
+    for blk in model.layers:
+        h = rms_norm(x, blk.norm1)
+        mo = transformer._mix(blk, cfg, h, None, False)
+        if blk.desc["mixer"] == "mlstm":
+            ch = xlstm.apply_mlstm_chunked(blk.mixer, cfg, h,
+                                           chunk=MLSTM_CHUNK)
+            err = (ch - mo).abs()
+            assert bool((err <= rel(mo, MLSTM_TOL)).all()), (
+                f"mLSTM layer {len(gaps)}: chunked vs parallel "
+                f"{float(err.max())}")
+            gaps.append(float(err.max()))
+        x = x + mo
+    return gaps
+
+
+def xlstm_phase(dev) -> dict[str, int]:
+    """xlstm-125m at its published width and depth, seeded weights,
+    prefill of PREFILL tokens (no kernel runs: the reference runs none
+    here either):
+
+    - float32: each mLSTM layer's parallel form against the chunked one
+      (``mlstm_layer_gaps``), the stack's logits of the two printed;
+      teacher-forced decode over CONSIST tokens against the prefill at
+      2e-2;
+    - bfloat16: the prefill timed (mean of 3) with its device operations
+      and busy share, then ``greedy_generate``.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    full = get_config(XLSTM_ARCH)
+    gen = torch.Generator(device=dev)
+    toks = torch.randint(0, full.vocab, (1, PREFILL), device=dev,
+                         generator=gen.manual_seed(1))
+    cfg = dataclasses.replace(full, dtype=torch.float32)
+    print(f"{XLSTM_ARCH}: {full.n_layers} layers "
+          f"{[d['mixer'] for d in transformer.layer_plan(full)[1]]} x "
+          f"{transformer.layer_plan(full)[2]}; d_model {full.d_model}, "
+          f"{full.n_heads} heads; float32 and bfloat16 at all layers")
+    with torch.no_grad():
+        model = transformer.init(cfg, seed=0, device=dev)
+        counts = counted_forward(model, cfg, toks)
+        gaps = mlstm_layer_gaps(model, cfg, toks)
+        par, _ = transformer.forward(model, cfg, toks)
+        chunked, _ = transformer.forward(
+            model, dataclasses.replace(cfg, mlstm_chunk=MLSTM_CHUNK), toks)
+        assert torch.isfinite(par).all() and torch.isfinite(chunked).all()
+        stack = float(((par - chunked).abs() / (1 + chunked.abs())).max())
+        print(f"  float32 mLSTM parallel vs chunked ({MLSTM_CHUNK}) per "
+              f"layer, max |gap| (held at {MLSTM_TOL:.1e} rtol = atol): "
+              + ", ".join(f"{g:.3e}" for g in gaps)
+              + f"; the stack's logits {stack:.3e} (relative)")
+        del par, chunked
+        decode_vs_prefill(model, cfg, toks[:, :CONSIST],
+                          f"{XLSTM_ARCH} decode vs prefill")
+        del model
+        torch.cuda.empty_cache()
+
+        model = transformer.init(full, seed=0, device=dev)
+        got, _ = transformer.forward(model, full, toks)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        del got
+        ms = host_ms(lambda: transformer.forward(model, full, toks))
+        device_breakdown(lambda: transformer.forward(model, full, toks), ms)
+        print(f"  forward bf16, {full.n_layers} layers: {ms:.2f} ms "
+              f"({PREFILL / ms * 1e3:.0f} tokens/s)")
+        greedy_leg(model, full, gen, dev)
+    del model
     torch.cuda.empty_cache()
     return counts
 
@@ -1685,6 +1893,18 @@ def main() -> int:
         if "ssd_scan" in row:
             row["ssd_scan"]["launches"] = counts["ssd_scan"]
         print(f"hybrid: {time.perf_counter() - t0:.2f} s")
+    if run("vlm"):
+        t0 = time.perf_counter()
+        counts = vlm_phase(dev)
+        if "flash_attention" in row:
+            row["flash_attention"]["vision_launches"] = \
+                counts["flash_attention"]
+        print(f"vlm: {time.perf_counter() - t0:.2f} s")
+    if run("xlstm"):
+        t0 = time.perf_counter()
+        counts = xlstm_phase(dev)
+        assert not any(counts.values()), counts
+        print(f"xlstm: {time.perf_counter() - t0:.2f} s")
     for r in rows:
         print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "
               f"on its path; {fmt(r['cuda_launches_per_call'])} CUDA "

@@ -138,12 +138,23 @@ class RankStreams:
         """Event behind everything scattered so far."""
         return self._event(self.h2d)
 
+    def after(self, event: torch.cuda.Event | None) -> None:
+        """Order the scatter stream after ``event`` (another stream set's
+        copy of buffers this one reads, e.g. a resident chunk stored by
+        another rank); None: nothing to wait for."""
+        if event is not None:
+            self.h2d.wait_event(event)
+
     # -- compute -------------------------------------------------------------
     @contextlib.contextmanager
     def computing(self, after: torch.cuda.Event, *uses):
         """Stage 2: run on ``compute`` once ``after`` has completed on the
-        device; every CUDA tensor in ``uses`` is recorded on it."""
+        device, and behind the work already enqueued on the caller's
+        current stream (a split's broadcasts and any device op it made,
+        which ``uses`` reach the compute through); every CUDA tensor in
+        ``uses`` is recorded on it."""
         self.compute.wait_event(after)
+        self.compute.wait_stream(torch.cuda.current_stream(self.device))
         for t in _cuda_leaves(uses):
             t.record_stream(self.compute)
         with torch.cuda.stream(self.compute):
@@ -187,6 +198,9 @@ class _NoStreams:
 
     def scattered(self):
         return None
+
+    def after(self, event) -> None:
+        pass
 
     def computing(self, after, *uses):
         return contextlib.nullcontext()

@@ -252,14 +252,23 @@ def _pulling(xs: Sequence, streams: Sequence):
     return hosts, events
 
 
+#: the stream set of pulls made without a grid, one per device: made once
+#: and kept, so that no pull drops a stream set whose copy is in flight and
+#: none draws three more streams from PyTorch's shared pool
+_GRIDLESS: dict = {}
+
+
 def _streams_of(x, grid: BankGrid | None):
-    """The stream set a pull of ``x`` copies on: the grid's, or a stream
-    set of its own for a CUDA tensor pulled without one."""
+    """The stream set a pull of ``x`` copies on: the grid's, or the
+    device's gridless set for a CUDA tensor pulled without one."""
     if grid is not None:
         return grid.streams
     if isinstance(x, torch.Tensor) and x.is_cuda:
         from .streams import RankStreams
-        return RankStreams(x.device)
+        st = _GRIDLESS.get(x.device)
+        if st is None:
+            st = _GRIDLESS.setdefault(x.device, RankStreams(x.device))
+        return st
     return None
 
 

@@ -1,7 +1,11 @@
 """GQA attention layer — the PyTorch counterpart of
 ``repro.models.attention``: the full-sequence forward (prefill or
 scoring), which runs the ``flash_attention`` kernel with
-``use_kernel=True``, and the cached one-token decode.
+``use_kernel=True``, the cached one-token decode, and the VLM family's
+cross attention over the frontend's tokens (non-causal, no RoPE, the
+plain ``kernels/ref.attention`` as in the reference, and in decode the
+plain ``decode_attention`` over a cache of the frontend's keys and
+values, made once).
 
 Weights are ``(d_in, d_out)`` parameters named as the reference's keys
 (``wq``, ``wk``, ``wv``, ``wo`` and, with ``qkv_bias``, ``bq``, ``bk``,
@@ -17,11 +21,6 @@ from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
 from .layers import ModelConfig, _param, dense_init, rope
-
-#: what the VLM family's cross attention raises
-_NO_CROSS = ("cross attention (the VLM family's image layers) is not ported "
-             "yet: ROADMAP queue 1, item 9, cross attention")
-
 
 class Attention(nn.Module):
     """One attention layer's weights, drawn from ``gen`` when it is given
@@ -119,9 +118,67 @@ def decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict):
 
 # -- cross attention (VLM image layers) --------------------------------------
 
-def init_cross(gen: torch.Generator, cfg: ModelConfig, device=None):
-    raise NotImplementedError(_NO_CROSS)
+def init_cross(gen: torch.Generator, cfg: ModelConfig,
+               device=None) -> Attention:
+    """A cross-attention layer's weights: the keys of a self-attention
+    layer, as the reference's ``init_cross``."""
+    return Attention(cfg, gen=gen, device=device)
 
 
-def apply_cross(p, cfg: ModelConfig, x, kv_tokens):
-    raise NotImplementedError(_NO_CROSS)
+def promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the dtype jnp would give it: a frontend in another
+    float dtype than the weights promotes both (bfloat16 with float32 is
+    float32), never a quiet cast to the weights' dtype."""
+    if not (a.is_floating_point() and w.is_floating_point()):
+        raise TypeError(f"cross attention takes float frontend tokens, got "
+                        f"{a.dtype}")
+    t = torch.promote_types(a.dtype, w.dtype)
+    return a.to(t) @ w.to(t)
+
+
+def cross_kv(p: Attention, cfg: ModelConfig, kv_tokens: torch.Tensor):
+    """The frontend's keys and values, (B, KVH, T, hd) each, in the
+    promoted dtype of the frontend and the weights."""
+    B, T, _ = kv_tokens.shape
+    KVH, hd = cfg.n_kv_heads, cfg.hd
+    k = promoted_matmul(kv_tokens, p.wk).reshape(B, T, KVH, hd)
+    v = promoted_matmul(kv_tokens, p.wv).reshape(B, T, KVH, hd)
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def apply_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                kv_tokens: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) text; kv_tokens: (B, T, d) frontend embeddings.  Every
+    text position attends to every frontend token; no RoPE, no bias."""
+    if kv_tokens is None:
+        raise ValueError("a cross-attention layer needs the frontend's "
+                         "tokens: pass frontend=")
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ p.wq).reshape(B, S, H, hd).transpose(1, 2)
+    k, v = cross_kv(p, cfg, kv_tokens)
+    o = kref.attention(q, k, v, causal=False)
+    return o.transpose(1, 2).reshape(B, S, H * hd) @ p.wo
+
+
+def init_cross_cache(p: Attention, cfg: ModelConfig,
+                     frontend: torch.Tensor) -> dict:
+    """The cross layer's decode cache: the frontend's keys and values,
+    ``{"ck", "cv"}`` (B, KVH, T, hd), computed once."""
+    if frontend is None:
+        raise ValueError("a cross-attention layer's cache needs the "
+                         "frontend's tokens: pass frontend=")
+    ck, cv = cross_kv(p, cfg, frontend)
+    return {"ck": ck, "cv": cv}
+
+
+def decode_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                 cache: dict):
+    """One token's cross attention over the cached frontend keys and
+    values (all T of them valid). x: (B, 1, d); returns (y, cache)."""
+    B = x.shape[0]
+    q = (x @ p.wq).reshape(B, 1, cfg.n_heads, cfg.hd).transpose(1, 2)
+    T = cache["ck"].shape[2]
+    lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    o = ops.decode_attention(q, cache["ck"], cache["cv"], lens, impl="ref")
+    return o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo, cache

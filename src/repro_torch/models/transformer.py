@@ -1,20 +1,21 @@
 """Decoder assembler — the PyTorch counterpart of
-``repro.models.transformer`` for the dense-attention, MoE and hybrid
-families: embed → blocks → final norm → lm head, with the full-sequence
-``forward`` (with ``use_kernel=True`` its attention on the
-``flash_attention`` kernel, its MoE experts on ``moe_gmm`` and its Mamba
-scan on ``ssd_scan``) and the cached one-token ``decode_step``.
+``repro.models.transformer`` for every family of the repo's configs:
+embed → blocks → final norm → lm head, with the full-sequence ``forward``
+(with ``use_kernel=True`` its self-attention on the ``flash_attention``
+kernel, its MoE experts on ``moe_gmm`` and its Mamba scan on
+``ssd_scan``) and the cached one-token ``decode_step``.
 
 The layer plan (``_desc``, ``layer_plan``) is the reference's, for every
 config.  The reference stacks the repeating group and runs it under
 ``lax.scan``; here the layers are an ``nn.ModuleList`` run in a Python
-loop, which gives the same numbers.  Ported: the ``attn`` and ``mamba``
-mixers, the ``dense``, ``moe`` and ``none`` FFNs, ``parallel_block``
-(stablelm) and ``qkv_bias`` (codeqwen).  The ``cross``, ``mlstm`` and
-``slstm`` mixers and expert parallelism (``moe_ep``) raise
-``NotImplementedError`` when the model is built, naming their ROADMAP
-item, so nothing runs a different model than the reference.  ``loss_fn``
-and ``_chunked_ce`` come with the training path.
+loop, which gives the same numbers.  Ported: the ``attn``, ``cross``
+(the VLM family's image layers, over ``frontend=`` tokens), ``mamba``,
+``mlstm`` and ``slstm`` mixers, the ``dense``, ``moe`` and ``none``
+FFNs, ``parallel_block`` (stablelm), ``qkv_bias`` (codeqwen) and the
+audio family's ``embeds=`` input.  Expert parallelism (``moe_ep``)
+raises ``NotImplementedError`` when the model is built, naming its
+ROADMAP item, so nothing runs a different model than the reference.
+``loss_fn`` and ``_chunked_ce`` come with the training path.
 """
 from __future__ import annotations
 
@@ -25,21 +26,16 @@ import torch
 from torch import nn
 
 from repro_torch.core.banked import _device
-from . import attention, mamba, moe
+from . import attention, mamba, moe, xlstm
 from .layers import MLP, ModelConfig, _param, dense_init, rms_norm, swiglu
 
-#: block kinds not ported yet -> what building one raises
-_NOT_PORTED = {
-    "cross": attention._NO_CROSS,
-    "mlstm": "the xLSTM mixers (models/xlstm.py) are not ported yet: "
-             "ROADMAP queue 1, item 9, xLSTM",
-    "slstm": "the xLSTM mixers (models/xlstm.py) are not ported yet: "
-             "ROADMAP queue 1, item 9, xLSTM",
-}
 #: what a MoE config with ``moe_ep=True`` raises
 _NO_EP = ("moe_ep=True (the reference's apply_ep: experts sharded over a "
           "mesh with shard_map) has no one-GPU counterpart: ROADMAP queue 1,"
           " item 9, expert parallelism")
+#: each mixer's module
+_MIXERS = {"attn": attention.Attention, "cross": attention.Attention,
+           "mamba": mamba.Mamba, "mlstm": xlstm.MLSTM, "slstm": xlstm.SLSTM}
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +80,11 @@ def layer_plan(cfg: ModelConfig):
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming every block kind of ``cfg``
-    that the port does not have yet."""
-    descs = [_desc(cfg, li) for li in range(cfg.n_layers)]
-    kinds = {d["mixer"] for d in descs} | {d["ffn"] for d in descs}
-    missing = sorted({_NOT_PORTED[k] for k in kinds if k in _NOT_PORTED})
-    if cfg.moe_ep and "moe" in kinds:
-        missing.append(_NO_EP)
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: " + "; ".join(missing))
+    """Raise ``NotImplementedError`` when ``cfg`` needs what the port does
+    not have: expert parallelism over a mesh."""
+    if cfg.moe_ep and any(_desc(cfg, li)["ffn"] == "moe"
+                          for li in range(cfg.n_layers)):
+        raise NotImplementedError(f"{cfg.name}: {_NO_EP}")
 
 
 # ---------------------------------------------------------------------------
@@ -100,9 +92,9 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """``norm1``, ``mixer`` (attention or Mamba) and, unless the FFN is
-    ``none``, ``norm2`` and ``ffn`` (dense or MoE): the reference's block
-    keys."""
+    """``norm1``, ``mixer`` (self or cross attention, Mamba, mLSTM or
+    sLSTM) and, unless the FFN is ``none``, ``norm2`` and ``ffn`` (dense or
+    MoE): the reference's block keys."""
 
     def __init__(self, cfg: ModelConfig, desc: dict, *,
                  gen: torch.Generator | None = None, device=None):
@@ -110,8 +102,7 @@ class Block(nn.Module):
         d = cfg.d_model
         self.desc = desc
         self.norm1 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
-        mixer = mamba.Mamba if desc["mixer"] == "mamba" else attention.Attention
-        self.mixer = mixer(cfg, gen=gen, device=device)
+        self.mixer = _MIXERS[desc["mixer"]](cfg, gen=gen, device=device)
         if desc["ffn"] != "none":
             self.norm2 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
             self.ffn = (moe.MoE(cfg, gen=gen, device=device)
@@ -164,14 +155,32 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
 # forward
 # ---------------------------------------------------------------------------
 
+def _mix(p: Block, cfg: ModelConfig, h: torch.Tensor, frontend,
+         use_kernel: bool) -> torch.Tensor:
+    """The block's mixer on the normed hidden ``h``."""
+    mixer = p.desc["mixer"]
+    if mixer == "attn":
+        return attention.apply(p.mixer, cfg, h, use_kernel=use_kernel)
+    if mixer == "cross":
+        return attention.apply_cross(p.mixer, cfg, h, frontend)
+    if mixer == "mamba":
+        return mamba.apply(p.mixer, cfg, h, use_kernel=use_kernel)
+    if mixer == "mlstm":
+        if cfg.mlstm_chunk:
+            return xlstm.apply_mlstm_chunked(p.mixer, cfg, h,
+                                             chunk=cfg.mlstm_chunk)
+        return xlstm.apply_mlstm(p.mixer, cfg, h)
+    return xlstm.apply_slstm(p.mixer, cfg, h)
+
+
 def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                 use_kernel: bool):
+                 use_kernel: bool, frontend=None):
     """One block's forward -> (x, aux), aux the MoE FFN's load-balancing
-    loss (0 for the other FFNs)."""
+    loss (0 for the other FFNs); ``frontend`` the tokens a cross layer
+    attends to."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.norm1)
-    mix = mamba if p.desc["mixer"] == "mamba" else attention
-    mo = mix.apply(p.mixer, cfg, h, use_kernel=use_kernel)
+    mo = _mix(p, cfg, h, frontend, use_kernel)
     if p.desc["ffn"] == "none":
         return x + mo, aux
     if cfg.parallel_block:          # stablelm: attn ∥ ffn off one norm
@@ -194,6 +203,17 @@ def as_tokens(tokens, device) -> torch.Tensor:
     return tokens.to(device=device, dtype=torch.int32)
 
 
+def as_frontend(frontend, device) -> torch.Tensor | None:
+    """Frontend tokens (B, T, d) — a tensor, or anything numpy takes — on
+    ``device`` in their own dtype (the cross layers promote them with the
+    weights as jnp does)."""
+    if frontend is None:
+        return None
+    if not isinstance(frontend, torch.Tensor):
+        frontend = torch.from_numpy(np.asarray(frontend))
+    return frontend.to(device)
+
+
 def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
     if embeds is None:
         return model.embed[as_tokens(tokens, model.device)]
@@ -201,22 +221,25 @@ def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
 
 
 def trunk(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
-          use_kernel: bool = False):
+          frontend=None, use_kernel: bool = False):
     """Embed + all blocks + final norm (pre-lm_head hidden). → (x, aux);
-    ``aux`` is the sum of the MoE layers' load-balancing losses."""
+    ``aux`` is the sum of the MoE layers' load-balancing losses.
+    ``frontend`` (B, T, d): the tokens the cross layers attend to."""
     x = _embed(model, cfg, tokens, embeds)
+    frontend = as_frontend(frontend, model.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.layers:
-        x, a = _block_apply(blk, cfg, x, use_kernel)
+        x, a = _block_apply(blk, cfg, x, use_kernel, frontend)
         aux = aux + a
     return rms_norm(x, model.final_norm), aux
 
 
 def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
-            use_kernel: bool = False):
-    """tokens: (B, S) int or embeds: (B, S, d). Returns (logits, aux)."""
+            frontend=None, use_kernel: bool = False):
+    """tokens: (B, S) int or embeds: (B, S, d); frontend: (B, T, d) for the
+    VLM family. Returns (logits, aux)."""
     x, aux = trunk(model, cfg, tokens=tokens, embeds=embeds,
-                   use_kernel=use_kernel)
+                   frontend=frontend, use_kernel=use_kernel)
     return x @ model.lm_head, aux
 
 
@@ -224,23 +247,47 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
 # decode (serve path)
 # ---------------------------------------------------------------------------
 
+def _block_cache(p: Block, cfg: ModelConfig, batch: int, max_len: int,
+                 frontend, device) -> dict:
+    mixer = p.desc["mixer"]
+    if mixer == "attn":
+        return attention.init_cache(cfg, batch, max_len, device=device)
+    if mixer == "cross":
+        return attention.init_cross_cache(p.mixer, cfg, frontend)
+    if mixer == "mamba":
+        return mamba.init_cache(cfg, batch, device=device)
+    if mixer == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, batch, device=device)
+    return xlstm.init_slstm_cache(cfg, batch, device=device)
+
+
 def init_cache(model: Transformer, cfg: ModelConfig, batch: int,
-               max_len: int) -> dict:
-    """One cache per layer, ``{"layers": [...]}``, on the model's device: a
-    KV cache for an attention layer, ``{"conv", "ssm"}`` for a Mamba one
-    (the reference stacks the repeating group's caches for its scan)."""
+               max_len: int, frontend=None) -> dict:
+    """One cache per layer, ``{"layers": [...]}``, on the model's device:
+    a KV cache for a self-attention layer, the frontend's keys and values
+    ``{"ck", "cv"}`` for a cross layer (``frontend`` (B, T, d)),
+    ``{"conv", "ssm"}`` for a Mamba one, ``{"C", "n", "m"}`` for an mLSTM
+    and ``{"c", "n", "m"}`` for an sLSTM (the reference stacks the
+    repeating group's caches for its scan)."""
     dev = model.device
-    return {"layers": [
-        mamba.init_cache(cfg, batch, device=dev)
-        if blk.desc["mixer"] == "mamba"
-        else attention.init_cache(cfg, batch, max_len, device=dev)
-        for blk in model.layers]}
+    frontend = as_frontend(frontend, dev)
+    return {"layers": [_block_cache(blk, cfg, batch, max_len, frontend, dev)
+                       for blk in model.layers]}
 
 
 def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     h = rms_norm(x, p.norm1)
-    mix = mamba if p.desc["mixer"] == "mamba" else attention
-    mo, cache = mix.decode(p.mixer, cfg, h, cache)
+    mixer = p.desc["mixer"]
+    if mixer == "attn":
+        mo, cache = attention.decode(p.mixer, cfg, h, cache)
+    elif mixer == "cross":
+        mo, cache = attention.decode_cross(p.mixer, cfg, h, cache)
+    elif mixer == "mamba":
+        mo, cache = mamba.decode(p.mixer, cfg, h, cache)
+    elif mixer == "mlstm":
+        mo, cache = xlstm.decode_mlstm(p.mixer, cfg, h, cache)
+    else:
+        mo, cache = xlstm.decode_slstm(p.mixer, cfg, h, cache)
     if p.desc["ffn"] == "none":
         return x + mo, cache
     if cfg.parallel_block:
@@ -255,10 +302,14 @@ def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     return x + fo, cache
 
 
-def decode_step(model: Transformer, cfg: ModelConfig, tokens, cache: dict):
-    """One decode step. tokens: (B, 1) int.
-    Returns (logits (B, 1, V), cache); the cache is updated in place."""
-    x = _embed(model, cfg, tokens, None)
+def decode_step(model: Transformer, cfg: ModelConfig, tokens, cache: dict,
+                embeds=None, frontend=None):
+    """One decode step. tokens: (B, 1) int, or embeds (B, 1, d) (the audio
+    family's frame embeddings).  ``frontend`` is accepted as the
+    reference's step takes it; the cross layers read the keys and values
+    ``init_cache`` made from it.  Returns (logits (B, 1, V), cache); the
+    cache is updated in place."""
+    x = _embed(model, cfg, tokens, embeds)
     for li, blk in enumerate(model.layers):
         x, cache["layers"][li] = _block_decode(blk, cfg, x,
                                                cache["layers"][li])

@@ -1,0 +1,284 @@
+"""xLSTM blocks (arXiv:2405.04517) — the PyTorch counterpart of
+``repro.models.xlstm``: mLSTM (matrix memory, parallel form) and sLSTM
+(scalar memory, recurrent form), the mixers of the ``ssm`` family
+(xlstm-125m: mLSTM blocks with an sLSTM every ``cfg.slstm_every``-th
+layer, no FFN).
+
+mLSTM parallel form (prefill):
+  F_t = Σ_{τ≤t} logσ(f_τ);  D[t,s] = exp(F_t − F_s + i_s − m_t), s ≤ t
+  y_t = Σ_s D[t,s] (q_t·k_s) v_s / max(|Σ_s D (q·k)|, exp(−m_t))
+``apply_mlstm_chunked`` is the same function in O(S·L): the parallel form
+inside each chunk of L, and the chunks' (C, n, m) summaries combined in
+chunk order with the reference's stabilised ``combine`` (the reference
+runs it under ``lax.associative_scan``; a loop over the chunk axis
+combines the same terms, in float32).  Decode keeps (C, n, m) per head:
+O(1) a token.
+
+sLSTM: the stabilised exponential-gating scalar recurrence; the
+reference's ``lax.scan`` over time is a Python loop over the sequence.
+
+The rounding points are the reference's: ``x @ w`` in the model dtype,
+then float32 for the gate logits; silu in float32, cast back before
+``* u``; the ``-1e30`` start of ``m``; ``log_sigmoid`` in float32.  The
+query's ``/ sqrt(hd)``: the reference divides by a numpy float64 scalar,
+which jnp does not treat as weakly typed, so a bfloat16 query comes out
+float32 (every use casts it to float32 anyway); here it is divided in
+float32 too.  No Pallas kernel runs here in the reference, and none runs
+here.  Parameters are named as the reference's keys.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import ModelConfig, _param, dense_init, rms_norm
+
+#: the start of the stabiliser m (the reference's)
+M_START = -1e30
+
+
+def _dims(cfg: ModelConfig):
+    H = cfg.n_heads
+    return H, cfg.d_model // H
+
+
+def _weights(module: nn.Module, shapes: dict, cfg: ModelConfig,
+             gen: torch.Generator | None, device) -> None:
+    """Each weight drawn from ``gen`` (the reference's scheme) in the
+    reference's key order, or left uninitialised for a weight carry; then
+    ``norm``, ones."""
+    for name, shape in shapes.items():
+        w = (dense_init(gen, shape, cfg.dtype, device) if gen is not None
+             else torch.empty(shape, dtype=cfg.dtype, device=device))
+        setattr(module, name, _param(w))
+    module.norm = _param(torch.ones(cfg.d_model, dtype=cfg.dtype,
+                                    device=device))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+class MLSTM(nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wz``, ``wo`` (d, d); ``wi``, ``wf`` (d, H),
+    the input and forget gates' logits; ``norm`` (d,)."""
+
+    def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        d = cfg.d_model
+        H, _ = _dims(cfg)
+        _weights(self, {"wq": (d, d), "wk": (d, d), "wv": (d, d),
+                        "wi": (d, H), "wf": (d, H), "wz": (d, d),
+                        "wo": (d, d)}, cfg, gen, device)
+
+
+def _mlstm_heads(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
+    """q (float32, scaled), k, v (B, H, S, hd); i, f (B, H, S) float32."""
+    B, S, _ = x.shape
+    H, hd = _dims(cfg)
+
+    def heads(w):
+        return (x @ w).reshape(B, S, H, hd).transpose(1, 2)
+
+    q = heads(p.wq).to(torch.float32) / math.sqrt(hd)
+    i = (x @ p.wi).to(torch.float32).transpose(1, 2)
+    f = (x @ p.wf).to(torch.float32).transpose(1, 2)
+    return q, heads(p.wk), heads(p.wv), i, f
+
+
+def _out(p, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The output gate and projection: y (B, S, d) float32."""
+    y = y.to(x.dtype)
+    z = F.silu((x @ p.wz).to(torch.float32)).to(x.dtype)
+    return rms_norm(y * z, p.norm) @ p.wo
+
+
+def _causal(n: int, device) -> torch.Tensor:
+    return torch.ones((n, n), dtype=torch.bool, device=device).tril()
+
+
+def apply_mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The parallel form, O(S²). x: (B, S, d) -> (B, S, d)."""
+    B, S, d = x.shape
+    q, k, v, i, f = _mlstm_heads(p, cfg, x)
+    F_ = torch.cumsum(F.logsigmoid(f), dim=-1)                  # (B, H, S)
+    dmat = F_[..., :, None] - F_[..., None, :] + i[..., None, :]
+    dmat = dmat.masked_fill(~_causal(S, x.device), float("-inf"))
+    m = dmat.amax(dim=-1, keepdim=True)                          # (B,H,S,1)
+    dexp = torch.exp(dmat - m)
+    w = (q @ k.to(torch.float32).transpose(-1, -2)) * dexp
+    norm = torch.maximum(w.sum(-1, keepdim=True).abs(), torch.exp(-m))
+    y = (w / norm) @ v.to(torch.float32)
+    return _out(p, x, y.transpose(1, 2).reshape(B, S, d))
+
+
+def _combine(a, b):
+    """The reference's stabilised combine of two chunk summaries
+    (f, m, C, n), ``a`` before ``b``."""
+    fa, ma, ca, na = a
+    fb, mb, cb, nb = b
+    m = torch.maximum(ma + fb, mb)
+    sa = torch.exp(ma + fb - m)[..., None]
+    sb = torch.exp(mb - m)[..., None]
+    return fa + fb, m, sa[..., None] * ca + sb[..., None] * cb, \
+        sa * na + sb * nb
+
+
+def apply_mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
+                        chunk: int = 256) -> torch.Tensor:
+    """The same function in O(S·L), L = min(chunk, S), which must divide
+    S: the parallel form within a chunk plus the state carried in from
+    the chunks before it."""
+    B, S, d = x.shape
+    H, hd = _dims(cfg)
+    L = min(chunk, S)
+    assert S % L == 0, f"chunk {L} must divide the sequence {S}"
+    nc = S // L
+    q, k, v, i, f = _mlstm_heads(p, cfg, x)
+    qf, kf, vf = (t.to(torch.float32).reshape(B, H, nc, L, hd)
+                  for t in (q, k, v))
+    i = i.reshape(B, H, nc, L)
+    logf = F.logsigmoid(f).reshape(B, H, nc, L)
+
+    floc = torch.cumsum(logf, dim=-1)                            # (B,H,nc,L)
+    fsum = floc[..., -1:]                                        # (B,H,nc,1)
+    # each chunk's summary: its contribution to the state on its own
+    w_state = fsum - floc + i
+    m_seg = w_state.amax(dim=-1)                                 # (B,H,nc)
+    wexp = torch.exp(w_state - m_seg[..., None])
+    c_seg = torch.einsum("bhcl,bhcld,bhcle->bhcde", wexp, kf, vf)
+    n_seg = torch.einsum("bhcl,bhcld->bhcd", wexp, kf)
+
+    # the state before each chunk: identity at chunk 0, then the inclusive
+    # combine of the chunks before it
+    m_in = [torch.full_like(m_seg[..., 0], M_START)]
+    c_in = [torch.zeros_like(c_seg[:, :, 0])]
+    n_in = [torch.zeros_like(n_seg[:, :, 0])]
+    acc = None
+    for c in range(nc - 1):
+        seg = (fsum[:, :, c, 0], m_seg[:, :, c], c_seg[:, :, c],
+               n_seg[:, :, c])
+        acc = seg if acc is None else _combine(acc, seg)
+        m_in.append(acc[1])
+        c_in.append(acc[2])
+        n_in.append(acc[3])
+    m_in = torch.stack(m_in, dim=2)                              # (B,H,nc)
+    c_in = torch.stack(c_in, dim=2)                          # (B,H,nc,hd,hd)
+    n_in = torch.stack(n_in, dim=2)                              # (B,H,nc,hd)
+
+    # within-chunk parallel outputs plus the carried-in state's
+    dmat = floc[..., :, None] - floc[..., None, :] + i[..., None, :]
+    dmat = dmat.masked_fill(~_causal(L, x.device), float("-inf"))
+    m_loc = dmat.amax(dim=-1)                                    # (B,H,nc,L)
+    carry_w = floc + m_in[..., None]
+    m_t = torch.maximum(m_loc, carry_w)
+    dexp = torch.exp(dmat - m_t[..., None])
+    wgt = (qf @ kf.transpose(-1, -2)) * dexp                     # (B,H,nc,L,L)
+    carry_s = torch.exp(carry_w - m_t)
+    num = wgt @ vf + carry_s[..., None] * (qf @ c_in)
+    den = wgt.sum(-1) + carry_s * torch.einsum("bhcld,bhcd->bhcl", qf, n_in)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    return _out(p, x, h.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, d))
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    H, hd = _dims(cfg)
+    return {"C": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                             device=device),
+            "n": torch.zeros((batch, H, hd), dtype=torch.float32,
+                             device=device),
+            "m": torch.full((batch, H), M_START, dtype=torch.float32,
+                            device=device)}
+
+
+def decode_mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    """One token. x: (B, 1, d); returns (y, new cache)."""
+    B = x.shape[0]
+    q, k, v, i, f = _mlstm_heads(p, cfg, x)                      # S = 1
+    q, k, v = (t[:, :, 0].to(torch.float32) for t in (q, k, v))
+    i, f = i[..., 0], f[..., 0]                                  # (B, H)
+    logf = F.logsigmoid(f)
+    m_new = torch.maximum(logf + cache["m"], i)
+    fg = torch.exp(logf + cache["m"] - m_new)[..., None]
+    ig = torch.exp(i - m_new)[..., None]
+    C = fg[..., None] * cache["C"] + ig[..., None] * \
+        (k[..., :, None] * v[..., None, :])
+    n = fg * cache["n"] + ig * k
+    num = (q[..., None, :] @ C)[..., 0, :]
+    den = torch.maximum((q * n).sum(-1).abs(), torch.exp(-m_new))[..., None]
+    y = (num / den).reshape(B, 1, cfg.d_model)
+    return _out(p, x, y), {"C": C, "n": n, "m": m_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+class SLSTM(nn.Module):
+    """``wz``, ``wi``, ``wf``, ``wo_gate`` (d, d), the gates' logits;
+    ``up`` (d, 2d) fused gate|up and ``down`` (d, d); ``norm`` (d,)."""
+
+    def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        d = cfg.d_model
+        _weights(self, {"wz": (d, d), "wi": (d, d), "wf": (d, d),
+                        "wo_gate": (d, d), "up": (d, 2 * d),
+                        "down": (d, d)}, cfg, gen, device)
+
+
+def _slstm_step(carry, gates):
+    """One step of the recurrence on float32 (B, d) states and gates;
+    returns (new carry, h)."""
+    c, n, m = carry
+    z, i, f, o = gates
+    logf = F.logsigmoid(f)
+    m_new = torch.maximum(logf + m, i)
+    fg = torch.exp(logf + m - m_new)
+    ig = torch.exp(i - m_new)
+    c = fg * c + ig * torch.tanh(z)
+    n = fg * n + ig
+    h = torch.sigmoid(o) * c / torch.clamp(n, min=1e-6)
+    return (c, n, m_new), h
+
+
+def _slstm_gates(p: SLSTM, x: torch.Tensor):
+    return tuple((x @ w).to(torch.float32)
+                 for w in (p.wz, p.wi, p.wf, p.wo_gate))
+
+
+def _slstm_out(p: SLSTM, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, p.norm)
+    g, u = (h @ p.up).chunk(2, dim=-1)
+    return (F.silu(g.to(torch.float32)).to(h.dtype) * u) @ p.down
+
+
+def apply_slstm(p: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d), one recurrence step a position."""
+    B, S, d = x.shape
+    gates = _slstm_gates(p, x)
+    carry = tuple(init_slstm_cache(cfg, B, device=x.device).values())
+    hs = []
+    for t in range(S):
+        carry, h = _slstm_step(carry, tuple(g[:, t] for g in gates))
+        hs.append(h)
+    return _slstm_out(p, torch.stack(hs, dim=1).to(x.dtype))
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    d = cfg.d_model
+    return {"c": torch.zeros((batch, d), dtype=torch.float32, device=device),
+            "n": torch.zeros((batch, d), dtype=torch.float32, device=device),
+            "m": torch.full((batch, d), M_START, dtype=torch.float32,
+                            device=device)}
+
+
+def decode_slstm(p: SLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    """One token. x: (B, 1, d); returns (y, new cache)."""
+    gates = _slstm_gates(p, x[:, 0])
+    (c, n, m), h = _slstm_step((cache["c"], cache["n"], cache["m"]), gates)
+    return _slstm_out(p, h[:, None, :].to(x.dtype)), {"c": c, "n": n, "m": m}

@@ -217,8 +217,9 @@ def run_pipelined_many(grid: BankGrid, workload: ChunkedWorkload,
                             chunk = _refill_chunk(grid, workload,
                                                   requests[i], n_chunks, ci)
                         bufs = workload.scatter(grid, metas[i], chunk)
-                        ent.store(ci, bufs)
+                        ent.store(ci, bufs, st.scattered())
                     else:
+                        st.after(ent.landed(ci))
                         served = True
             else:
                 bufs = workload.scatter(grid, metas[i], chunk)
@@ -386,8 +387,11 @@ def _rank_worker(view, workload, metas, stream, bucket, t_start, t_retired,
                             chunk = _refill_chunk(view, workload, requests[i],
                                                   split_total, gidx)
                         bufs = workload.scatter(view, metas[i], chunk)
-                        ent.store(gidx, bufs)
+                        ent.store(gidx, bufs, st.scattered())
                     else:
+                        # stored by another rank's h2d stream, maybe still
+                        # in flight: this rank's scatter event follows it
+                        st.after(ent.landed(gidx))
                         served = True
             else:
                 bufs = workload.scatter(view, metas[i], chunk)

@@ -156,9 +156,12 @@ class ResidentEntry:
     * ``set_rank_meta(r, meta)`` — first writer wins; returns the
       authoritative resident meta for rank ``r`` so concurrent fillers
       converge on one set of device constants.
-    * ``store(gidx, bufs)`` / ``get(gidx)`` — per-global-chunk device
-      buffers, pushed exactly once (callers check ``get`` under
-      :attr:`lock` before scattering).
+    * ``store(gidx, bufs, landed)`` / ``get(gidx)`` — per-global-chunk
+      device buffers, pushed exactly once (callers check ``get`` under
+      :attr:`lock` before scattering).  ``landed`` is the CUDA event
+      behind the buffers' copy on the storing stream (None when the copy
+      was synchronous); ``landed(gidx)`` hands it to a reader on another
+      stream set, which waits on it before its compute reads them.
 
     ``ready`` flips once every rank meta and every expected chunk buffer
     is present; only ready entries serve warm hits.
@@ -183,6 +186,7 @@ class ResidentEntry:
         self.expected_chunks = 0          # set by the first set_rank_meta
         self._metas: dict[int, Any] = {}
         self._bufs: dict[int, Any] = {}
+        self._landed: dict[int, Any] = {}
 
     def set_rank_meta(self, rank: int, meta, *, n_chunks: int) -> Any:
         """Install rank ``rank``'s resident meta (first writer wins) and
@@ -203,16 +207,22 @@ class ResidentEntry:
         with self.lock:
             return self._metas.get(rank)
 
-    def store(self, gidx: int, bufs) -> None:
+    def store(self, gidx: int, bufs, landed=None) -> None:
         with self.lock:
             if self.released or gidx in self._bufs:
                 return
             self._bufs[gidx] = bufs
+            self._landed[gidx] = landed
             self._maybe_ready()
 
     def get(self, gidx: int):
         with self.lock:
             return self._bufs.get(gidx)
+
+    def landed(self, gidx: int):
+        """The event behind chunk ``gidx``'s stored copy (or None)."""
+        with self.lock:
+            return self._landed.get(gidx)
 
     def _maybe_ready(self) -> None:
         if (len(self._metas) == self.expected_ranks
@@ -228,6 +238,7 @@ class ResidentEntry:
             self.released = True
             self._metas.clear()
             self._bufs.clear()
+            self._landed.clear()
             self.ready = False
 
 

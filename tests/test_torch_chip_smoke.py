@@ -316,3 +316,39 @@ def test_tune_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
     assert out.count("served ok") == 14 + 3 + 3
     assert "session(banks=8, autotune=...): plans for 14 workloads" in out
     assert "cost model: geomean of predicted over measured" in out
+
+
+# -- the VLM and xLSTM phases ---------------------------------------------------------
+
+@pytest.mark.parametrize("phase,arch", [("vlm_phase", "llama-3.2-vision-11b"),
+                                        ("xlstm_phase", "xlstm-125m")])
+def test_family_phases_rehearse_on_the_cpu(cs, monkeypatch, capsys, phase,
+                                           arch):
+    """The VLM and xLSTM phases at SMOKE size on the CPU (its config in
+    bfloat16, the FULL dtype; 64 tokens, 16 of decode, the mLSTM chunked
+    by 16 and held at the reference's 1e-4 of 64 positions): every check
+    of the phase runs; CPU tensors launch no kernel, so the layer plan's
+    launches are taken as zeros here."""
+    import dataclasses
+
+    from repro_torch import configs
+    smoke = dataclasses.replace(configs.get_config(arch, smoke=True),
+                                dtype=torch.bfloat16)
+    monkeypatch.setattr(configs, "get_config", lambda name: smoke)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "expected_launches", lambda model: {
+        "flash_attention": 0, "moe_gmm": 0, "ssd_scan": 0})
+    for name, value in (("PREFILL", 64), ("CONSIST", 16), ("MLSTM_CHUNK", 16),
+                        ("MLSTM_TOL", 1e-4)):
+        monkeypatch.setattr(cs, name, value)
+    counts = getattr(cs, phase)(torch.device("cpu"))
+    assert not any(counts.values())
+    out = capsys.readouterr().out
+    assert f"check {arch} decode vs prefill" in out
+    assert "forward bf16, " in out and "greedy_generate bf16 2 x (8 + 8)" \
+        in out
+    if phase == "vlm_phase":
+        assert f"check {arch} f32 kernel vs plain" in out
+        assert "['attn', 'attn', 'attn', 'attn', 'cross']" in out
+    else:
+        assert "per layer" in out and out.count("e-0") >= 3

@@ -28,6 +28,9 @@ bfloat16, so y is held at 2e-2.  The session and pipeline cases, and
 the cases of VA, SEL, UNI, BS, TS, BFS, MLP, NW and TRNS on 64 banks of
 the card, hold results to the registry's comparators against ``ref()``.
 """
+import os
+import subprocess
+import sys
 import threading
 import zlib
 
@@ -608,6 +611,57 @@ def test_moe_and_hybrid_forward_launch_the_kernels(dev, arch):
     close(aux, want_aux, rel(want_aux, 1e-5))
 
 
+# -- the VLM and xLSTM families -------------------------------------------------------
+
+def test_vision_forward_launches_the_kernel_on_self_attention_only(dev):
+    """llama-vision SMOKE on the card: ``forward(use_kernel=True,
+    frontend=)`` runs flash_attention once per self-attention layer (the
+    cross layer runs the plain attention, as the reference's does);
+    logits against the plain forward (float32, rtol = atol = 1e-3, as the
+    TinyLlama case)."""
+    cfg = get_config("llama-3.2-vision-11b", smoke=True)
+    model = transformer.init(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev, generator=g)
+    fr = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model), device=dev,
+                     generator=g)
+    ops.reset_launch_counts()
+    got, _ = transformer.forward(model, cfg, toks, frontend=fr,
+                                 use_kernel=True)
+    assert ops.launch_counts()["flash_attention"] == sum(
+        b.desc["mixer"] == "attn" for b in model.layers) == 4
+    want, _ = transformer.forward(model, cfg, toks, frontend=fr)
+    close(got, want, rel(want, 1e-3))
+
+
+def test_xlstm_on_the_card_matches_the_cpu(dev):
+    """xlstm SMOKE (3 mLSTM blocks, then an sLSTM), parallel and chunked
+    mLSTM: the same weights on the card and on the CPU give the same
+    logits, and so does teacher-forced decode (float32, rtol = atol =
+    1e-3: the card sums in another order, and its expf / logf differ in
+    the last bits)."""
+    import dataclasses
+    base = get_config("xlstm-125m", smoke=True)
+    cpu_model = transformer.init(base, seed=0, device="cpu")
+    card_model = transformer.init(base, seed=0, device="cpu").to(dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, base.vocab, (2, 32)).astype(np.int32))
+    for chunk in (0, 8):
+        cfg = dataclasses.replace(base, mlstm_chunk=chunk)
+        want, _ = transformer.forward(cpu_model, cfg, toks)
+        got, _ = transformer.forward(card_model, cfg, toks.to(dev))
+        assert got.is_cuda
+        close(got.cpu(), want, rel(want, 1e-3))
+    ccache = transformer.init_cache(cpu_model, base, 2, 8)
+    gcache = transformer.init_cache(card_model, base, 2, 8)
+    for i in range(8):
+        want, ccache = transformer.decode_step(cpu_model, base,
+                                               toks[:, i:i + 1], ccache)
+        got, gcache = transformer.decode_step(card_model, base,
+                                              toks[:, i:i + 1].to(dev), gcache)
+        close(got.cpu(), want, rel(want, 1e-3))
+
+
 # -- the pipeline on CUDA streams, and the session -----------------------------------
 
 def test_rank_views_get_distinct_streams(dev):
@@ -758,3 +812,68 @@ def test_session_autotune_on_the_card(dev):
             entry = pim.registry()[name]
             args = entry.make_args(np.random.default_rng(1), scale=4)
             entry.compare(s.run(name, *args), entry.ref(*args))
+
+
+# -- the tune phase's device-side assert (ROADMAP queue 3) -------------------------
+
+#: (banks, make_args scale, iterations) of the loop: the 8-bank session of
+#: test_session_autotune_on_the_card and the 2,048 banks of chip_smoke.py's
+#: tune phase, the two runs that hit the assert once
+FAULT_SHAPES = {"8 banks, scale 4": (8, 4, 20),
+                "2,048 banks, scale 1024": (2048, 1024, 3)}
+
+
+def fault_loop(banks: int, scale: int, iters: int) -> None:
+    """What ran up to the assert, ``iters`` times on one flat grid:
+    GEMV-G's ``profile_workload`` and its chunk probes (``probe_plan``),
+    then SpMV's serialized ``pim()`` (its plain gather) held to ``ref()``,
+    then SpMV's own ``profile_workload``."""
+    from repro_torch.core.banked import make_bank_grid
+    from repro_torch.runtime.autotune import (plan_for, probe_plan,
+                                              profile_workload)
+    g = make_bank_grid(banks)
+    rng = np.random.default_rng(0)
+    gemv_g, spmv = REGISTRY["GEMV-G"], REGISTRY["SpMV"]
+    gargs, sargs = gemv_g.make_args(rng, scale), spmv.make_args(rng, scale)
+    want = spmv.ref(*sargs)
+    for _ in range(iters):
+        plan = plan_for(profile_workload(g, gemv_g, gargs, reps=1))
+        probe_plan(g, gemv_g, plan, [gargs])
+        out, _ = spmv.pim(g, *sargs)
+        torch.cuda.synchronize()
+        spmv.compare(out, want)
+        profile_workload(g, spmv, sargs, reps=1)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("allocator", ["caching", "no caching"])
+@pytest.mark.parametrize("shape", list(FAULT_SHAPES))
+def test_gemv_g_probes_then_spmv_pim_loop(dev, shape, allocator):
+    """The sequence of the device-side "index out of bounds" assert that
+    one run of the tune phase hit (ROADMAP queue 3), in a loop; with
+    ``PYTORCH_NO_CUDA_MEMORY_CACHING=1`` too (in a process of its own:
+    the allocator is chosen when CUDA starts), where a block freed while
+    another stream still uses it goes to cudaFree instead of to the next
+    tensor.  The 2,048-bank loop needs a card of 40 GiB."""
+    banks, scale, iters = FAULT_SHAPES[shape]
+    if banks > 8 and torch.cuda.get_device_properties(dev).total_memory \
+            < 40 * 2**30:
+        pytest.skip("not verified on GPU: the 2,048-bank loop needs 40 GiB")
+    if allocator == "caching":
+        fault_loop(banks, scale, iters)
+        return
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = {**os.environ, "PYTORCH_NO_CUDA_MEMORY_CACHING": "1",
+           "PYTHONPATH": os.pathsep.join(
+               [src] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--fault-loop", str(banks), str(scale),
+                          str(max(1, iters // 4))],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--fault-loop"]:
+    fault_loop(*map(int, sys.argv[2:5]))

@@ -10,7 +10,8 @@ for the SMOKE configs of the dense-attention family: tinyllama, h2o-danube
 (window 16), codeqwen (``qkv_bias``) and stablelm (``parallel_block``).
 float32 logits agree at rtol = atol = 1e-4: both sides compute in float32
 and differ only in the order of their sums.  The MoE and hybrid families
-have their own file, tests/test_torch_moe_hybrid.py.
+have their own file, tests/test_torch_moe_hybrid.py, as have the xLSTM
+(tests/test_torch_xlstm.py) and VLM (tests/test_torch_vlm.py) families.
 """
 import dataclasses
 import functools
@@ -25,7 +26,7 @@ from repro.configs import ARCHS as JARCHS, get_config as jget
 from repro.models import layers as jlayers
 from repro.models import transformer as jt
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.models import attention, convert, layers, transformer
+from repro_torch.models import convert, layers, transformer
 
 # the whole suite runs in 6 pytest workers on 8 cores: two intra-op threads
 # a worker keep these modules from starving the reference's timing-gated tests
@@ -177,29 +178,6 @@ def test_embeds_input_matches_reference():
 
 
 # -- model construction and the weight carry ------------------------------------------
-
-@pytest.mark.parametrize("arch,match", [
-    ("xlstm-125m", "xLSTM"),
-    ("llama-3.2-vision-11b", "cross attention"),
-])
-def test_unported_families_raise(arch, match):
-    """The families still to port; the MoE and hybrid ones that used to be
-    cases here run against the reference in tests/test_torch_moe_hybrid.py
-    (``test_moe_and_hybrid_families_build`` and the parity tests)."""
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=match):
-        transformer.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        transformer.check_ported(cfg)
-
-
-def test_cross_attention_raises():
-    cfg = get_config("llama-3.2-vision-11b", smoke=True)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        attention.init_cross(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        attention.apply_cross(None, cfg, None, None)
-
 
 def test_parameter_names_are_the_reference_keys():
     _, params, tcfg, model = carried("codeqwen1.5-7b")
