@@ -42,7 +42,16 @@ reference runs none there): each mLSTM layer's parallel form against its
 chunked one, decode against prefill, the bfloat16 prefill timed, and
 ``greedy_generate``.  For the bfloat16 prefills of the MoE, hybrid, VLM
 and xLSTM phases it prints a ``torch.profiler`` breakdown of one forward:
-the top device operations and the device's busy share.
+the top device operations and the device's busy share.  Then the train
+phase: TinyLlama 1.1B FULL (bfloat16, remat) trained 8 steps at 4 x
+2,048 tokens through ``launch.train.make_train_step`` (each step's loss,
+gradient norm, learning rate, host ms and tokens/s, the peak memory, one
+step profiled), the loss required to fall; the eval loss through
+``flash_attention`` against the plain one, and the kernel's refusal
+under grad; 2 steps at 2 microbatches; a float32 step of 2 layers on the
+card against the CPU; and, in a child process with deterministic
+algorithms (``--restart-child``), a run stopped at a checkpoint and
+resumed, bit for bit against an uninterrupted one.
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -57,7 +66,8 @@ name and power limit from ``nvidia-smi``, and the one before that a JSON
 ``{"kernels": [...]}`` with each kernel's launches in the tune phase
 (``tune_launches``) and on its path (``launches``: the suite;
 for flash_attention one TinyLlama prefill forward, and
-``vision_launches`` one Llama 3.2 Vision forward, for moe_gmm one
+``vision_launches`` one Llama 3.2 Vision forward, ``train_eval_launches``
+the train phase's eval loss, for moe_gmm one
 DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut), its
 error against its plain version, and its times beside its bound: ``ms``
 (CUDA events around back-to-back calls of the wrapper) and ``device_ms``
@@ -166,11 +176,33 @@ RANK_TUNE = ("GEMV", "RED", "SpMV")
 STREAM_N = 1 << 28                  # int32 elements: 1 GiB an array
 RANK_SWEEP_BYTES = 1 << 28
 TRANSFER_MB_PER_BANK = 1            # transfer_sweep: 2 GiB over 2,048 banks
+# the train phase: TinyLlama 1.1B FULL (bfloat16, remat) trained TRAIN_STEPS
+# steps on make_batch(cfg, DataConfig(seed=0, batch, seq), step) at AdamW
+# warmup 2 to TRAIN_LR, TinyLlama's published peak (arXiv 2401.02385; at
+# 1e-3 the loss climbs to 16 by step 4, in the reference as in the port:
+# PERF.md, PR 22); the mean of the last 3 losses must lie TRAIN_MARGIN
+# below the first 3's (at SMOKE size the same 8 steps fall by 1.06-1.52,
+# tests/test_torch_chip_smoke.py); then MICRO_STEPS steps at 2 microbatches
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MARGIN = 8, 4, 2048, 0.5
+TRAIN_LR = 4e-4
+MICRO_STEPS = 2
+# its eval leg: loss_fn through flash_attention against the plain loss, in
+# bfloat16, at the reference's bf16 rtol = atol = 2e-2 (tests/test_models.py)
+EVAL_TOL = 2e-2
+# its float32 leg, the card against the CPU: TinyLlama's width at 2 layers,
+# batch 1 x F32_SEQ; the loss at 1e-4, each gradient leaf at GRAD_TOL of its
+# largest |g|; AdamW's update on identical gradients at rtol = atol = 1e-6;
+# the chunked CE (8 chunks) against the whole logits at rtol = atol = 1e-5
+F32_LAYERS, F32_SEQ, GRAD_TOL, LOSS_CHUNKS = 2, 256, 1e-3, 8
+# its restart leg, in a child process with deterministic algorithms: 1
+# layer, float32, batch 1 x RESTART_SEQ, RESTART_STEPS uninterrupted against
+# half of them, a checkpoint, and the rest resumed
+RESTART_SEQ, RESTART_STEPS = 512, 4
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
 PHASES = ("kernels", "suite", "session", "tune", "lm", "moe", "hybrid",
-          "vlm", "xlstm")
+          "vlm", "xlstm", "train")
 # a forward's device time spent in each kernel of the port: the part of the
 # CUDA kernels' names that marks them
 SHARES = {"flash_attention": "flash_", "moe_gmm": "gmm_", "ssd_scan": "ssd_"}
@@ -1291,12 +1323,13 @@ def host_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def device_breakdown(fn, ms: float, top: int = 8) -> None:
-    """One call of ``fn`` (a forward) under ``torch.profiler``: the device
-    operations (kernels, copies, memsets) with the most device time, and
-    the device's busy share, their sum over ``ms`` (the same forward's
-    unprofiled host-clock time).  Says so when the profiler records no
-    device time."""
+def device_breakdown(fn, ms: float, top: int = 8,
+                     what: str = "forward") -> None:
+    """One call of ``fn`` (a forward, or ``what``) under
+    ``torch.profiler``: the device operations (kernels, copies, memsets)
+    with the most device time, and the device's busy share, their sum over
+    ``ms`` (the same call's unprofiled host-clock time).  Says so when the
+    profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1311,7 +1344,7 @@ def device_breakdown(fn, ms: float, top: int = 8) -> None:
         print("  profiler: no device time recorded")
         return
     busy = sum(r[0] for r in rows)
-    print(f"  profiler: device busy {busy:.3f} ms of a {ms:.2f} ms forward "
+    print(f"  profiler: device busy {busy:.3f} ms of a {ms:.2f} ms {what} "
           f"({busy / ms:.1%}) in {sum(r[1] for r in rows)} device operations;"
           f" top {top} by device time:")
     for t, n, name in sorted(rows, reverse=True)[:top]:
@@ -1790,6 +1823,249 @@ def xlstm_phase(dev) -> dict[str, int]:
     return counts
 
 
+def train_phase(dev, card: str) -> dict[str, int]:
+    """The training path on TinyLlama 1.1B FULL (seeded weights, bfloat16,
+    remat): TRAIN_STEPS steps of ``launch.train.make_train_step`` at
+    TRAIN_BATCH x TRAIN_SEQ (loss, gradient norm, learning rate, host ms,
+    tokens/s each; the peak memory; one more step under the profiler;
+    every count 0 just before the steps and still 0 after: no kernel lies
+    on the gradient path), the loss falling by TRAIN_MARGIN; the eval
+    loss through ``flash_attention`` (``train_eval_leg``); MICRO_STEPS
+    steps at 2 microbatches; the float32 step against the CPU
+    (``train_f32_leg``); the bit-exact restart (``restart_leg``).  Each
+    timing and memory line ends with ``card`` (its name and power limit);
+    memory is counted from what earlier phases still hold.  Returns the
+    eval leg's kernel launches."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    full = get_config(LM_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train: {full.name} ({full.total_params() / 1e9:.3f} B params, "
+          f"{full.n_layers} layers, {full.dtype}, remat {full.remat} "
+          f"({full.remat_policy})), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{TRAIN_STEPS} steps, AdamW lr {TRAIN_LR} warmup 2")
+    dc = DataConfig(seed=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    batch = lambda i: train.to_device(make_batch(full, dc, i), full, dev)  # noqa: E731
+    held = torch.cuda.memory_allocated(dev)
+    gb = lambda: (torch.cuda.max_memory_allocated(dev) - held) / 1e9  # noqa: E731
+    print(f"  {held / 1e9:.2f} GB held by earlier phases, counted out below")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, opt = train.init_state(0, full, dev)
+    print(f"  params + optimizer state: "
+          f"{(torch.cuda.memory_allocated(dev) - held) / 1e9:.2f} GB")
+    ocfg = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                             total_steps=TRAIN_STEPS)
+    step = train.make_train_step(full, ocfg)
+
+    def timed_steps(step, first: int, n: int, label: str):
+        """Steps ``first`` .. ``first + n - 1`` -> (losses, last ms)."""
+        nonlocal model, opt
+        losses = []
+        for i in range(first, first + n):
+            b = batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, b)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            losses.append(float(m["loss"]))
+            print(f"  {label} {i}: loss {losses[-1]:.4f} grad_norm "
+                  f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3e} "
+                  f"{ms:.1f} ms ({tokens / ms * 1e3:.0f} tokens/s) on {card}")
+        return losses, ms
+
+    ops.reset_launch_counts()
+    losses, ms = timed_steps(step, 0, TRAIN_STEPS, "step")
+    counts = ops.launch_counts()
+    assert not any(counts.values()), counts
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    print(f"  peak memory {gb():.2f} GB on {card}; launches of the steps "
+          f"{counts}; loss mean of the first 3 {first:.4f}, of the last 3 "
+          f"{last:.4f}")
+    assert np.isfinite(losses).all(), losses
+    assert last < first - TRAIN_MARGIN, (losses, TRAIN_MARGIN)
+    b = batch(TRAIN_STEPS)      # one more step, profiled
+    device_breakdown(lambda: step(model, opt, b), ms,
+                     what=f"train step on {card}")
+
+    eval_counts = train_eval_leg(model, full, batch(0))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    micro = train.make_train_step(full, ocfg, microbatches=2)
+    losses, _ = timed_steps(micro, TRAIN_STEPS + 1, MICRO_STEPS,
+                            "2 microbatches, step")
+    assert np.isfinite(losses).all(), losses
+    print(f"  peak memory at 2 microbatches {gb():.2f} GB on {card}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    train_f32_leg(dev)
+    restart_leg()
+    return eval_counts
+
+
+def train_eval_leg(model, cfg, batch) -> dict[str, int]:
+    """Under ``torch.no_grad()``, ``loss_fn(use_kernel=True)`` of the
+    trained bfloat16 model (one launch of ``flash_attention`` a layer,
+    counted from 0) against the plain loss at rtol = atol = EVAL_TOL;
+    with grad on, the kernel's wrapper refuses the call
+    (``cuda_lib.require_cuda``: the kernel has no backward)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        kernel, _ = transformer.loss_fn(model, cfg, batch, use_kernel=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        plain, _ = transformer.loss_fn(model, cfg, batch)
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    assert sum(counts.values()) == cfg.n_layers, counts
+    err = abs(float(kernel) - float(plain))
+    assert err <= EVAL_TOL * (1 + abs(float(plain))), (kernel, plain)
+    print(f"  eval loss bf16: flash_attention {float(kernel):.6f}, plain "
+          f"{float(plain):.6f}, |diff| {err:.3e}; launches {counts}")
+    try:
+        transformer.loss_fn(model, cfg, batch, use_kernel=True)
+    except RuntimeError as e:
+        assert "no backward" in str(e), e
+        print(f"  loss_fn(use_kernel=True) under grad refused: {e}")
+    else:
+        raise AssertionError("loss_fn(use_kernel=True) under grad ran")
+    return counts
+
+
+def train_f32_leg(dev) -> None:
+    """TinyLlama's width at F32_LAYERS layers in float32, batch 1 x
+    F32_SEQ, the same weights on the card and on the CPU (the port's plain
+    path on both): the loss at 1e-4 and each gradient leaf at GRAD_TOL of
+    its largest |g|; ``optim.apply`` on the CPU's gradients on both at
+    rtol = atol = 1e-6; ``loss_fn(loss_chunks=LOSS_CHUNKS)`` against the
+    whole logits at rtol = atol = 1e-5."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=F32_LAYERS,
+                              dtype=torch.float32)
+    host = make_batch(cfg, DataConfig(seed=0, batch=1, seq=F32_SEQ), 0)
+    cpu = torch.device("cpu")
+    gpu_model, gpu_opt = train.init_state(0, cfg, dev)
+    cpu_model = transformer.Transformer(cfg, device=cpu)
+    cpu_model.load_state_dict({k: v.to(cpu) for k, v in
+                               gpu_model.state_dict().items()})
+    cpu_model.requires_grad_(True)
+    out = {}
+    for where, model in ((dev, gpu_model), (cpu, cpu_model)):
+        loss, _ = transformer.loss_fn(model, cfg,
+                                      train.to_device(host, cfg, where))
+        named = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        out[where.type] = (float(loss.detach()), dict(zip(named, grads)))
+    (gl, gg), (cl, cg) = out[dev.type], out["cpu"]
+    gaps = {k: float((gg[k].cpu() - cg[k]).abs().max() / cg[k].abs().max())
+            for k in cg}
+    worst = max(gaps, key=gaps.get)
+    print(f"  f32, {F32_LAYERS} layers, 1 x {F32_SEQ}: loss card {gl:.6f}, "
+          f"cpu {cl:.6f}, |diff| {abs(gl - cl):.3e}; gradients: worst leaf "
+          f"{worst} at {gaps[worst]:.3e} of its largest |g|")
+    assert abs(gl - cl) <= 1e-4, (gl, cl)
+    assert gaps[worst] <= GRAD_TOL, (worst, gaps[worst])
+
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    cpu_opt = optim.init(dict(cpu_model.named_parameters()))
+    optim.apply(ocfg, {k: g.to(dev) for k, g in cg.items()}, gpu_opt,
+                dict(gpu_model.named_parameters()))
+    optim.apply(ocfg, cg, cpu_opt, dict(cpu_model.named_parameters()))
+    err = 0.0
+    for part in ("master", "mu", "nu"):
+        for k, want in cpu_opt[part].items():
+            got = gpu_opt[part][k].cpu()
+            assert torch.allclose(got, want, rtol=1e-6, atol=1e-6), (part, k)
+            err = max(err, float((got - want).abs().max()))
+    print(f"  apply on identical gradients, card vs cpu: max |diff| of "
+          f"master, mu, nu {err:.3e}")
+    with torch.no_grad():
+        b = train.to_device(host, cfg, dev)
+        whole, _ = transformer.loss_fn(gpu_model, cfg, b)
+        chunked, _ = transformer.loss_fn(gpu_model, cfg, b,
+                                         loss_chunks=LOSS_CHUNKS)
+    err = abs(float(chunked) - float(whole))
+    assert err <= 1e-5 * (1 + abs(float(whole))), (chunked, whole)
+    print(f"  loss_chunks={LOSS_CHUNKS} vs whole logits: {float(chunked):.6f}"
+          f" / {float(whole):.6f}, |diff| {err:.3e}")
+    del gpu_model, gpu_opt
+    torch.cuda.empty_cache()
+
+
+def restart_leg() -> None:
+    """``restart_run`` in a child process started with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms; its
+    non-zero exit fails the phase."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--restart-child"], env=env, capture_output=True,
+                           text=True, timeout=600)
+    print(child.stdout, end="")
+    assert child.returncode == 0, (f"restart child exited "
+                                   f"{child.returncode}:\n{child.stderr}")
+
+
+def restart_run(dev) -> None:
+    """TinyLlama's width at 1 layer, float32, batch 1 x RESTART_SEQ:
+    ``fit`` for RESTART_STEPS steps uninterrupted; then ``fit`` for half
+    of them with an async ``Checkpointer`` (a checkpoint at the half) and
+    a fresh ``fit`` that resumes to RESTART_STEPS; every parameter and
+    the optimizer state ``torch.equal``."""
+    import tempfile
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Loader
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=1,
+                              dtype=torch.float32)
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=RESTART_STEPS)
+    half, logs = RESTART_STEPS // 2, []
+
+    def fit(steps, ck=None, every=0):
+        return train.fit(cfg, steps=steps, data_loader=Loader(
+            cfg, DataConfig(seed=0, batch=1, seq=RESTART_SEQ)), ocfg=ocfg,
+            checkpointer=ck, checkpoint_every=every, log_every=1,
+            log=logs.append, device=dev)
+
+    t0 = time.perf_counter()
+    full, full_opt, hist = fit(RESTART_STEPS)
+    scratch = os.path.join(ROOT, "build", "repro_torch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        ck = Checkpointer(d, keep=2, async_mode=True)
+        fit(half, ck, half)
+        assert ck.latest_step() == half, ck.all_steps()
+        res, res_opt, res_hist = fit(RESTART_STEPS, Checkpointer(d, keep=2))
+    assert f"[train] resumed from step {half}" in logs, logs
+    assert res_hist == hist[half:], (res_hist, hist)
+    for (k, a), (_, b) in zip(full.named_parameters(), res.named_parameters()):
+        assert torch.equal(a, b), k
+    for part in ("master", "mu", "nu"):
+        for k, a in full_opt[part].items():
+            assert torch.equal(a, res_opt[part][k]), (part, k)
+    assert torch.equal(full_opt["step"], res_opt["step"])
+    print(f"  restart: {RESTART_STEPS} steps against {half} + a checkpoint + "
+          f"{RESTART_STEPS - half} resumed, 1 layer f32, 1 x {RESTART_SEQ}, "
+          f"deterministic {torch.are_deterministic_algorithms_enabled()}: "
+          f"losses {[round(x, 4) for x in hist]}, every parameter and the "
+          f"optimizer state equal ({time.perf_counter() - t0:.2f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1798,6 +2074,12 @@ def main() -> int:
     from repro_torch.kernels import cuda_lib
 
     argv = sys.argv[1:]
+    if "--restart-child" in argv:   # restart_leg's child: deterministic
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        restart_run(torch.device("cuda", 0))
+        return 0
     only = (set(argv[argv.index("--only") + 1].split(","))
             if "--only" in argv else None)
     assert only is None or only <= set(PHASES), f"--only takes {PHASES}"
@@ -1905,6 +2187,13 @@ def main() -> int:
         counts = xlstm_phase(dev)
         assert not any(counts.values()), counts
         print(f"xlstm: {time.perf_counter() - t0:.2f} s")
+    if run("train"):
+        t0 = time.perf_counter()
+        counts = train_phase(dev, smi)
+        if "flash_attention" in row:
+            row["flash_attention"]["train_eval_launches"] = \
+                counts["flash_attention"]
+        print(f"train: {time.perf_counter() - t0:.2f} s")
     for r in rows:
         print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "
               f"on its path; {fmt(r['cuda_launches_per_call'])} CUDA "

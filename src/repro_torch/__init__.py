@@ -6,10 +6,12 @@ banked execution model (``core``), the hand-written Hopper kernels behind
 the PrIM suite's GEMV, SpMV, HST, RED and SCAN (``kernels``), those five
 workloads with their serialized ``pim()`` and chunked phases (``prim``),
 the pipelined runtime beneath the session (``runtime``), the session
-façade itself (``pim``), and the LM serving stack of the dense-attention
-family: the configs (``configs``), the decoder with its hand-written flash
-attention kernel (``models``), greedy decode (``launch.serve``) and the
-decode engine on the session (``pim.DecodeEngine``):
+façade itself (``pim``), the LM stack of every config family: the configs
+(``configs``), the decoder with its hand-written flash attention, MoE and
+SSM kernels (``models``), greedy decode (``launch.serve``) and the decode
+engine on the session (``pim.DecodeEngine``), and its training path: the
+optimizer (``optim``), the data pipeline (``data``), the checkpoint store
+(``checkpoint``) and the train step and ``fit`` (``launch.train``):
 
     from repro_torch import pim
     with pim.session(ranks=32, banks_per_rank=64) as s:
@@ -19,8 +21,10 @@ Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``:
 ``make_bank_grid(n_banks)``, ``pim.session()`` and the model constructors
 raise when there is no CUDA device.
 """
-from . import configs, core, kernels, launch, models, pim, prim, runtime
+from . import (checkpoint, configs, core, data, kernels, launch, models,
+               optim, pim, prim, runtime)
 from .core import make_bank_grid, make_rank_grid
 
-__all__ = ["configs", "core", "kernels", "launch", "models", "pim", "prim",
-           "runtime", "make_bank_grid", "make_rank_grid"]
+__all__ = ["checkpoint", "configs", "core", "data", "kernels", "launch",
+           "models", "optim", "pim", "prim", "runtime", "make_bank_grid",
+           "make_rank_grid"]

@@ -131,7 +131,16 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous CUDA tensors on one device."""
+    """The kernels take contiguous CUDA tensors on one device, and no input
+    that autograd would differentiate: a kernel writes its output through
+    raw pointers, so the output has no ``grad_fn`` and the gradient would
+    be silently missing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel has no backward"
+            f" (the reference has none for its Pallas kernels either, and "
+            f"trains with use_kernel=False); call it under torch.no_grad() "
+            f"or train with use_kernel=False")
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:

@@ -52,7 +52,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits.masked_fill_(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
     del logits
-    p.nan_to_num_(nan=0.0)                     # fully-masked rows
+    # fully masked rows; out of place: softmax's backward reads its output
+    p = torch.nan_to_num(p, nan=0.0)
     return torch.einsum("bhst,bhtd->bhsd", p,
                         vr.to(torch.float32)).to(q.dtype)
 

@@ -1,6 +1,7 @@
 """Launchers of the port: the one-GPU serve path (``serve``), for every
-config family.  The train, mesh and dry-run launchers are not ported yet
-(ROADMAP queue 1, item 9)."""
-from . import serve
+config family, and the one-GPU training path (``train``: train step and
+``fit``).  The mesh and dry-run launchers are not ported yet (ROADMAP
+queue 1, item 9)."""
+from . import serve, train
 
-__all__ = ["serve"]
+__all__ = ["serve", "train"]

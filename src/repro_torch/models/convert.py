@@ -1,5 +1,9 @@
-"""Weight carry: the reference's parameter tree, as numpy arrays, into the
-port's model with the same numbers.
+"""Weight carry both ways: the reference's parameter tree, as numpy
+arrays, into the port's model with the same numbers
+(``params_from_reference``), and the port's model or optimizer state back
+into the reference's tree (``params_to_reference``,
+``opt_state_to_reference`` / ``opt_state_from_reference``), the layout of
+a training checkpoint that either package resumes from.
 
 The reference keeps the blocks before the repeating group as a
 ``prologue`` list and stacks the group's blocks leaf-wise along a leading
@@ -15,13 +19,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.banked import _device
 from .layers import ModelConfig
 from .transformer import Transformer, layer_plan
 
+#: the leaves outside the blocks
+_TOP = ("embed", "final_norm", "lm_head")
+
 
 def _tensor(a) -> torch.Tensor:
-    """A numpy array as a CPU tensor (a copy); bfloat16 (``ml_dtypes``) by
-    its bits."""
+    """A numpy array (or a tensor) as a CPU tensor (a copy); bfloat16
+    (``ml_dtypes``) by its bits."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", copy=True)
     a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -29,10 +39,11 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _take(tree, r: int):
-    """Index every leaf of ``tree`` at ``r`` on its leading axis."""
+    """Index every leaf of ``tree`` (arrays or tensors) at ``r`` on its
+    leading axis."""
     if isinstance(tree, dict):
         return {k: _take(v, r) for k, v in tree.items()}
-    return np.asarray(tree)[r]
+    return tree[r]
 
 
 def _layer_tree(tree: dict, n_prologue: int, period_len: int, li: int):
@@ -42,19 +53,33 @@ def _layer_tree(tree: dict, n_prologue: int, period_len: int, li: int):
     return _take(tree["group"][pos], r)
 
 
+def _dotted(tree: dict, prefix: str = "") -> dict:
+    """A nested dict's leaves by dotted name."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_dotted(v, f"{prefix}{k}."))
+        else:
+            flat[prefix + k] = v
+    return flat
+
+
+def _nested(flat: dict) -> dict:
+    """The inverse of ``_dotted``."""
+    root: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = root
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return root
+
+
 def _load(module: torch.nn.Module, tree: dict, where: str) -> None:
     """Copy ``tree``'s leaves into ``module``'s parameters of the same
     dotted names; the two must hold the same names, shapes and dtypes."""
-    flat = {}
-
-    def walk(t, prefix):
-        for k, v in t.items():
-            if isinstance(v, dict):
-                walk(v, f"{prefix}{k}.")
-            else:
-                flat[prefix + k] = v
-
-    walk(tree, "")
+    flat = _dotted(tree)
     params = dict(module.named_parameters())
     if set(flat) != set(params):
         raise ValueError(f"{where}: reference leaves {sorted(flat)} != port "
@@ -71,10 +96,10 @@ def _load(module: torch.nn.Module, tree: dict, where: str) -> None:
 def params_from_reference(tree: dict, cfg: ModelConfig,
                           device=None) -> Transformer:
     """The port's model on ``device`` (default ``cuda:0``) holding the
-    reference's weights ``tree`` (numpy leaves) for ``cfg``."""
+    reference's weights ``tree`` (numpy leaves, or tensors) for ``cfg``."""
     model = Transformer(cfg, device=device)
     pro, period, _ = layer_plan(cfg)
-    top = {k: tree[k] for k in ("embed", "final_norm", "lm_head")}
+    top = {k: tree[k] for k in _TOP}
     with torch.no_grad():
         for k, v in top.items():
             getattr(model, k).copy_(_tensor(v))
@@ -82,3 +107,87 @@ def params_from_reference(tree: dict, cfg: ModelConfig,
         _load(blk, _layer_tree(tree, len(pro), max(len(period), 1), li),
               f"layer {li}")
     return model
+
+
+# -- the port's tensors back into the reference's tree --------------------------
+
+
+def reference_tree(named: dict, cfg: ModelConfig) -> dict:
+    """The reference's tree of ``named``, tensors by the port's parameter
+    names (``model.named_parameters()``, or the optimizer's master, mu or
+    nu): the top leaves, the ``prologue`` list of block dicts, and the
+    ``group`` list with each position's leaves stacked on a leading
+    repeat axis.  Leaves stay tensors on their device."""
+    pro, period, repeats = layer_plan(cfg)
+    layers: dict[int, dict] = {}
+    for name, t in named.items():
+        if name not in _TOP:
+            _, li, rest = name.split(".", 2)
+            layers.setdefault(int(li), {})[rest] = t
+    tree = {k: named[k] for k in _TOP}
+    if pro:
+        tree["prologue"] = [_nested(layers[li]) for li in range(len(pro))]
+    n = len(period)
+    if repeats:
+        tree["group"] = [_nested({
+            k: torch.stack([layers[len(pro) + r * n + pos][k]
+                            for r in range(repeats)])
+            for k in layers[len(pro) + pos]}) for pos in range(n)]
+    return tree
+
+
+def from_reference_tree(tree: dict, cfg: ModelConfig) -> dict:
+    """The inverse of ``reference_tree``: the port's parameter names ->
+    the reference's leaves (numpy arrays or tensors, as given; a group
+    leaf indexed at its repeat)."""
+    pro, period, repeats = layer_plan(cfg)
+    named = {k: tree[k] for k in _TOP}
+    for li in range(len(pro) + len(period) * repeats):
+        leaf = _layer_tree(tree, len(pro), max(len(period), 1), li)
+        named.update(_dotted(leaf, f"layers.{li}."))
+    return named
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array (a copy); bfloat16 as ``ml_dtypes``'s,
+    the reference's leaf type (the port's own checkpoints take tensors and
+    never need it)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_to_reference(model: Transformer, cfg: ModelConfig) -> dict:
+    """The model's weights as the reference's tree of numpy arrays, the
+    inverse of ``params_from_reference``."""
+    return _map(_numpy, reference_tree(dict(model.named_parameters()), cfg))
+
+
+def opt_state_to_reference(state: dict, cfg: ModelConfig) -> dict:
+    """The port's optimizer state (``optim.init``: master, mu and nu by
+    parameter name, an int32 step) as the reference's tree of numpy
+    arrays."""
+    tree = {k: reference_tree(state[k], cfg) for k in ("master", "mu", "nu")}
+    return _map(_numpy, {**tree, "step": state["step"]})
+
+
+def opt_state_from_reference(tree: dict, cfg: ModelConfig,
+                             device=None) -> dict:
+    """The reference's optimizer state (numpy arrays or tensors) as the
+    port's, on ``device`` (default ``cuda:0``)."""
+    dev = _device(device)
+    state = {k: {name: _tensor(v).to(dev).contiguous()
+                 for name, v in from_reference_tree(tree[k], cfg).items()}
+             for k in ("master", "mu", "nu")}
+    state["step"] = _tensor(tree["step"]).to(dev, torch.int32)
+    return state

@@ -28,9 +28,12 @@ from torch import nn
 class ModelConfig:
     """Every field of the reference's config, with ``dtype`` a torch dtype.
 
-    ``fsdp``, ``remat``, ``remat_policy`` and ``moe_dispatch_sharded``
-    shard or rematerialise across a TPU mesh; on one GPU they have no
-    meaning, and the port accepts and ignores them.  ``moe_ep`` runs the
+    ``remat`` recomputes each repeat of the layer group in the backward
+    pass (``transformer.trunk``): ``remat_policy="full"`` saves only the
+    group's input, any other policy also the plain matmuls' outputs (the
+    reference's ``dots_with_no_batch_dims_saveable``).  ``fsdp`` and
+    ``moe_dispatch_sharded`` shard across a TPU mesh; on one GPU they
+    have no meaning, and the port accepts and ignores them.  ``moe_ep`` runs the
     experts sharded over a mesh (``moe.apply_ep`` in the reference), a
     different program: a model with it is refused when it is built.
     ``scan_layers`` picks ``lax.scan`` or an unrolled loop in the
@@ -71,8 +74,8 @@ class ModelConfig:
     # numerics / distribution
     dtype: Any = torch.bfloat16
     fsdp: bool = False          # ignored on one GPU
-    remat: bool = True          # ignored
-    remat_policy: str = "full"  # ignored
+    remat: bool = True          # recompute each layer group in backward
+    remat_policy: str = "full"  # "full" | anything else: save the matmuls
     fast_decode: bool = False   # grouped-GQA decode attention
     moe_dispatch_sharded: bool = False  # ignored
     mlstm_chunk: int = 0        # chunked mLSTM prefill (0 = full parallel)
@@ -178,7 +181,9 @@ def mlp_init(gen: torch.Generator, d: int, f: int, dtype,
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    """An inference parameter: the serving slice takes no gradients."""
+    """A parameter, frozen: serving takes no gradients, and training
+    asks for them (``launch.train.init_state`` and ``fit`` call
+    ``model.requires_grad_(True)``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

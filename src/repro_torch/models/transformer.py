@@ -15,15 +15,21 @@ FFNs, ``parallel_block`` (stablelm), ``qkv_bias`` (codeqwen) and the
 audio family's ``embeds=`` input.  Expert parallelism (``moe_ep``)
 raises ``NotImplementedError`` when the model is built, naming its
 ROADMAP item, so nothing runs a different model than the reference.
-``loss_fn`` and ``_chunked_ce`` come with the training path.
+The training loss is ``loss_fn`` (next-token CE in float32, through the
+whole logits or streamed over vocab chunks by ``_chunked_ce``, plus the
+MoE aux); with ``cfg.remat`` and grad on, ``trunk`` recomputes each repeat
+of the layer group in the backward pass, as the reference's
+``jax.checkpoint`` of its scan body does.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.banked import _device
 from . import attention, mamba, moe, xlstm
@@ -220,17 +226,53 @@ def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
     return embeds.to(cfg.dtype)
 
 
+def _group_apply(blocks, cfg: ModelConfig, x: torch.Tensor,
+                 aux: torch.Tensor, use_kernel: bool, frontend):
+    """Blocks in order, summing their aux into ``aux`` -> (x, aux)."""
+    for blk in blocks:
+        x, a = _block_apply(blk, cfg, x, use_kernel, frontend)
+        aux = aux + a
+    return x, aux
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat_policy`` other than
+    "full": keep the outputs of the plain matmuls (``x @ w`` reaches
+    ``aten.mm``; a batched product, the attention's, reaches ``aten.bmm``)
+    and recompute the rest, the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` recomputed in the backward pass (``cfg.remat``)."""
+    kw = {} if cfg.remat_policy == "full" else {
+        "context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)}
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def trunk(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
           frontend=None, use_kernel: bool = False):
     """Embed + all blocks + final norm (pre-lm_head hidden). → (x, aux);
     ``aux`` is the sum of the MoE layers' load-balancing losses.
-    ``frontend`` (B, T, d): the tokens the cross layers attend to."""
+    ``frontend`` (B, T, d): the tokens the cross layers attend to.  With
+    ``cfg.remat`` and grad on, each repeat of the layer plan's period
+    (not the prologue) is recomputed in the backward pass."""
     x = _embed(model, cfg, tokens, embeds)
     frontend = as_frontend(frontend, model.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in model.layers:
-        x, a = _block_apply(blk, cfg, x, use_kernel, frontend)
-        aux = aux + a
+    pro, period, repeats = layer_plan(cfg)
+    layers = list(model.layers)
+    x, aux = _group_apply(layers[:len(pro)], cfg, x, aux, use_kernel, frontend)
+    group = _group_apply
+    if cfg.remat and torch.is_grad_enabled():
+        group = _remat(cfg, _group_apply)
+    n = len(period)
+    for r in range(repeats):
+        x, aux = group(layers[len(pro) + r * n:len(pro) + (r + 1) * n], cfg,
+                       x, aux, use_kernel, frontend)
     return rms_norm(x, model.final_norm), aux
 
 
@@ -241,6 +283,56 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
     x, aux = trunk(model, cfg, tokens=tokens, embeds=embeds,
                    frontend=frontend, use_kernel=use_kernel)
     return x @ model.lm_head, aux
+
+
+def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
+                n_chunks: int) -> torch.Tensor:
+    """Streaming CE over vocab chunks: the (B, S, V) logits are never
+    whole (one (B, S, V / k) chunk at a time, a float32 running max, sum
+    and gold logit).  The head is zero-padded to ``n_chunks`` chunks of
+    ceil(V / n_chunks) columns; padded columns read -1e30."""
+    d, V = lm_head.shape
+    vc = -(-V // n_chunks)
+    w = torch.nn.functional.pad(lm_head, (0, n_chunks * vc - V))
+    B, S = labels.shape
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
+    s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    cols = torch.arange(vc, device=x.device)
+    for start in range(0, n_chunks * vc, vc):
+        lg = (x @ w[:, start:start + vc]).to(torch.float32)    # (B, S, vc)
+        lg = torch.where(start + cols < V, lg, -1e30)
+        m_new = torch.maximum(m, lg.amax(-1))
+        s = s * torch.exp(m - m_new) + torch.exp(
+            lg - m_new[..., None]).sum(-1)
+        inb = (labels >= start) & (labels < start + vc)
+        idx = (labels - start).clamp(0, vc - 1)
+        gold = gold + torch.where(
+            inb, lg.gather(-1, idx[..., None])[..., 0], 0.0)
+        m = m_new
+    return (m + torch.log(s) - gold).mean()
+
+
+def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict,
+            use_kernel: bool = False, loss_chunks: int = 0):
+    """batch: {"tokens" or "embeds", "labels" (B, S), optional "frontend"}
+    (``launch.train.to_device``).  Mean next-token CE, its log-sum-exp and
+    gold logit in float32, + 0.01 × the MoE aux -> (loss, {"ce", "aux"})."""
+    labels = as_tokens(batch["labels"], model.device).long()
+    if loss_chunks:
+        x, aux = trunk(model, cfg, tokens=batch.get("tokens"),
+                       embeds=batch.get("embeds"),
+                       frontend=batch.get("frontend"), use_kernel=use_kernel)
+        ce = _chunked_ce(x, model.lm_head, labels, loss_chunks)
+    else:
+        logits, aux = forward(model, cfg, tokens=batch.get("tokens"),
+                              embeds=batch.get("embeds"),
+                              frontend=batch.get("frontend"),
+                              use_kernel=use_kernel)
+        lf = logits.to(torch.float32)
+        gold = lf.gather(-1, labels[..., None])[..., 0]
+        ce = (torch.logsumexp(lf, dim=-1) - gold).mean()
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

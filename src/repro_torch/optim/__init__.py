@@ -1,0 +1,7 @@
+"""The optimizer of the port's training path: AdamW as the reference has
+it (``repro.optim``)."""
+from .adamw import (AdamWConfig, apply, compress_int8, decompress_int8,
+                    global_norm, init, psum_compressed, schedule)
+
+__all__ = ["AdamWConfig", "apply", "compress_int8", "decompress_int8",
+           "global_norm", "init", "psum_compressed", "schedule"]

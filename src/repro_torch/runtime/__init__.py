@@ -4,9 +4,10 @@
 The chunk pipeline (its three stages on CUDA streams), the multi-tenant
 scheduler and its QoS surface, the resident-operand cache, telemetry,
 metrics and the span tracer, the characterization-driven autotuner, and
-the serving side of ``elastic`` / ``straggler``.  Prefer
-``repro_torch.pim`` as the entry point.  Not ported yet: the train-side
-mesh helpers of ``elastic`` (ROADMAP queue 1, item 9).
+the serving side of ``elastic``, and ``straggler`` (whose monitor the
+training loop takes too).  Prefer ``repro_torch.pim`` as the entry point.
+Not ported yet: the train-side mesh helpers of ``elastic`` (ROADMAP
+queue 1, item 9.6).
 """
 from .autotune import (DEFAULT_N_CHUNKS, StageFit, TunedPlan, TuningResult,
                        WorkloadProfile, autotune, calibrate, plan_for,

@@ -6,8 +6,9 @@ on, from EWMA-smoothed per-tenant backlog demand weighted by fair-share
 weights; a straggler signal (``runtime/straggler.py``) caps the
 allocation and healthy batches relax the cap back.  Pure Python, copied
 from the reference.  The train-side mesh helpers (``carve_mesh``,
-``reshard``, ``shardings_for``) build JAX meshes and wait for the LM
-stack.
+``reshard``, ``shardings_for``, ``simulate_failure``) build JAX meshes,
+which one GPU does not have; they wait for the multi-GPU work (ROADMAP
+queue 1, item 9.6).
 """
 from __future__ import annotations
 

@@ -15,6 +15,7 @@ at its own scale and TRNS on banks that divide its N' = 64.
 import contextlib
 import importlib.util
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -352,3 +353,77 @@ def test_family_phases_rehearse_on_the_cpu(cs, monkeypatch, capsys, phase,
         assert "['attn', 'attn', 'attn', 'attn', 'cross']" in out
     else:
         assert "per layer" in out and out.count("e-0") >= 3
+
+
+# -- the train phase -------------------------------------------------------------------
+
+@pytest.fixture
+def train_rehearsal(cs, monkeypatch):
+    """The train phase's config at SMOKE size in its FULL dtype and remat
+    (bfloat16, remat on), sequences of 64 / 32 / 32 tokens, the CUDA
+    memory counters and ``synchronize`` stubbed; the eval leg (the
+    kernel, and its refusal under grad, exist only on the card) recorded
+    instead of run."""
+    import dataclasses
+
+    from repro_torch import configs
+    smoke = dataclasses.replace(configs.get_config("tinyllama-1.1b",
+                                                   smoke=True),
+                                dtype=torch.bfloat16, remat=True)
+    monkeypatch.setattr(configs, "get_config", lambda name: smoke)
+    for fn in ("synchronize", "reset_peak_memory_stats",
+               "max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: 0)
+    for name, value in (("TRAIN_SEQ", 64), ("F32_SEQ", 32),
+                        ("RESTART_SEQ", 32)):
+        monkeypatch.setattr(cs, name, value)
+    evals = []
+    monkeypatch.setattr(cs, "train_eval_leg", lambda model, cfg, batch: (
+        evals.append((cfg, batch)), {"flash_attention": 0})[1])
+    return smoke, evals
+
+
+def test_train_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys,
+                                          train_rehearsal):
+    """Legs (a), (b) and (d) on the CPU: 8 steps whose loss falls by
+    TRAIN_MARGIN (the margin rehearsed: at this size the mean of the last
+    3 lies 1.06 below the first 3's; 1.52 at 2,048 tokens), no kernel
+    launched by the
+    steps, one profiled step, 2 steps at 2 microbatches; the float32 leg
+    (CPU against CPU here); the restart, run in this process
+    (deterministic algorithms are the child's on the card)."""
+    smoke, evals = train_rehearsal
+    monkeypatch.setattr(cs, "restart_leg",
+                        lambda: cs.restart_run(torch.device("cpu")))
+    counts = cs.train_phase(torch.device("cpu"), "cpu rehearsal")
+    assert counts == {"flash_attention": 0}
+    assert len(evals) == 1 and evals[0][0] is smoke
+    assert evals[0][1]["tokens"].shape == (cs.TRAIN_BATCH, 64)
+    out = capsys.readouterr().out
+    lines = out.splitlines()
+    steps = [ln for ln in lines if ln.startswith("  step ")]
+    assert len(steps) == cs.TRAIN_STEPS
+    assert all(ln.endswith("tokens/s) on cpu rehearsal") for ln in steps)
+    assert "peak memory at 2 microbatches 0.00 GB on cpu rehearsal" in out
+    assert sum(ln.startswith("  2 microbatches, step ") for ln in lines) == 2
+    head = "loss mean of the first 3 "
+    first, last = (float(x) for x in
+                   re.search(head + r"(\S+), of the last 3 (\S+)", out).groups())
+    assert last < first - cs.TRAIN_MARGIN
+    assert "launches of the steps {'reduce_sum': 0" in out
+    assert "f32, 2 layers, 1 x 32: loss card" in out
+    assert "apply on identical gradients, card vs cpu" in out
+    assert "loss_chunks=8 vs whole logits" in out
+    assert re.search(r"restart: 4 steps against 2 \+ a checkpoint \+ 2 "
+                     r"resumed.*optimizer state equal", out)
+
+
+def test_restart_leg_fails_with_its_child(cs, monkeypatch):
+    """A non-zero exit of the restart child fails the phase, with the
+    child's standard error in the message."""
+    import subprocess
+
+    monkeypatch.setattr(subprocess, "run", lambda *a, **kw:
+                        subprocess.CompletedProcess(a, 1, "", "boom"))
+    with pytest.raises(AssertionError, match="exited 1:\nboom"):
+        cs.restart_leg()

@@ -875,5 +875,131 @@ def test_gemv_g_probes_then_spmv_pim_loop(dev, shape, allocator):
     assert run.returncode == 0, run.stderr[-4000:]
 
 
+# -- the training path ------------------------------------------------------------------
+
+def trainable_pair(dev, arch="tinyllama-1.1b"):
+    """The SMOKE config (float32) and one seeded trainable model on the
+    card and a copy on the CPU."""
+    from repro_torch.launch import train
+
+    cfg = get_config(arch, smoke=True)
+    card, _ = train.init_state(0, cfg, dev)
+    host = transformer.Transformer(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return cfg, card, host.requires_grad_(True)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """float32 SMOKE, the same weights and batch: the loss at 1e-5 and each
+    gradient leaf at 1e-4 of its largest |g|; after one AdamW step the
+    parameters at the reference's rtol = atol = 5e-3 (a tiny gradient whose
+    sign a rounding flips moves a parameter by 2 lr)."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch import train
+
+    cfg, card, host = trainable_pair(dev)
+    b = make_batch(cfg, DataConfig(seed=0, batch=2, seq=32), 0)
+    out = []
+    for model, where in ((card, dev), (host, torch.device("cpu"))):
+        loss, _ = transformer.loss_fn(model, cfg, train.to_device(b, cfg, where))
+        named = dict(model.named_parameters())
+        out.append((loss.detach().cpu(), {k: g.cpu() for k, g in zip(
+            named, torch.autograd.grad(loss, list(named.values())))}))
+    (lc, gc), (lh, gh) = out
+    assert abs(float(lc) - float(lh)) <= 1e-5
+    for k, g in gh.items():
+        assert float((gc[k] - g).abs().max()) <= 1e-4 * float(g.abs().max()), k
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    for model, where in ((card, dev), (host, torch.device("cpu"))):
+        opt = optim.init(dict(model.named_parameters()))
+        train.make_train_step(cfg, ocfg)(model, opt,
+                                         train.to_device(b, cfg, where))
+    for (k, a), (_, w) in zip(card.named_parameters(), host.named_parameters()):
+        assert torch.allclose(a.detach().cpu(), w.detach(), rtol=5e-3,
+                              atol=5e-3), k
+
+
+def test_kernel_wrappers_refuse_autograd_inputs(dev):
+    """A kernel's output has no ``grad_fn``: under grad, flash_attention,
+    moe_gmm and ssd_scan refuse an input that requires grad, and so does
+    ``loss_fn(use_kernel=True)`` of a trainable model; under
+    ``torch.no_grad()`` the same calls run."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((1, 4, 16, 64), generator=g, device=dev)
+    kv = torch.randn((1, 2, 16, 64), generator=g, device=dev)
+    xg = torch.randn((2, 8, 16), generator=g, device=dev)
+    w = torch.randn((2, 16, 24), generator=g, device=dev)
+    cnt = torch.tensor([8, 3], dtype=torch.int32, device=dev)
+    x = torch.randn((1, 32, 2, 8), generator=g, device=dev)
+    a = torch.rand((1, 32, 2), generator=g, device=dev)
+    bc = torch.randn((1, 32, 4), generator=g, device=dev)
+    for call, t in ((lambda t: kfa.flash_attention(t, kv, kv), q),
+                    (lambda t: kgmm.moe_gmm(t, w, cnt), xg),
+                    (lambda t: kmamba.ssd_scan(t, a, bc, bc, chunk=16), x)):
+        leaf = t.clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(leaf)
+        with torch.no_grad():
+            call(leaf)
+    cfg, card, _ = trainable_pair(dev)
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    with pytest.raises(RuntimeError, match="no backward"):
+        transformer.loss_fn(card, cfg, batch, use_kernel=True)
+    with torch.no_grad():
+        transformer.loss_fn(card, cfg, batch, use_kernel=True)
+
+
+def restart_check(steps: int = 6) -> None:
+    """SMOKE ``fit`` for ``steps`` steps uninterrupted against half of
+    them with an async checkpoint and a resumed ``fit``: every parameter
+    and the optimizer state equal."""
+    import tempfile
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig, Loader
+    from repro_torch.launch import train
+
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+
+    def fit(n, ck=None, every=0):
+        return train.fit(cfg, steps=n, data_loader=Loader(
+            cfg, DataConfig(batch=2, seq=64)), ocfg=ocfg, checkpointer=ck,
+            checkpoint_every=every, log_every=0, device="cuda")
+
+    full, full_opt, hist = fit(steps)
+    with tempfile.TemporaryDirectory() as d:
+        fit(steps // 2, Checkpointer(d, async_mode=True), steps // 2)
+        res, res_opt, res_hist = fit(steps, Checkpointer(d))
+    assert res_hist == hist[steps // 2:], (res_hist, hist)
+    for (k, a), (_, b) in zip(full.named_parameters(), res.named_parameters()):
+        assert torch.equal(a, b), k
+    for part in ("master", "mu", "nu"):
+        for k, a in full_opt[part].items():
+            assert torch.equal(a, res_opt[part][k]), (part, k)
+
+
+def test_restart_is_bit_exact_in_a_subprocess(dev):
+    """``restart_check`` in a process started with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 that turns on deterministic algorithms
+    before its first CUDA call (the embedding's backward accumulates with
+    ``index_put``, non-deterministic on CUDA without them)."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.pathsep.join(
+               [src] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--restart"], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--fault-loop"]:
     fault_loop(*map(int, sys.argv[2:5]))
+if __name__ == "__main__" and sys.argv[1:2] == ["--restart"]:
+    torch.use_deterministic_algorithms(True)
+    restart_check()
