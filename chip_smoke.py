@@ -51,7 +51,18 @@ step profiled), the loss required to fall; the eval loss through
 under grad; 2 steps at 2 microbatches; a float32 step of 2 layers on the
 card against the CPU; and, in a child process with deterministic
 algorithms (``--restart-child``), a run stopped at a checkpoint and
-resumed, bit for bit against an uninterrupted one.
+resumed, bit for bit against an uninterrupted one.  Last the dist phase:
+expert and data parallelism over ``torch.distributed``, 4 ranks
+(processes from ``launch.mesh.spawn``) on the one card over gloo with
+CUDA tensors: DeepSeek-MoE 16B FULL with ``moe_ep`` on a (1, 4) mesh
+(float32 at 4 layers against the one-process port, bfloat16 at 28
+timed, with its all-reduces' host time and each rank's peak memory,
+``flash_attention`` launched a layer a rank and ``moe_gmm`` never),
+``greedy_generate`` on that mesh against one process's tokens, and
+training on (4, 1) (TinyLlama at full width, 2 layers: float32
+gradients against one process, a compressed step, ``fit`` restored onto
+(2, 1) after ``simulate_failure``, bfloat16 steps) and on (2, 2)
+(DeepSeek at 2 layers with ``moe_ep``).
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -68,8 +79,9 @@ name and power limit from ``nvidia-smi``, and the one before that a JSON
 for flash_attention one TinyLlama prefill forward, and
 ``vision_launches`` one Llama 3.2 Vision forward, ``train_eval_launches``
 the train phase's eval loss, for moe_gmm one
-DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut), its
-error against its plain version, and its times beside its bound: ``ms``
+DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut; for
+flash_attention and moe_gmm ``dist_launches_per_rank``, one rank's
+expert-parallel prefill in the dist phase), its error against its plain version, and its times beside its bound: ``ms``
 (CUDA events around back-to-back calls of the wrapper) and ``device_ms``
 (the device operations those calls launched, from ``torch.profiler``), the
 same two for the library call, the CUDA launches of the port's kernels per
@@ -84,6 +96,7 @@ repeats of both rows have them.
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -198,11 +211,25 @@ F32_LAYERS, F32_SEQ, GRAD_TOL, LOSS_CHUNKS = 2, 256, 1e-3, 8
 # layer, float32, batch 1 x RESTART_SEQ, RESTART_STEPS uninterrupted against
 # half of them, a checkpoint, and the rest resumed
 RESTART_SEQ, RESTART_STEPS = 512, 4
+# the dist phase: DIST_WORLD ranks on the one card over DIST_BACKEND with
+# CUDA tensors (NCCL refuses two ranks a device; tests/test_torch_gpu.py
+# runs NCCL where there are 2 cards).  Leg B: greedy tokens, 2 x
+# (DIST_PROMPT + DIST_NEW); leg C: TinyLlama FULL cut to DIST_TRAIN_LAYERS,
+# float32 at 4 x DIST_F32_SEQ (one row a rank) for DIST_STEPS steps, bfloat16
+# at 4 x TRAIN_SEQ; DeepSeek FULL cut to 2 layers with moe_ep at 2 x
+# DIST_EP_SEQ on (2, 2), its losses against one process at DIST_EP_TOL
+# (1 + |loss|), the reference's bfloat16 tolerance (tests/test_models.py):
+# one process's aux is the whole batch's, the mesh's the mean of the data
+# shards' (the reference's apply_ep)
+DIST_WORLD, DIST_BACKEND = 4, "gloo"
+DIST_PROMPT, DIST_NEW = 16, 16
+DIST_TRAIN_LAYERS, DIST_F32_SEQ, DIST_STEPS = 2, 256, 4
+DIST_EP_SEQ, DIST_EP_TOL = 512, 2e-2
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
 PHASES = ("kernels", "suite", "session", "tune", "lm", "moe", "hybrid",
-          "vlm", "xlstm", "train")
+          "vlm", "xlstm", "train", "dist")
 # a forward's device time spent in each kernel of the port: the part of the
 # CUDA kernels' names that marks them
 SHARES = {"flash_attention": "flash_", "moe_gmm": "gmm_", "ssd_scan": "ssd_"}
@@ -2066,6 +2093,405 @@ def restart_run(dev) -> None:
           f"optimizer state equal ({time.perf_counter() - t0:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# dist phase: expert and data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+def dist_configs() -> dict:
+    """The dist phase's models and sizes (one picklable dict: the ranks
+    take everything from it): DeepSeek-MoE 16B FULL with ``moe_ep`` in
+    float32 at MOE_F32_LAYERS and bfloat16 at all 28 (leg A, and leg B in
+    float32); TinyLlama 1.1B FULL cut to DIST_TRAIN_LAYERS, float32 and
+    bfloat16 (leg C); DeepSeek FULL cut to layer 0 and one MoE layer at
+    capacity factor 8.0 with ``moe_ep`` (leg C's expert-parallel steps)."""
+    from repro_torch.configs import get_config
+
+    moe = dataclasses.replace(get_config(MOE_ARCH), moe_ep=True)
+    lm = dataclasses.replace(get_config(LM_ARCH), n_layers=DIST_TRAIN_LAYERS)
+    return {"moe_f32": dataclasses.replace(moe, n_layers=MOE_F32_LAYERS,
+                                           dtype=torch.float32),
+            "moe_bf16": moe,
+            "lm_f32": dataclasses.replace(lm, dtype=torch.float32),
+            "lm_bf16": lm,
+            "ep_train": dataclasses.replace(moe, n_layers=2,
+                                            moe_capacity_factor=8.0),
+            "prefill": PREFILL, "prompt": DIST_PROMPT, "new": DIST_NEW,
+            "f32_seq": DIST_F32_SEQ, "seq": TRAIN_SEQ, "steps": DIST_STEPS,
+            "ep_seq": DIST_EP_SEQ, "world": DIST_WORLD}
+
+
+def dist_tokens(c: dict, vocab: int):
+    """Leg A's prefill tokens (1, prefill) and leg B's prompt (2, prompt),
+    the same in the parent and in every rank."""
+    rng = np.random.default_rng(11)
+    return (torch.from_numpy(rng.integers(0, vocab, (1, c["prefill"]))
+                             .astype(np.int32)),
+            torch.from_numpy(rng.integers(0, vocab, (2, c["prompt"]))
+                             .astype(np.int32)))
+
+
+def dist_batch(cfg, batch: int, seq: int, step: int) -> dict:
+    from repro_torch.data import DataConfig, make_batch
+    return make_batch(cfg, DataConfig(seed=0, batch=batch, seq=seq), step)
+
+
+def dist_ocfg(steps: int, lr: float):
+    from repro_torch import optim
+    return optim.AdamWConfig(lr=lr, warmup_steps=1, total_steps=steps)
+
+
+def dist_reference(c: dict, dev, d: str) -> dict:
+    """The one-process port on the same seeded weights and inputs as the
+    ranks (leg A's logits and leg C's float32 gradients go to files in
+    ``d``; every model is freed before the ranks start)."""
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+
+    ref = {}
+    with torch.no_grad():
+        cfg = dataclasses.replace(c["moe_f32"], moe_ep=False)
+        toks, prompt = dist_tokens(c, cfg.vocab)
+        model = transformer.init(cfg, seed=0, device=dev)
+        logits, _ = transformer.forward(model, cfg, toks, use_kernel=True)
+        torch.save(logits.cpu(), os.path.join(d, "a_f32.pt"))
+        del logits
+        ref["tokens"] = serve.greedy_generate(model, cfg, prompt,
+                                              c["new"]).cpu()
+        del model
+        cfg = dataclasses.replace(c["moe_bf16"], moe_ep=False)
+        model = transformer.init(cfg, seed=0, device=dev)
+        logits, _ = transformer.forward(model, cfg, toks, use_kernel=True)
+        torch.save(logits.cpu(), os.path.join(d, "a_bf16.pt"))
+        del logits
+        if dev.type == "cuda":
+            ref["prefill_ms"] = host_ms(lambda: transformer.forward(
+                model, cfg, toks, use_kernel=True))
+        del model
+        empty_cache(dev)
+
+    lm = c["lm_f32"]
+    model, _ = train.init_state(0, lm, dev)
+    b = train.to_device(dist_batch(lm, 4, c["f32_seq"], 0), lm, dev)
+    loss, g = train.make_grads(lm)(model, b)
+    ref["f32_loss"] = float(loss)
+    torch.save({k: v.cpu() for k, v in g.items()}, os.path.join(d, "c_grads.pt"))
+    del model, g
+    ref["f32_fit"] = dist_fit(lm, dev, None, c, c["steps"])
+    for key, cfg, batch, seq in (("bf16", c["lm_bf16"], 4, c["seq"]),
+                                 ("ep", dataclasses.replace(
+                                     c["ep_train"], moe_ep=False), 2,
+                                  c["ep_seq"])):
+        ref[key] = dist_steps(cfg, dev, None, batch, seq,
+                              c["steps"] if key == "bf16" else 2)[0]
+    empty_cache(dev)
+    return ref
+
+
+def empty_cache(dev) -> None:
+    """Free what the caching allocator holds and nothing references (a
+    cycle's tensors included: four ranks share the card)."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def dist_fit(cfg, dev, mesh, c: dict, steps: int, ck=None,
+             every: int = 0) -> list:
+    """``fit`` for ``steps`` of ``c``'s steps at 4 x its float32 sequence,
+    on ``mesh`` -> the losses."""
+    from repro_torch.data import DataConfig, Loader
+    from repro_torch.launch import train
+
+    return train.fit(cfg, steps=steps, data_loader=Loader(
+        cfg, DataConfig(seed=0, batch=4, seq=c["f32_seq"])),
+        ocfg=dist_ocfg(c["steps"], 1e-3), checkpointer=ck,
+        checkpoint_every=every, log_every=0, device=dev, mesh=mesh)[2]
+
+
+def dist_steps(cfg, dev, mesh, batch: int, seq: int, steps: int):
+    """``steps`` train steps on ``make_batch`` batches of batch x seq (the
+    rank's rows on ``mesh``) -> (losses, host ms of each step)."""
+    from repro_torch.launch import train
+
+    model, opt = train.init_state(0, cfg, dev, mesh)
+    step = train.make_train_step(cfg, dist_ocfg(steps, TRAIN_LR), mesh)
+    losses, ms = [], []
+    for i in range(steps):
+        b = train.shard_batch(dist_batch(cfg, batch, seq, i), cfg, mesh, dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del model, opt
+    empty_cache(dev)
+    return losses, ms
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def counted(fn, dev):
+    """``fn()`` with every launch count set to 0 just before it -> (its
+    result, the launches)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    sync(dev)
+    return out, ops.launch_counts()
+
+
+def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
+    """One rank of the dist phase, on ``device_type`` device 0 (every rank
+    on the one card): legs A, B and C; asserts fail the rank and the
+    phase.  Returns what the parent prints."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import sharding
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.runtime import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out: dict = {"rank": rank}
+    mesh = elastic.carve_mesh(model_parallel=c["world"], device_type=dev.type)
+    out["mesh_a"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    # leg A, float32, and leg B
+    cfg = c["moe_f32"]
+    toks, prompt = dist_tokens(c, cfg.vocab)
+    toks, prompt = toks.to(dev), prompt.to(dev)
+    with torch.no_grad():
+        model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+        out["experts"] = (model.layers[1].ffn.experts.start,
+                          model.layers[1].ffn.experts.stop)
+        fwd = lambda: transformer.forward(model, cfg, toks,  # noqa: E731
+                                          use_kernel=True)[0]
+        got, out["f32_launches"] = counted(fwd, dev)
+        if rank == 0:
+            want = torch.load(os.path.join(d, "a_f32.pt")).to(dev)
+            out["f32_err"] = check("dist EP f32 vs one process", got, want,
+                                   rel(want, 1e-3))
+            del want
+        del got
+        out["tokens"] = serve.greedy_generate(model, cfg, prompt,
+                                              c["new"]).cpu()
+        del model
+        empty_cache(dev)
+
+        # leg A, bfloat16, every layer
+        cfg = c["moe_bf16"]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+        fwd = lambda: transformer.forward(model, cfg, toks,  # noqa: E731
+                                          use_kernel=True)[0]
+        got, out["bf16_launches"] = counted(fwd, dev)
+        if rank == 0:
+            want = torch.load(os.path.join(d, "a_bf16.pt")).to(dev)
+            assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+            out["bf16_err"] = float((got.float() - want.float()).abs().max())
+            out["bf16_agree"] = float((got.argmax(-1) == want.argmax(-1))
+                                      .float().mean())
+            del want
+        del got
+        fwd()
+        sync(dev)
+        sharding.reset_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fwd()
+        sync(dev)
+        out["prefill_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["allreduce"] = {k: v / 3 for k, v in sharding.STATS.items()}
+        if dev.type == "cuda":
+            out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del model
+        empty_cache(dev)
+
+    # leg C: data parallelism on (4, 1)
+    m41 = elastic.carve_mesh(model_parallel=1, device_type=dev.type)
+    lm = c["lm_f32"]
+    model, opt = train.init_state(0, lm, dev, m41)
+    host = dist_batch(lm, 4, c["f32_seq"], 0)
+    b = train.shard_batch(host, lm, m41, dev)
+    loss, g = train.make_grads(lm, m41)(model, b)
+    out["f32_loss"] = float(loss)
+    if rank == 0:
+        want = torch.load(os.path.join(d, "c_grads.pt"))
+        gaps = {k: float((g[k].cpu() - w).abs().max() / w.abs().max())
+                for k, w in want.items()}
+        worst = max(gaps, key=gaps.get)
+        out["grad_worst"] = (worst, gaps[worst])
+        assert gaps[worst] <= GRAD_TOL, (worst, gaps[worst])
+        del want
+    gnorm = float(torch.sqrt(sum((v.float() ** 2).sum() for v in g.values())))
+    del g
+    step = train.make_train_step(lm, dist_ocfg(c["steps"], 1e-3), m41,
+                                 compress_grads=True)
+    model, opt, m = step(model, opt, b)
+    out["compressed"] = (float(m["loss"]), float(m["grad_norm"]), gnorm)
+    del model, opt, step
+    empty_cache(dev)
+    out["fit"] = dist_fit(lm, dev, m41, c, c["steps"])
+    ck = Checkpointer(os.path.join(d, "ck"), keep=2)
+    out["fit_first"] = dist_fit(lm, dev, m41, c, c["steps"] // 2, ck,
+                                c["steps"] // 2)
+    m21 = elastic.simulate_failure(m41, n_lost=2, model_parallel=1)
+    out["mesh_restart"] = dict(zip(m21.mesh_dim_names, m21.shape))
+    if sharding.member(m21):
+        out["fit_resumed"] = dist_fit(lm, dev, m21, c, c["steps"],
+                                      Checkpointer(os.path.join(d, "ck")))
+    empty_cache(dev)
+    out["bf16"], out["bf16_ms"] = dist_steps(c["lm_bf16"], dev, m41, 4,
+                                             c["seq"], c["steps"])
+
+    # leg C: expert parallelism on (2, 2)
+    m22 = elastic.carve_mesh(model_parallel=2, device_type=dev.type)
+    out["mesh_ep"] = dict(zip(m22.mesh_dim_names, m22.shape))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out["ep"], out["ep_ms"] = dist_steps(c["ep_train"], dev, m22, 2,
+                                         c["ep_seq"], 2)
+    if dev.type == "cuda":
+        out["ep_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def dist_phase(dev, card: str) -> dict[str, int]:
+    """Expert and data parallelism over ``torch.distributed``: DIST_WORLD
+    ranks, processes from ``launch.mesh.spawn``, every one on the one
+    card over DIST_BACKEND with CUDA tensors (NCCL refuses two ranks a
+    device).  Leg A: DeepSeek-MoE 16B FULL with ``moe_ep`` on a (1, 4)
+    mesh, prefill of PREFILL tokens through ``flash_attention``: float32
+    at MOE_F32_LAYERS against the one-process port at 1e-3, bfloat16 at
+    all 28 layers timed (mean of 3), its all-reduces' host time, each
+    rank's peak memory, the largest |diff| and the argmax agreement
+    against the one-process port printed; launches counted per rank
+    (``flash_attention`` one a layer, ``moe_gmm`` none: the reference's
+    ``apply_ep`` runs einsums, ``moe.py:175-179``).  Leg B: float32
+    ``greedy_generate`` on the same mesh, tokens equal to the one-process
+    ones.  Leg C: TinyLlama 1.1B FULL cut to DIST_TRAIN_LAYERS on (4, 1):
+    float32 loss at 1e-4 and every gradient leaf at GRAD_TOL of its
+    largest |g| against one process; one ``compress_grads`` step; ``fit``
+    with a checkpoint and ``simulate_failure(n_lost=2)``, the (2, 1) mesh
+    resuming to the uninterrupted losses at 1e-5; bfloat16 steps at
+    4 x TRAIN_SEQ printed beside one process's; DeepSeek cut to 2 layers
+    with ``moe_ep`` on (2, 2) at capacity factor 8.0, 2 steps, the loss
+    against one process at DIST_EP_TOL (1 + |loss|).  Returns the
+    launches per rank of leg A's bfloat16 prefill."""
+    import tempfile
+
+    from repro_torch.launch import mesh as lmesh
+
+    c = dist_configs()
+    work = os.path.join(ROOT, "build", "repro_torch")
+    os.makedirs(work, exist_ok=True)
+    print(f"dist: {DIST_WORLD} ranks on {card} over {DIST_BACKEND} with "
+          f"{dev.type} tensors")
+    empty_cache(dev)
+    if dev.type == "cuda":
+        print(f"  {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB held by "
+              f"earlier phases")
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        t0 = time.perf_counter()
+        ref = dist_reference(c, dev, d)
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        print(f"  one process: {time.perf_counter() - t0:.2f} s; "
+              f"{held / 1e9:.2f} GB still held by this process")
+        t0 = time.perf_counter()
+        # the ranks share the card: expandable segments keep each rank's
+        # cache from holding memory in blocks it no longer fits
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = lmesh.spawn(dist_rank, c["world"], c, d, dev.type,
+                                backend=DIST_BACKEND, timeout=900, workdir=d)
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        print(f"  {DIST_WORLD} ranks: {time.perf_counter() - t0:.2f} s")
+    r0 = ranks[0]
+    moe, n_attn = c["moe_bf16"], c["moe_f32"].n_layers
+    want_launches = lambda n: ({"flash_attention": n, "moe_gmm": 0}  # noqa: E731
+                               if dev.type == "cuda"
+                               else {"flash_attention": 0, "moe_gmm": 0})
+    for r in ranks:
+        assert r["mesh_a"] == {"data": 1, "model": c["world"]}, r["mesh_a"]
+        for key, n in (("f32_launches", n_attn),
+                       ("bf16_launches", moe.n_layers)):
+            got = {k: r[key][k] for k in ("flash_attention", "moe_gmm")}
+            assert got == want_launches(n), (r["rank"], key, r[key])
+            assert sum(r[key].values()) == n * (dev.type == "cuda"), r[key]
+        assert torch.equal(r["tokens"], ref["tokens"]), (r["tokens"],
+                                                         ref["tokens"])
+    E = moe.moe_experts
+    print(f"  leg A: DeepSeek-MoE 16B, moe_ep on (data 1, model "
+          f"{DIST_WORLD}), experts {[r['experts'] for r in ranks]} of {E}; "
+          f"launches per rank f32 {want_launches(n_attn)}, bf16 "
+          f"{want_launches(moe.n_layers)} (every rank)")
+    print(f"  leg A f32, {n_attn} layers: EP vs one process max |diff| "
+          f"{r0['f32_err']:.3e} (1e-3 relative)")
+    ar = r0["allreduce"]
+    print(f"  leg A bf16, {moe.n_layers} layers, prefill 1 x {c['prefill']}:"
+          f" {[round(r['prefill_ms'], 2) for r in ranks]} ms per rank "
+          f"(mean of 3; one process {ref.get('prefill_ms', float('nan')):.2f}"
+          f" ms); all-reduces per prefill on rank 0: {ar['calls']:.0f} calls,"
+          f" {ar['bytes'] / 1e6:.1f} MB, {ar['seconds'] * 1e3:.2f} ms of host"
+          f" time; peak memory per rank "
+          f"{[round(r.get('peak_gb', 0.0), 2) for r in ranks]} GB; vs one "
+          f"process max |diff| {r0['bf16_err']:.3e}, argmax agrees at "
+          f"{r0['bf16_agree']:.4f}; on {card}")
+    print(f"  leg B: greedy_generate f32 on the mesh, 2 x ({c['prompt']} + "
+          f"{c['new']}) tokens, equal to one process's on every rank: "
+          f"{ref['tokens'].tolist()}")
+    assert abs(r0["f32_loss"] - ref["f32_loss"]) <= 1e-4, (r0["f32_loss"],
+                                                            ref["f32_loss"])
+    loss_c, norm_c, norm = r0["compressed"]
+    assert np.isfinite(loss_c) and abs(norm_c - norm) <= 1e-2 * norm, (
+        norm_c, norm)
+    print(f"  leg C f32, TinyLlama {c['lm_f32'].n_layers} layers, 4 x "
+          f"{c['f32_seq']} on (4, 1): loss {r0['f32_loss']:.6f} vs one process "
+          f"{ref['f32_loss']:.6f}; worst gradient leaf {r0['grad_worst'][0]} "
+          f"at {r0['grad_worst'][1]:.3e} of its largest |g|; compress_grads "
+          f"step grad_norm {norm_c:.6f} vs {norm:.6f} uncompressed")
+    whole = r0["fit"]
+    np.testing.assert_allclose(whole, ref["f32_fit"], rtol=1e-4, atol=1e-4)
+    for r in ranks:
+        assert r["fit"] == whole and r["fit_first"] == whole[:len(
+            r["fit_first"])]
+        assert r["mesh_restart"] == {"data": 2, "model": 1}
+    half = len(r0["fit_first"])
+    for r in ranks[:2]:
+        np.testing.assert_allclose(r["fit_resumed"], whole[half:],
+                                   rtol=1e-5, atol=1e-5)
+    assert all("fit_resumed" not in r for r in ranks[2:])
+    print(f"  leg C restart: {len(whole)} steps on (4, 1) {whole}; "
+          f"{half} + a checkpoint, 2 ranks lost, (2, 1) resumed "
+          f"{ranks[0]['fit_resumed']} (1e-5); one process {ref['f32_fit']}")
+    print(f"  leg C bf16, 4 x {c['seq']} on (4, 1): losses {r0['bf16']} "
+          f"({[round(x, 1) for x in r0['bf16_ms']]} ms a step), one "
+          f"process {ref['bf16']}; on {card}")
+    for got, want in zip(r0["ep"], ref["ep"]):
+        assert abs(got - want) <= DIST_EP_TOL * (1 + abs(want)), (
+            r0["ep"], ref["ep"])
+    print(f"  leg C EP: DeepSeek 2 layers, moe_ep on {r0['mesh_ep']}, 2 x "
+          f"{c['ep_seq']}, capacity 8.0: losses {r0['ep']} "
+          f"({[round(x, 1) for x in r0['ep_ms']]} ms a step), one process "
+          f"{ref['ep']}; peak memory per rank "
+          f"{[round(r.get('ep_peak_gb', 0.0), 2) for r in ranks]} GB")
+    return want_launches(moe.n_layers)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2194,6 +2620,13 @@ def main() -> int:
             row["flash_attention"]["train_eval_launches"] = \
                 counts["flash_attention"]
         print(f"train: {time.perf_counter() - t0:.2f} s")
+    if run("dist"):
+        t0 = time.perf_counter()
+        counts = dist_phase(dev, smi)
+        for name in ("flash_attention", "moe_gmm"):
+            if name in row:
+                row[name]["dist_launches_per_rank"] = counts[name]
+        print(f"dist: {time.perf_counter() - t0:.2f} s")
     for r in rows:
         print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "
               f"on its path; {fmt(r['cuda_launches_per_call'])} CUDA "

@@ -15,8 +15,9 @@ bfloat16 leaf is written as its 16 bits with the descr ``'<V2'``, as the
 reference's ``np.savez`` of an ``ml_dtypes`` leaf writes it, and the
 manifest's ``"bfloat16"``; ``restore`` reinterprets such a leaf by that
 dtype string (the reference's own restore gives it back as raw ``V2``).
-``restore`` returns tensors, placed on ``device`` — the one-GPU
-counterpart of the reference's ``shardings=``.
+``restore`` returns whole tensors, placed on ``device``; on a mesh each
+rank then keeps its slice (``models.convert``), the counterpart of the
+reference's ``shardings=``.
 """
 from __future__ import annotations
 

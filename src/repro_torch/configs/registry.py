@@ -5,7 +5,7 @@ Each arch module defines FULL (the exact public-literature config) and
 SMOKE (a reduced same-family config for CPU tests); the modules are copies
 of the reference's, with torch dtypes.  The reference's ``input_specs``
 builds JAX ``ShapeDtypeStruct`` stand-ins for its dry-run and is not
-ported: the port has no dry-run (ROADMAP queue 1, item 9).
+ported yet: it comes with the dry-run (ROADMAP queue 1, item 9.8).
 """
 from __future__ import annotations
 
@@ -59,4 +59,5 @@ def skip_reason(cfg: ModelConfig, shape: Shape) -> str | None:
 
 
 # input_specs (the reference's JAX ShapeDtypeStruct stand-ins for its
-# dry-run) is not ported: the port has no dry-run (ROADMAP queue 1, item 9).
+# dry-run) is not ported yet: it comes with the dry-run (ROADMAP queue 1,
+# item 9.8).

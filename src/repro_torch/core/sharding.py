@@ -1,0 +1,199 @@
+"""Partition specs, meshes and the collectives of the model path — what the
+reference takes from ``jax.sharding``, ``shard_map`` and ``jax.lax``'s
+``psum`` / ``pmean``.
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose dimension
+names are the reference's axis names (``"pod"``, ``"data"``, ``"model"``);
+a rank is one process.  The pure helpers (``mesh_shape``, ``data_axes``,
+``axis_size``) also take a mapping ``{axis: size}`` in the mesh's
+dimension order, so a spec is computed without a process group.
+
+``P`` is the reference's ``PartitionSpec``: one entry per tensor
+dimension, ``None`` (replicated), an axis name, or a tuple of names
+(sharded over their product, the first major).  Its meaning is copied,
+not imported.
+
+The collectives reduce over one mesh axis after another (a sum or a max
+over the product of axes is the same thing); each call adds to ``STATS``
+its host seconds, which include waiting for the device work that made the
+operand.  Two autograd pairs carry expert parallelism's combine
+(Megatron's conjugate pair): ``reduce_from`` sums forward and passes the
+gradient through; ``copy_to`` passes the value through and sums the
+gradient.
+"""
+from __future__ import annotations
+
+import time
+from typing import Mapping
+
+import torch
+import torch.distributed as dist
+
+
+class P(tuple):
+    """The reference's ``PartitionSpec``: ``P("data", None)``."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+def mesh_device_type(device_type: str | None) -> str:
+    """``device_type`` of a mesh; None means ``"cuda"`` and raises when
+    there is no CUDA device (the CPU is only ever asked for)."""
+    if device_type is not None:
+        return device_type
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device_type='cpu' for a mesh of CPU ranks")
+    return "cuda"
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """``{axis: size}`` of a DeviceMesh (or of such a mapping), in the
+    mesh's dimension order."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def data_axes(mesh) -> tuple[str, ...] | str:
+    """The batch-sharding axes: ('pod','data') on multi-pod, 'data'
+    otherwise."""
+    return ("pod", "data") if "pod" in mesh_shape(mesh) else "data"
+
+
+def axis_size(mesh, names) -> int:
+    if isinstance(names, str):
+        names = (names,)
+    shape = mesh_shape(mesh)
+    n = 1
+    for a in names:
+        n *= shape[a]
+    return n
+
+
+def _names(axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def other_axes(mesh, axis: str) -> tuple[str, ...]:
+    """The mesh's axes but ``axis``, in order (the reference's ``dp`` of
+    ``apply_ep``)."""
+    return tuple(a for a in mesh_shape(mesh) if a != axis)
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's index along the product of ``axes`` (the first major):
+    its block of a dimension sharded as ``P(axes)``."""
+    shape, i = mesh_shape(mesh), 0
+    for a in _names(axes):
+        i = i * shape[a] + mesh.get_local_rank(a)
+    return i
+
+
+def member(mesh) -> bool:
+    """Whether this rank is in ``mesh`` (``simulate_failure`` leaves the
+    lost ranks outside)."""
+    return mesh.get_coordinate() is not None
+
+
+#: calls, host seconds and bytes of the collectives since ``reset_stats``
+STATS = {"calls": 0, "seconds": 0.0, "bytes": 0}
+
+
+def reset_stats() -> None:
+    STATS.update(calls=0, seconds=0.0, bytes=0)
+
+
+def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
+    """``t`` reduced in place over the mesh axes ``axes`` (a name or a
+    tuple; axes of size 1 cost nothing); returns ``t``."""
+    shape = mesh_shape(mesh)
+    for a in _names(axes):
+        if shape.get(a, 1) > 1:
+            t0 = time.perf_counter()
+            dist.all_reduce(t, op=op, group=mesh.get_group(a))
+            STATS["calls"] += 1
+            STATS["seconds"] += time.perf_counter() - t0
+            STATS["bytes"] += t.numel() * t.element_size()
+    return t
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` has arrived: a barrier over each axis in
+    turn (after the last, each rank knows that every rank of every group
+    it waited on has passed the one before)."""
+    for a, n in mesh_shape(mesh).items():
+        if n > 1:
+            dist.barrier(group=mesh.get_group(a))
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0):
+    """The blocks of ``t`` held along ``axis``, concatenated on ``dim`` in
+    the axis's order, on the CPU.  Over gloo the gather runs on host
+    copies (gloo gathers no CUDA tensor); over NCCL on the device."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t.detach().cpu()
+    group = mesh.get_group(axis)
+    src = t.detach().contiguous()
+    if dist.get_backend(group) == "gloo":
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat([p.cpu() for p in parts], dim=dim)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.mesh, ctx.axis), None, None
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of each rank's partial ``x`` (the combine);
+    the gradient reaches each rank's part whole, once."""
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x``, replicated over ``axis``, entering work that each rank does
+    for its own part: the gradients of the parts are summed."""
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def mean_value(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean of the scalar ``x`` over the ranks of ``axes``, whose
+    gradient reaches this rank's ``x`` whole: a rank's loss holds its own
+    term, and the data-parallel mean of the gradients makes it the mean's
+    (the reference's ``pmean`` under a data-parallel loss)."""
+    n = axis_size(mesh, tuple(a for a in _names(axes)
+                              if a in mesh_shape(mesh)))
+    if n == 1:
+        return x
+    m = all_reduce(x.detach().clone(), mesh, axes) / n
+    return m + (x - x.detach())

@@ -1,7 +1,9 @@
-"""Launchers of the port: the one-GPU serve path (``serve``), for every
-config family, and the one-GPU training path (``train``: train step and
-``fit``).  The mesh and dry-run launchers are not ported yet (ROADMAP
-queue 1, item 9)."""
-from . import serve, train
+"""Launchers of the port, on one GPU or on a mesh of ranks
+(``torch.distributed``): the serve path (``serve``) for every config
+family, the training path (``train``: train step and ``fit``, data and
+expert parallel, elastic restart) and the production mesh and the rank
+launcher (``mesh``).  The dry-run is not ported yet (ROADMAP queue 1, item
+9.8)."""
+from . import mesh, serve, train
 
-__all__ = ["serve", "train"]
+__all__ = ["mesh", "serve", "train"]

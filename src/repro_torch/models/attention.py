@@ -20,7 +20,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
-from .layers import ModelConfig, _param, dense_init, rope
+from repro_torch.core.sharding import P
+from .layers import ModelConfig, _param, dense_init, emb_axis, rope
 
 class Attention(nn.Module):
     """One attention layer's weights, drawn from ``gen`` when it is given
@@ -42,6 +43,16 @@ class Attention(nn.Module):
             for name, n in (("bq", H * hd), ("bk", KVH * hd), ("bv", KVH * hd)):
                 setattr(self, name, _param(torch.zeros(n, dtype=cfg.dtype,
                                                        device=device)))
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The reference's specs of the layer's weights (its ``init``)."""
+    e = emb_axis(cfg.fsdp)
+    out = {"wq": P(e, "model"), "wk": P(e, "model"),
+           "wv": P(e, "model"), "wo": P("model", e)}
+    if cfg.qkv_bias:
+        out |= {"bq": P("model"), "bk": P("model"), "bv": P("model")}
+    return out
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Attention:

@@ -13,15 +13,24 @@ period_len)`` — the indexing of ``repro.models.pim_bridge._layer_params``.
 Both packages store weights as ``(d_in, d_out)``, so every leaf is a copy,
 never a transpose.  A caller holding the reference's jax arrays passes
 ``jax.tree.map(np.asarray, params)``; this module imports no JAX.
+
+On a mesh under ``moe_ep`` a rank holds its model rank's experts: a carry
+from the reference keeps that slice of each ``wi`` / ``wo`` (and of the
+optimizer's), and a carry back gathers the slices over "model", so the
+reference's tree is whole and a checkpoint resumes in either package on
+any mesh.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import sharding
 from repro_torch.core.banked import _device
+from repro_torch.core.sharding import P
+from . import moe
 from .layers import ModelConfig
-from .transformer import Transformer, layer_plan
+from .transformer import Transformer, expert_leaves, layer_plan
 
 #: the leaves outside the blocks
 _TOP = ("embed", "final_norm", "lm_head")
@@ -78,14 +87,19 @@ def _nested(flat: dict) -> dict:
 
 def _load(module: torch.nn.Module, tree: dict, where: str) -> None:
     """Copy ``tree``'s leaves into ``module``'s parameters of the same
-    dotted names; the two must hold the same names, shapes and dtypes."""
+    dotted names; the two must hold the same names, shapes and dtypes,
+    but for the experts of a rank under ``moe_ep``, which take their
+    slice."""
     flat = _dotted(tree)
     params = dict(module.named_parameters())
     if set(flat) != set(params):
         raise ValueError(f"{where}: reference leaves {sorted(flat)} != port "
                          f"parameters {sorted(params)}")
+    experts = moe.expert_slices(module)
     for name, p in params.items():
         src = _tensor(flat[name])
+        if name in experts:
+            src = src[experts[name]]
         if src.shape != p.shape or src.dtype != p.dtype:
             raise ValueError(f"{where}.{name}: reference {tuple(src.shape)} "
                              f"{src.dtype}, port {tuple(p.shape)} {p.dtype}")
@@ -93,11 +107,12 @@ def _load(module: torch.nn.Module, tree: dict, where: str) -> None:
             p.copy_(src)
 
 
-def params_from_reference(tree: dict, cfg: ModelConfig,
-                          device=None) -> Transformer:
+def params_from_reference(tree: dict, cfg: ModelConfig, device=None,
+                          mesh=None) -> Transformer:
     """The port's model on ``device`` (default ``cuda:0``) holding the
-    reference's weights ``tree`` (numpy leaves, or tensors) for ``cfg``."""
-    model = Transformer(cfg, device=device)
+    reference's weights ``tree`` (numpy leaves, or tensors) for ``cfg``,
+    built on ``mesh`` (under ``moe_ep`` the rank keeps its experts)."""
+    model = Transformer(cfg, device=device, mesh=mesh)
     pro, period, _ = layer_plan(cfg)
     top = {k: tree[k] for k in _TOP}
     with torch.no_grad():
@@ -112,12 +127,13 @@ def params_from_reference(tree: dict, cfg: ModelConfig,
 # -- the port's tensors back into the reference's tree --------------------------
 
 
-def reference_tree(named: dict, cfg: ModelConfig) -> dict:
+def reference_tree(named: dict, cfg: ModelConfig, stack=torch.stack) -> dict:
     """The reference's tree of ``named``, tensors by the port's parameter
     names (``model.named_parameters()``, or the optimizer's master, mu or
     nu): the top leaves, the ``prologue`` list of block dicts, and the
     ``group`` list with each position's leaves stacked on a leading
-    repeat axis.  Leaves stay tensors on their device."""
+    repeat axis (``stack`` of the repeats' leaves).  Leaves stay tensors
+    on their device."""
     pro, period, repeats = layer_plan(cfg)
     layers: dict[int, dict] = {}
     for name, t in named.items():
@@ -130,10 +146,18 @@ def reference_tree(named: dict, cfg: ModelConfig) -> dict:
     n = len(period)
     if repeats:
         tree["group"] = [_nested({
-            k: torch.stack([layers[len(pro) + r * n + pos][k]
-                            for r in range(repeats)])
+            k: stack([layers[len(pro) + r * n + pos][k]
+                      for r in range(repeats)])
             for k in layers[len(pro) + pos]}) for pos in range(n)]
     return tree
+
+
+def reference_specs(specs: dict, cfg: ModelConfig) -> dict:
+    """The reference's spec tree (``repro.models.transformer.init``'s
+    second value) of the port's ``transformer.param_specs(cfg)``: a
+    stacked group leaf's spec gains the leading ``None`` of its repeat
+    axis."""
+    return reference_tree(specs, cfg, stack=lambda ss: P(None, *ss[0]))
 
 
 def from_reference_tree(tree: dict, cfg: ModelConfig) -> dict:
@@ -167,26 +191,44 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def whole(named: dict, model: Transformer) -> dict:
+    """``named`` (the model's parameters, or the optimizer's master, mu or
+    nu) with every expert leaf gathered over the model's "model" axis
+    onto the CPU: the leaves of the one-process model.  Off a mesh, or
+    without ``moe_ep``, ``named`` itself."""
+    split = set(expert_leaves(model))
+    return {k: sharding.all_gather(v, model.mesh, "model") if k in split
+            else v for k, v in named.items()}
+
+
 def params_to_reference(model: Transformer, cfg: ModelConfig) -> dict:
     """The model's weights as the reference's tree of numpy arrays, the
-    inverse of ``params_from_reference``."""
-    return _map(_numpy, reference_tree(dict(model.named_parameters()), cfg))
+    inverse of ``params_from_reference``; on a mesh the experts are
+    gathered (every rank of a model group calls it)."""
+    return _map(_numpy, reference_tree(
+        whole(dict(model.named_parameters()), model), cfg))
 
 
-def opt_state_to_reference(state: dict, cfg: ModelConfig) -> dict:
+def opt_state_to_reference(state: dict, cfg: ModelConfig,
+                           model: Transformer | None = None) -> dict:
     """The port's optimizer state (``optim.init``: master, mu and nu by
     parameter name, an int32 step) as the reference's tree of numpy
-    arrays."""
-    tree = {k: reference_tree(state[k], cfg) for k in ("master", "mu", "nu")}
+    arrays; with ``model`` on a mesh, the experts' state is gathered."""
+    tree = {k: reference_tree(state[k] if model is None
+                              else whole(state[k], model), cfg)
+            for k in ("master", "mu", "nu")}
     return _map(_numpy, {**tree, "step": state["step"]})
 
 
-def opt_state_from_reference(tree: dict, cfg: ModelConfig,
-                             device=None) -> dict:
+def opt_state_from_reference(tree: dict, cfg: ModelConfig, device=None,
+                             model: Transformer | None = None) -> dict:
     """The reference's optimizer state (numpy arrays or tensors) as the
-    port's, on ``device`` (default ``cuda:0``)."""
+    port's, on ``device`` (default ``cuda:0``); with ``model`` on a mesh,
+    each expert leaf's slice that the model holds."""
     dev = _device(device)
-    state = {k: {name: _tensor(v).to(dev).contiguous()
+    experts = {} if model is None else moe.expert_slices(model)
+    state = {k: {name: _tensor(v)[experts.get(name, slice(None))]
+                 .to(dev).contiguous()
                  for name, v in from_reference_tree(tree[k], cfg).items()}
              for k in ("master", "mu", "nu")}
     state["step"] = _tensor(tree["step"]).to(dev, torch.int32)

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.sharding import P
+
 
 # ---------------------------------------------------------------------------
 # config
@@ -32,11 +34,12 @@ class ModelConfig:
     pass (``transformer.trunk``): ``remat_policy="full"`` saves only the
     group's input, any other policy also the plain matmuls' outputs (the
     reference's ``dots_with_no_batch_dims_saveable``).  ``fsdp`` and
-    ``moe_dispatch_sharded`` shard across a TPU mesh; on one GPU they
-    have no meaning, and the port accepts and ignores them.  ``moe_ep`` runs the
-    experts sharded over a mesh (``moe.apply_ep`` in the reference), a
-    different program: a model with it is refused when it is built.
-    ``scan_layers`` picks ``lax.scan`` or an unrolled loop in the
+    ``moe_dispatch_sharded`` shard parameters and activations across the
+    reference's mesh; the port realizes ``fsdp``'s "data" entries as
+    replication (``transformer.param_specs`` gives them) and
+    ``moe_dispatch_sharded`` changes nothing.  ``moe_ep`` runs the experts
+    sharded over a mesh's "model" axis (``moe.apply_ep``); a model with it
+    needs a mesh when it is built.  ``scan_layers`` picks ``lax.scan`` or an unrolled loop in the
     reference; the port always runs its layers in a Python loop, which
     gives the same numbers either way."""
     name: str = "model"
@@ -73,13 +76,13 @@ class ModelConfig:
     n_frontend_tokens: int = 0  # precomputed patch/frame embeddings
     # numerics / distribution
     dtype: Any = torch.bfloat16
-    fsdp: bool = False          # ignored on one GPU
+    fsdp: bool = False          # realized as replication
     remat: bool = True          # recompute each layer group in backward
     remat_policy: str = "full"  # "full" | anything else: save the matmuls
     fast_decode: bool = False   # grouped-GQA decode attention
     moe_dispatch_sharded: bool = False  # ignored
     mlstm_chunk: int = 0        # chunked mLSTM prefill (0 = full parallel)
-    moe_ep: bool = False        # refused: expert parallelism over a mesh
+    moe_ep: bool = False        # expert parallelism over a mesh
     scan_layers: bool = True    # the port always loops; same numbers
     rope_theta: float = 1e4
 
@@ -178,6 +181,17 @@ def mlp_init(gen: torch.Generator, d: int, f: int, dtype,
     """The dense SwiGLU FFN's weights: ``wi`` (d, 2f), ``wo`` (f, d)."""
     return {"wi": dense_init(gen, (d, 2 * f), dtype, device),
             "wo": dense_init(gen, (f, d), dtype, device)}
+
+
+def emb_axis(fsdp: bool):
+    """Mesh axis for the embed dim of params: FSDP shards it over 'data'."""
+    return "data" if fsdp else None
+
+
+def mlp_specs(cfg: ModelConfig) -> dict:
+    """The dense SwiGLU FFN's specs (the reference's ``mlp_init``)."""
+    e = emb_axis(cfg.fsdp)
+    return {"wi": P(e, "model"), "wo": P("model", e)}
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:

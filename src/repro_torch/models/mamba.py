@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
-from .layers import ModelConfig, _param, dense_init, rms_norm
+from repro_torch.core.sharding import P
+from .layers import ModelConfig, _param, dense_init, emb_axis, rms_norm
 
 
 def _dims(cfg: ModelConfig):
@@ -45,6 +46,15 @@ class Mamba(nn.Module):
         self.dt_bias = _param(torch.zeros(H, dtype=torch.float32, device=device))
         self.a_log = _param(torch.zeros(H, dtype=torch.float32, device=device))
         self.norm = _param(torch.ones(di, dtype=cfg.dtype, device=device))
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The reference's specs of the mixer's weights (its ``init``)."""
+    e = emb_axis(cfg.fsdp)
+    return {"in_proj": P(e, "model"), "conv": P(None, "model"),
+            "bc_proj": P("model", None), "dt_proj": P("model", None),
+            "dt_bias": P(None), "a_log": P(None), "norm": P("model"),
+            "out_proj": P("model", e)}
 
 
 def _conv_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN — the PyTorch counterpart of ``repro.models.moe``:
 top-k routing, sort-based capacity dispatch, shared experts (the DeepSeek /
-Kimi style) and the Switch load-balancing loss.
+Kimi style), the Switch load-balancing loss, and expert parallelism.
 
 Each token's K (token, expert) pairs are ranked within their expert by a
 stable sort, bucketed into an (E, C, d) capacity layout (pairs past the
@@ -10,19 +10,60 @@ with the router weights.  Parameters are named as the reference's keys
 (``router``, ``wi``, ``wo``, ``shared.wi``, ``shared.wo``), so a weight
 carry matches them by name.
 
-The reference's ``apply_ep`` runs the experts sharded over a TPU mesh
-(``shard_map``); one GPU has no counterpart, and a config with
-``moe_ep=True`` is refused when its model is built
-(``transformer.check_ported``).  ``moe_dispatch_sharded`` only adds
-sharding constraints there and changes nothing here.
+On a mesh (``core.sharding``), the tokens ``x`` are this rank's rows of a
+batch split over the data axes, replicated over "model":
+
+- ``apply_ep`` is the reference's expert parallelism (``moe_ep``): the
+  module holds the experts [j·E/m, (j+1)·E/m) of model rank j, the router
+  is replicated, each rank computes its own (token, expert) pairs and the
+  combine is one all-reduce over "model".  The capacity, the ranks in an
+  expert and the aux loss are each data shard's own, the aux then averaged
+  over the data axes, as the reference's ``shard_map`` computes them.  The
+  experts run as ``torch.bmm`` whatever ``use_kernel`` says, as the
+  reference's einsums do (``moe.py:175-179``).
+- ``apply(mesh=...)`` is ``apply``'s function of the whole batch (the
+  reference's ``apply`` under ``jit`` sees the global batch, and its decode
+  routes the global decode batch): the capacity from the global token
+  count, each pair ranked after the pairs of the lower data ranks, the aux
+  over the whole batch; experts sharded under ``moe_ep`` are combined over
+  "model" as above.
+
+The gradients follow the function: the combine sums forward and passes
+the gradient through, the router's probabilities and the tokens enter
+each rank's pairs replicated and their gradients are summed over "model"
+(``sharding.reduce_from`` / ``copy_to``); the aux is computed from the
+whole probabilities on every rank and its gradient counts once.
+``moe_dispatch_sharded`` only adds sharding constraints in the reference
+and changes nothing here.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.core import sharding
+from repro_torch.core.sharding import P
 from repro_torch.kernels import ops
-from .layers import MLP, ModelConfig, _param, dense_init, swiglu
+from .layers import MLP, ModelConfig, _param, dense_init, emb_axis, swiglu
+
+
+def ep_slice(cfg: ModelConfig, mesh, model_axis: str = "model") -> slice:
+    """The experts this rank holds: all of them, or under ``moe_ep`` on a
+    mesh its model rank's block; ``moe_ep`` without a mesh that has
+    ``model_axis`` raises."""
+    E = cfg.moe_experts
+    if not cfg.moe_ep:
+        return slice(0, E)
+    if mesh is None or model_axis not in sharding.mesh_shape(mesh):
+        raise ValueError(f"{cfg.name}: moe_ep=True (expert parallelism) needs"
+                         f" a mesh with a {model_axis!r} axis to shard the "
+                         f"{E} experts over")
+    m = sharding.axis_size(mesh, model_axis)
+    if E % m:
+        raise ValueError(f"{cfg.name}: expert parallelism over {m} model "
+                         f"ranks needs the {E} experts to divide")
+    j = mesh.get_local_rank(model_axis)
+    return slice(j * E // m, (j + 1) * E // m)
 
 
 class MoE(nn.Module):
@@ -31,23 +72,50 @@ class MoE(nn.Module):
     ``shared``, one SwiGLU ``MLP`` of width f · n_shared.  Drawn from
     ``gen`` when it is given (the reference's scheme: fan-in of d for
     ``wi``, of f for ``wo``), uninitialised otherwise (for a weight
-    carry)."""
+    carry).  Under ``moe_ep`` on ``mesh``, ``wi`` and ``wo`` hold the
+    rank's experts only (``self.experts``): each is drawn whole, as one
+    process draws it, and sliced, so the rank's rows equal the same rows
+    of the one-process model of the same seed."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
         d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
+        self.experts = ep_slice(cfg, mesh)
+        n = self.experts.stop - self.experts.start
         shapes = {"router": ((d, E), torch.float32, 0),
                   "wi": ((E, d, 2 * f), cfg.dtype, 1),
                   "wo": ((E, f, d), cfg.dtype, 1)}
         for name, (shape, dtype, in_axis) in shapes.items():
-            w = (dense_init(gen, shape, dtype, device, in_axis=in_axis)
-                 if gen is not None
-                 else torch.empty(shape, dtype=dtype, device=device))
+            if gen is not None:
+                w = dense_init(gen, shape, dtype, device, in_axis=in_axis)
+                if name != "router" and n < E:
+                    w = w[self.experts].clone()
+            else:
+                shape = shape if name == "router" else (n, *shape[1:])
+                w = torch.empty(shape, dtype=dtype, device=device)
             setattr(self, name, _param(w))
         if cfg.moe_shared_experts:
             self.shared = MLP(cfg, f * cfg.moe_shared_experts, gen=gen,
                               device=device)
+
+
+def expert_slices(module: nn.Module) -> dict[str, slice]:
+    """The dotted name, under ``module``, of each MoE layer's ``wi`` and
+    ``wo``, and the experts of the one-process tensor the rank holds."""
+    return {f"{name}.{leaf}".lstrip("."): m.experts
+            for name, m in module.named_modules() if isinstance(m, MoE)
+            for leaf in ("wi", "wo")}
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The reference's specs of the layer's weights (its ``init``)."""
+    e = emb_axis(cfg.fsdp)
+    out = {"router": P(e, None),
+           "wi": P("model", e, None), "wo": P("model", None, e)}
+    if cfg.moe_shared_experts:
+        out["shared"] = {"wi": P(e, "model"), "wo": P("model", e)}
+    return out
 
 
 def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -62,66 +130,132 @@ def route(p: MoE, cfg: ModelConfig, xt: torch.Tensor):
     """Router of the (T, d) tokens ``xt``: softmax probabilities (T, E) in
     float32, the top-k experts (T, K) and their gates renormalised over
     the K, in xt's dtype."""
-    logits = xt.to(torch.float32) @ p.router
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(xt.to(torch.float32) @ p.router, dim=-1)
+    return (probs,) + _top_k(probs, cfg, xt.dtype)
+
+
+def _top_k(probs: torch.Tensor, cfg: ModelConfig, dtype):
     gate, topk = probs.topk(cfg.moe_top_k, dim=-1)
-    gate = (gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)).to(xt.dtype)
-    return probs, gate, topk
+    gate = (gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)).to(dtype)
+    return gate, topk
 
 
-def apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
-          use_kernel: bool = False):
-    """x: (B, S, d) -> ((B, S, d), aux), aux the float32 load-balancing
-    loss."""
-    B, S, d = x.shape
-    E, K = cfg.moe_experts, cfg.moe_top_k
-    T = B * S
-    xt = x.reshape(T, d)
-    C = _capacity(cfg, T)
-    probs, gate, topk = route(p, cfg, xt)
-
-    # rank of each pair within its expert: a stable sort keeps token order
-    ef = topk.reshape(-1)                                    # (T*K,)
+def _rank_in_expert(ef: torch.Tensor, E: int):
+    """Each pair's rank within its expert (a stable sort keeps token
+    order) and each expert's count of pairs."""
     order = torch.argsort(ef, stable=True)
     counts = torch.bincount(ef, minlength=E)                 # (E,)
-    if apply.routing is not None:
-        apply.routing.append((topk.sort(-1).values,
-                              int((counts - C).clamp(min=0).sum())))
     starts = counts.cumsum(0) - counts
     rank = torch.empty_like(ef)
-    rank[order] = torch.arange(T * K, device=x.device) - starts[ef[order]]
+    rank[order] = torch.arange(ef.numel(), device=ef.device) - starts[ef[order]]
+    return rank, counts
 
-    # dispatch: dropped pairs go to the spare row E*C, which is cut off
-    kept = rank < C
-    slot = torch.where(kept, ef * C + rank, E * C)
-    tok = torch.arange(T, device=x.device).repeat_interleave(K)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+
+def _experts(p: MoE, xt, ef, rank, kept, gate, C: int, cnt, use_kernel: bool):
+    """The (T, d) sum over each token's kept pairs with the rank's experts
+    of gate × expert output.  A pair's slot is ``(e - lo) * C + rank``;
+    dropped pairs and other ranks' pairs go to the spare row, cut off."""
+    T, d = xt.shape
+    lo, n = p.experts.start, p.wi.shape[0]
+    K = ef.numel() // T
+    mine = kept & (ef >= lo) & (ef < lo + n)
+    slot = torch.where(mine, (ef - lo) * C + rank, n * C)
+    tok = torch.arange(T, device=xt.device).repeat_interleave(K)
+    buf = torch.zeros((n * C + 1, d), dtype=xt.dtype, device=xt.device)
     buf[slot] = xt[tok]
-    xg = buf[:E * C].view(E, C, d)
+    xg = buf[:n * C].view(n, C, d)
 
-    # the experts: (E, C, ·) @ (E, ·, ·), the kernel masking rows past
+    # the experts: (n, C, ·) @ (n, ·, ·), the kernel masking rows past
     # each expert's count (zero rows here, as the buffer left them)
     if use_kernel:
-        cnt = counts.clamp(max=C).to(torch.int32)
+        cnt = cnt.to(torch.int32)
         experts = lambda a, w: ops.moe_gmm(a, w, cnt)    # noqa: E731
     else:
         experts = torch.bmm
     g, u = experts(xg, p.wi).chunk(2, dim=-1)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(xt.dtype) * u
     yg = experts(h, p.wo)
 
     # combine: each pair's expert output, weighted; a token's K pairs are
     # adjacent (tok = repeat(arange(T), K)), so the segment sum is a sum
     # over K
-    flat = yg.reshape(E * C, d)
-    pair_out = torch.where(kept[:, None], flat[slot.clamp(max=E * C - 1)], 0)
-    y = (pair_out * gate.reshape(-1)[:, None]).view(T, K, d).sum(1)
+    flat = yg.reshape(n * C, d)
+    pair_out = torch.where(mine[:, None], flat[slot.clamp(max=n * C - 1)], 0)
+    return (pair_out * gate.reshape(-1)[:, None]).view(T, K, d).sum(1)
+
+
+def apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
+          use_kernel: bool = False, mesh=None, model_axis: str = "model"):
+    """x: (B, S, d) -> ((B, S, d), aux), aux the float32 load-balancing
+    loss.  With ``mesh``, ``x`` is this data rank's rows and the result is
+    that of the whole batch (module docstring)."""
+    return _moe(p, cfg, x, use_kernel, mesh, model_axis, per_shard=False)
+
+
+def apply_ep(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, mesh,
+             model_axis: str = "model"):
+    """The reference's ``apply_ep``: the rank's experts over its data
+    shard's pairs, one all-reduce over ``model_axis`` as the combine, the
+    capacity and the aux of each data shard, the aux averaged over the
+    data axes -> ((B, S, d), aux)."""
+    if mesh is None or model_axis not in sharding.mesh_shape(mesh):
+        raise ValueError(f"apply_ep (expert parallelism) needs a mesh with a "
+                         f"{model_axis!r} axis")
+    return _moe(p, cfg, x, False, mesh, model_axis, per_shard=True)
+
+
+def _moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, use_kernel: bool, mesh,
+         model_axis: str, per_shard: bool):
+    B, S, d = x.shape
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    dp = sharding.other_axes(mesh, model_axis) if mesh is not None else ()
+    D = sharding.axis_size(mesh, dp) if dp else 1
+    split = p.wi.shape[0] < E                   # experts over model_axis
+
+    probs = torch.softmax(xt.to(torch.float32) @ p.router, dim=-1)
+    # each rank's pairs use the replicated probabilities and tokens: their
+    # gradients are summed over model_axis (the aux below uses probs as
+    # they are, so its gradient counts once)
+    xin = sharding.copy_to(xt, mesh, model_axis) if split else xt
+    gate, topk = _top_k(sharding.copy_to(probs, mesh, model_axis)
+                        if split else probs, cfg, x.dtype)
+
+    ef = topk.reshape(-1)                                    # (T*K,)
+    rank, counts = _rank_in_expert(ef, E)
+    if per_shard or D == 1:
+        C = _capacity(cfg, T)
+        kept = rank < C
+        cnt = counts.clamp(max=C)
+        total = counts
+    else:
+        # the global batch: the data ranks' counts side by side, a pair
+        # ranked after its expert's pairs on the lower data ranks
+        C = _capacity(cfg, T * D)
+        table = torch.zeros((D, E), dtype=counts.dtype, device=x.device)
+        i = sharding.axis_index(mesh, dp)
+        table[i] = counts
+        sharding.all_reduce(table, mesh, dp)
+        offset = table[:i].sum(0)
+        kept = rank + offset[ef] < C
+        cnt = torch.minimum(counts, (C - offset).clamp(min=0))
+        total = table.sum(0)
+    if apply.routing is not None:
+        apply.routing.append((topk.sort(-1).values, int((~kept).sum())))
+
+    y = _experts(p, xin, ef, rank, kept, gate, C, cnt[p.experts], use_kernel)
+    if split:
+        y = sharding.reduce_from(y, mesh, model_axis)        # the combine
 
     if cfg.moe_shared_experts:
         y = y + swiglu(xt, p.shared.wi, p.shared.wo)
 
-    frac_tok = counts.to(torch.float32) / max(T * K, 1)
+    n_pairs = (T if per_shard else T * D) * K
+    frac_tok = total.to(torch.float32) / max(n_pairs, 1)
     aux = E * (frac_tok * probs.mean(0)).sum()
+    if D > 1:
+        aux = sharding.mean_value(aux, mesh, dp)
     return y.reshape(B, S, d).to(x.dtype), aux
 
 

@@ -12,9 +12,19 @@ loop, which gives the same numbers.  Ported: the ``attn``, ``cross``
 (the VLM family's image layers, over ``frontend=`` tokens), ``mamba``,
 ``mlstm`` and ``slstm`` mixers, the ``dense``, ``moe`` and ``none``
 FFNs, ``parallel_block`` (stablelm), ``qkv_bias`` (codeqwen) and the
-audio family's ``embeds=`` input.  Expert parallelism (``moe_ep``)
-raises ``NotImplementedError`` when the model is built, naming its
-ROADMAP item, so nothing runs a different model than the reference.
+audio family's ``embeds=`` input.  Expert parallelism (``moe_ep``) runs
+on a mesh (``core.sharding``): the model is built with ``mesh=``, each
+MoE layer holds its model rank's experts and runs ``moe.apply_ep``, as
+the reference's block does; ``moe_ep`` without a mesh that has a "model"
+axis raises a ``ValueError`` when the model is built.  On a mesh, ``x``
+is the rank's rows of a batch split over the data axes; a MoE layer
+without ``moe_ep``, and every MoE layer in decode (the reference's decode
+block calls ``moe.apply``), gives ``moe.apply``'s result over the whole
+batch.  ``param_specs`` gives the reference's spec of every parameter.
+Of those specs, only the experts' "model" entry under ``moe_ep`` is
+realized as a shard; every other "model" entry (tensor parallelism of the
+dense weights) and the FSDP "data" entries are realized as replication,
+which computes the same function in more memory.
 The training loss is ``loss_fn`` (next-token CE in float32, through the
 whole logits or streamed over vocab chunks by ``_chunked_ce``, plus the
 MoE aux); with ``cfg.remat`` and grad on, ``trunk`` recomputes each repeat
@@ -32,13 +42,11 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.banked import _device
+from repro_torch.core.sharding import P
 from . import attention, mamba, moe, xlstm
-from .layers import MLP, ModelConfig, _param, dense_init, rms_norm, swiglu
+from .layers import (MLP, ModelConfig, _param, dense_init, emb_axis,
+                     mlp_specs, rms_norm, swiglu)
 
-#: what a MoE config with ``moe_ep=True`` raises
-_NO_EP = ("moe_ep=True (the reference's apply_ep: experts sharded over a "
-          "mesh with shard_map) has no one-GPU counterpart: ROADMAP queue 1,"
-          " item 9, expert parallelism")
 #: each mixer's module
 _MIXERS = {"attn": attention.Attention, "cross": attention.Attention,
            "mamba": mamba.Mamba, "mlstm": xlstm.MLSTM, "slstm": xlstm.SLSTM}
@@ -85,12 +93,55 @@ def layer_plan(cfg: ModelConfig):
     raise ValueError(f"no periodic plan for {cfg.name}")
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` when ``cfg`` needs what the port does
-    not have: expert parallelism over a mesh."""
-    if cfg.moe_ep and any(_desc(cfg, li)["ffn"] == "moe"
-                          for li in range(cfg.n_layers)):
-        raise NotImplementedError(f"{cfg.name}: {_NO_EP}")
+def check_ported(cfg: ModelConfig, mesh=None) -> None:
+    """Raise ``ValueError`` when ``cfg`` cannot be built on ``mesh``:
+    expert parallelism (``moe_ep``) needs a mesh with a "model" axis over
+    which the experts divide."""
+    if any(_desc(cfg, li)["ffn"] == "moe" for li in range(cfg.n_layers)):
+        moe.ep_slice(cfg, mesh)
+
+
+#: each mixer's specs
+_MIXER_SPECS = {"attn": attention.specs, "cross": attention.specs,
+                "mamba": mamba.specs, "mlstm": xlstm.mlstm_specs,
+                "slstm": xlstm.slstm_specs}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's ``PartitionSpec`` (``P``) of every parameter, by
+    the port's parameter name: the specs of the reference's ``init`` for
+    each leaf (a stacked group leaf's without its leading repeat axis;
+    ``convert.reference_specs`` gives the reference's tree)."""
+    e = emb_axis(cfg.fsdp)
+    out = {"embed": P("model", e), "lm_head": P(e, "model"),
+           "final_norm": P(None)}
+    for li in range(cfg.n_layers):
+        desc = _desc(cfg, li)
+        blk = {"norm1": P(None), "mixer": _MIXER_SPECS[desc["mixer"]](cfg)}
+        if desc["ffn"] != "none":
+            blk["norm2"] = P(None)
+            blk["ffn"] = (moe.specs(cfg) if desc["ffn"] == "moe"
+                          else mlp_specs(cfg))
+        out.update(_named(blk, f"layers.{li}."))
+    return out
+
+
+def _named(tree: dict, prefix: str):
+    """A nested dict's leaves as (dotted name, leaf)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def expert_leaves(model) -> list[str]:
+    """The names of the parameters this rank holds a shard of: the
+    experts of each MoE layer under ``moe_ep`` on a mesh of several
+    model ranks."""
+    E = model.cfg.moe_experts
+    return [k for k, sl in moe.expert_slices(model).items()
+            if sl.stop - sl.start < E]
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +154,7 @@ class Block(nn.Module):
     MoE): the reference's block keys."""
 
     def __init__(self, cfg: ModelConfig, desc: dict, *,
-                 gen: torch.Generator | None = None, device=None):
+                 gen: torch.Generator | None = None, device=None, mesh=None):
         super().__init__()
         d = cfg.d_model
         self.desc = desc
@@ -111,7 +162,7 @@ class Block(nn.Module):
         self.mixer = _MIXERS[desc["mixer"]](cfg, gen=gen, device=device)
         if desc["ffn"] != "none":
             self.norm2 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
-            self.ffn = (moe.MoE(cfg, gen=gen, device=device)
+            self.ffn = (moe.MoE(cfg, gen=gen, device=device, mesh=mesh)
                         if desc["ffn"] == "moe"
                         else MLP(cfg, desc["ff"], gen=gen, device=device))
 
@@ -120,14 +171,18 @@ class Transformer(nn.Module):
     """``embed`` (V, d), ``layers``, ``final_norm`` (d,), ``lm_head``
     (d, V).  Built on ``device`` (default ``cuda:0``; raises without CUDA
     unless ``device="cpu"``); weights drawn from ``gen`` when it is given,
-    uninitialised otherwise (``models/convert.py`` fills them)."""
+    uninitialised otherwise (``models/convert.py`` fills them).  ``mesh``:
+    the mesh the model runs on (``self.mesh``, the default of ``forward``,
+    ``loss_fn`` and ``decode_step``), whose "model" axis shards the experts
+    under ``moe_ep``."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
-        check_ported(cfg)
+        check_ported(cfg, mesh)
         dev = _device(device)
         self.cfg = cfg
+        self.mesh = mesh
         d, V = cfg.d_model, cfg.vocab
         if gen is not None:
             self.embed = _param(dense_init(gen, (V, d), cfg.dtype, dev))
@@ -138,7 +193,7 @@ class Transformer(nn.Module):
                                               device=dev))
         self.final_norm = _param(torch.ones(d, dtype=cfg.dtype, device=dev))
         self.layers = nn.ModuleList(
-            Block(cfg, _desc(cfg, li), gen=gen, device=dev)
+            Block(cfg, _desc(cfg, li), gen=gen, device=dev, mesh=mesh)
             for li in range(cfg.n_layers))
 
     @property
@@ -146,15 +201,18 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
+def init(cfg: ModelConfig, *, seed: int = 0, device=None,
+         mesh=None) -> Transformer:
     """A model with seeded random weights (the reference's scheme: normal
     with variance 1 / fan-in, ones for the norms, zeros for the biases),
     drawn on ``device`` from ``torch.Generator(device).manual_seed(seed)``.
     The bits differ from the reference's ``jax.random`` ones; the parity
-    tests carry the reference's weights across instead."""
+    tests carry the reference's weights across instead.  On ``mesh`` under
+    ``moe_ep`` every rank draws what one process draws, one tensor at a
+    time, and keeps its experts (``moe.MoE``)."""
     dev = _device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return Transformer(cfg, gen=gen, device=dev)
+    return Transformer(cfg, gen=gen, device=dev, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +238,10 @@ def _mix(p: Block, cfg: ModelConfig, h: torch.Tensor, frontend,
 
 
 def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                 use_kernel: bool, frontend=None):
+                 use_kernel: bool, frontend=None, mesh=None):
     """One block's forward -> (x, aux), aux the MoE FFN's load-balancing
     loss (0 for the other FFNs); ``frontend`` the tokens a cross layer
-    attends to."""
+    attends to; ``mesh`` the mesh whose data axes split ``x``'s batch."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.norm1)
     mo = _mix(p, cfg, h, frontend, use_kernel)
@@ -195,10 +253,20 @@ def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
     x = x + mo
     h2 = rms_norm(x, p.norm2)
     if p.desc["ffn"] == "moe":
-        fo, aux = moe.apply(p.ffn, cfg, h2, use_kernel=use_kernel)
+        if cfg.moe_ep:
+            fo, aux = moe.apply_ep(p.ffn, cfg, h2, mesh=mesh)
+        else:
+            fo, aux = moe.apply(p.ffn, cfg, h2, use_kernel=use_kernel,
+                                mesh=mesh)
     else:
         fo = swiglu(h2, p.ffn.wi, p.ffn.wo)
     return x + fo, aux
+
+
+def _mesh(model: Transformer, mesh):
+    """The mesh a call runs on: ``model.mesh`` for None, none for
+    ``False``."""
+    return model.mesh if mesh is None else (None if mesh is False else mesh)
 
 
 def as_tokens(tokens, device) -> torch.Tensor:
@@ -227,10 +295,10 @@ def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
 
 
 def _group_apply(blocks, cfg: ModelConfig, x: torch.Tensor,
-                 aux: torch.Tensor, use_kernel: bool, frontend):
+                 aux: torch.Tensor, use_kernel: bool, frontend, mesh):
     """Blocks in order, summing their aux into ``aux`` -> (x, aux)."""
     for blk in blocks:
-        x, a = _block_apply(blk, cfg, x, use_kernel, frontend)
+        x, a = _block_apply(blk, cfg, x, use_kernel, frontend, mesh)
         aux = aux + a
     return x, aux
 
@@ -254,34 +322,38 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def trunk(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
-          frontend=None, use_kernel: bool = False):
+          frontend=None, use_kernel: bool = False, mesh=None):
     """Embed + all blocks + final norm (pre-lm_head hidden). → (x, aux);
     ``aux`` is the sum of the MoE layers' load-balancing losses.
     ``frontend`` (B, T, d): the tokens the cross layers attend to.  With
     ``cfg.remat`` and grad on, each repeat of the layer plan's period
-    (not the prologue) is recomputed in the backward pass."""
+    (not the prologue) is recomputed in the backward pass.  ``mesh``
+    (default ``model.mesh``; ``False``: none): the mesh whose data axes
+    split the batch."""
+    mesh = _mesh(model, mesh)
     x = _embed(model, cfg, tokens, embeds)
     frontend = as_frontend(frontend, model.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pro, period, repeats = layer_plan(cfg)
     layers = list(model.layers)
-    x, aux = _group_apply(layers[:len(pro)], cfg, x, aux, use_kernel, frontend)
+    x, aux = _group_apply(layers[:len(pro)], cfg, x, aux, use_kernel, frontend,
+                          mesh)
     group = _group_apply
     if cfg.remat and torch.is_grad_enabled():
         group = _remat(cfg, _group_apply)
     n = len(period)
     for r in range(repeats):
         x, aux = group(layers[len(pro) + r * n:len(pro) + (r + 1) * n], cfg,
-                       x, aux, use_kernel, frontend)
+                       x, aux, use_kernel, frontend, mesh)
     return rms_norm(x, model.final_norm), aux
 
 
 def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
-            frontend=None, use_kernel: bool = False):
+            frontend=None, use_kernel: bool = False, mesh=None):
     """tokens: (B, S) int or embeds: (B, S, d); frontend: (B, T, d) for the
     VLM family. Returns (logits, aux)."""
     x, aux = trunk(model, cfg, tokens=tokens, embeds=embeds,
-                   frontend=frontend, use_kernel=use_kernel)
+                   frontend=frontend, use_kernel=use_kernel, mesh=mesh)
     return x @ model.lm_head, aux
 
 
@@ -314,21 +386,24 @@ def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict,
-            use_kernel: bool = False, loss_chunks: int = 0):
+            use_kernel: bool = False, loss_chunks: int = 0, mesh=None):
     """batch: {"tokens" or "embeds", "labels" (B, S), optional "frontend"}
     (``launch.train.to_device``).  Mean next-token CE, its log-sum-exp and
-    gold logit in float32, + 0.01 × the MoE aux -> (loss, {"ce", "aux"})."""
+    gold logit in float32, + 0.01 × the MoE aux -> (loss, {"ce", "aux"}).
+    On a mesh, the CE is this data rank's rows' (``launch.train`` averages
+    the ranks')."""
     labels = as_tokens(batch["labels"], model.device).long()
     if loss_chunks:
         x, aux = trunk(model, cfg, tokens=batch.get("tokens"),
                        embeds=batch.get("embeds"),
-                       frontend=batch.get("frontend"), use_kernel=use_kernel)
+                       frontend=batch.get("frontend"), use_kernel=use_kernel,
+                       mesh=mesh)
         ce = _chunked_ce(x, model.lm_head, labels, loss_chunks)
     else:
         logits, aux = forward(model, cfg, tokens=batch.get("tokens"),
                               embeds=batch.get("embeds"),
                               frontend=batch.get("frontend"),
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, mesh=mesh)
         lf = logits.to(torch.float32)
         gold = lf.gather(-1, labels[..., None])[..., 0]
         ce = (torch.logsumexp(lf, dim=-1) - gold).mean()
@@ -367,7 +442,8 @@ def init_cache(model: Transformer, cfg: ModelConfig, batch: int,
                        for blk in model.layers]}
 
 
-def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                  mesh=None):
     h = rms_norm(x, p.norm1)
     mixer = p.desc["mixer"]
     if mixer == "attn":
@@ -388,22 +464,25 @@ def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     x = x + mo
     h2 = rms_norm(x, p.norm2)
     if p.desc["ffn"] == "moe":      # routing over the B tokens of the step
-        fo, _ = moe.apply(p.ffn, cfg, h2)
+        fo, _ = moe.apply(p.ffn, cfg, h2, mesh=mesh)
     else:
         fo = swiglu(h2, p.ffn.wi, p.ffn.wo)
     return x + fo, cache
 
 
 def decode_step(model: Transformer, cfg: ModelConfig, tokens, cache: dict,
-                embeds=None, frontend=None):
+                embeds=None, frontend=None, mesh=None):
     """One decode step. tokens: (B, 1) int, or embeds (B, 1, d) (the audio
     family's frame embeddings).  ``frontend`` is accepted as the
     reference's step takes it; the cross layers read the keys and values
     ``init_cache`` made from it.  Returns (logits (B, 1, V), cache); the
-    cache is updated in place."""
+    cache is updated in place.  On a mesh (default ``model.mesh``) the
+    tokens are this data rank's streams, and each MoE layer routes the
+    whole decode batch, as the reference's ``moe.apply`` does."""
+    mesh = _mesh(model, mesh)
     x = _embed(model, cfg, tokens, embeds)
     for li, blk in enumerate(model.layers):
         x, cache["layers"][li] = _block_decode(blk, cfg, x,
-                                               cache["layers"][li])
+                                               cache["layers"][li], mesh)
     x = rms_norm(x, model.final_norm)
     return x @ model.lm_head, cache

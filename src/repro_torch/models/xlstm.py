@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ModelConfig, _param, dense_init, rms_norm
+from repro_torch.core.sharding import P
+from .layers import ModelConfig, _param, dense_init, emb_axis, rms_norm
 
 #: the start of the stabiliser m (the reference's)
 M_START = -1e30
@@ -74,6 +75,14 @@ class MLSTM(nn.Module):
         _weights(self, {"wq": (d, d), "wk": (d, d), "wv": (d, d),
                         "wi": (d, H), "wf": (d, H), "wz": (d, d),
                         "wo": (d, d)}, cfg, gen, device)
+
+
+def mlstm_specs(cfg: ModelConfig) -> dict:
+    """The reference's specs of the mLSTM's weights (its ``init_mlstm``)."""
+    e = emb_axis(cfg.fsdp)
+    return {"wq": P(e, "model"), "wk": P(e, "model"), "wv": P(e, "model"),
+            "wi": P(e, None), "wf": P(e, None), "wz": P(e, "model"),
+            "wo": P("model", e), "norm": P(None)}
 
 
 def _mlstm_heads(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
@@ -229,6 +238,14 @@ class SLSTM(nn.Module):
         _weights(self, {"wz": (d, d), "wi": (d, d), "wf": (d, d),
                         "wo_gate": (d, d), "up": (d, 2 * d),
                         "down": (d, d)}, cfg, gen, device)
+
+
+def slstm_specs(cfg: ModelConfig) -> dict:
+    """The reference's specs of the sLSTM's weights (its ``init_slstm``)."""
+    e = emb_axis(cfg.fsdp)
+    return {"wz": P(e, None), "wi": P(e, None), "wf": P(e, None),
+            "wo_gate": P(e, None), "up": P(e, "model"),
+            "down": P(None, e), "norm": P(None)}
 
 
 def _slstm_step(carry, gates):

@@ -11,6 +11,12 @@ as the reference's zero leaf does: it adds nothing to the norm, and
 weight decay still moves its parameter.  ``torch.optim.AdamW`` is not
 this update: it skips such parameters, decays before the step and has no
 global clip or schedule of this shape.
+
+On a mesh, the gradient norm is the whole model's: the squares of the
+leaves a rank holds a shard of (the experts under ``moe_ep``) are summed
+over their group before the root (``apply(..., sharded=, group=)``).
+``psum_compressed`` over a process group is the reference's int8
+all-reduce of the data axis.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +38,11 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10000
     min_lr_frac: float = 0.1
+
+
+#: elements of a leaf ``apply`` updates at a time (its temporaries: a few
+#: float32 chunks, not a few copies of the largest leaf)
+UPDATE_CHUNK = 1 << 22
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -60,34 +72,55 @@ def init(params: dict) -> dict:
     }
 
 
-def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in float32."""
-    sq = [torch.sum(g.to(torch.float32) ** 2) for g in grads.values()
-          if g is not None]
+def global_norm(grads: dict, sharded=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in float32; the
+    squares of the ``sharded`` leaves summed over ``group`` first."""
+    sq = [torch.sum(g.to(torch.float32) ** 2) for k, g in grads.items()
+          if g is not None and k not in sharded]
+    part = [torch.sum(g.to(torch.float32) ** 2) for k, g in grads.items()
+            if g is not None and k in sharded]
+    if part:
+        part = torch.stack(part).sum()
+        dist.all_reduce(part, group=group)
+        sq.append(part)
     return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
+def apply(cfg: AdamWConfig, grads: dict, state: dict, params: dict, *,
+          sharded=(), group=None):
     """One AdamW step, in place: ``state``'s master, mu and nu and the
     ``params`` (re-cast from the master) are updated, and ``state["step"]``
-    is the next step.  Returns (params, state, {"grad_norm", "lr"})."""
+    is the next step.  ``sharded`` / ``group``: ``global_norm``'s.
+    Returns (params, state, {"grad_norm", "lr"})."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded, group)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1c = 1 - torch.pow(cfg.b1, step.to(torch.float32))
     b2c = 1 - torch.pow(cfg.b2, step.to(torch.float32))
     for k, p in params.items():
-        m, v, w = state["mu"][k], state["nu"][k], state["master"][k]
+        m, v, w = (state[part][k].view(-1) for part in ("mu", "nu", "master"))
         g = grads.get(k)
-        g = (torch.zeros_like(w) if g is None else g.to(torch.float32)) * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        mhat, vhat = m / b1c, v / b2c
-        w.copy_(w - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                          + cfg.weight_decay * w))
-        p.copy_(w)
+        g = None if g is None else g.reshape(-1)
+        # the reference's expressions, each rounding in its order, a chunk
+        # of the leaf at a time (elementwise, so the same bits; a few
+        # temporaries of a chunk, not of the leaf):
+        # m = b1 m + (1 - b1) g;  v = b2 v + ((1 - b2) g) g;
+        # w = w - lr (m / b1c / (sqrt(v / b2c) + eps) + wd w)
+        for lo in range(0, w.numel(), UPDATE_CHUNK):
+            c = slice(lo, lo + UPDATE_CHUNK)
+            gc = (torch.zeros_like(w[c]) if g is None
+                  else g[c].to(torch.float32)) * scale
+            t = gc * (1 - cfg.b1)
+            m[c].mul_(cfg.b1).add_(t)
+            torch.mul(gc, 1 - cfg.b2, out=t).mul_(gc)
+            v[c].mul_(cfg.b2).add_(t)
+            torch.div(v[c], b2c, out=t).sqrt_().add_(cfg.eps)
+            u = torch.div(m[c], b1c).div_(t)
+            u.add_(torch.mul(w[c], cfg.weight_decay, out=t)).mul_(lr)
+            w[c].sub_(u)
+        p.copy_(state["master"][k])
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
@@ -106,18 +139,28 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def psum_compressed(grads: dict) -> dict:
-    """The int8-compressed gradient all-reduce over a one-member group:
-    each gradient quantized with its own per-tensor scale (the group's
-    shared scale, when the group is one device), summed (itself) and
-    dequantized into its dtype — what the reference computes on a
-    one-device mesh.  ``None`` stays ``None`` (zeros quantize to zeros).
-    A group of several GPUs waits for ROADMAP queue 1, item 9.6."""
+def psum_compressed(grads: dict, group=None) -> dict:
+    """int8-compressed gradient all-reduce over ``group`` (the reference's
+    over a data axis): agree on a shared scale (all-reduce MAX of the local
+    amax, plus 1e-12), quantize, all-reduce SUM in int32, dequantize into
+    each gradient's dtype.  4x less on the wire than float32; equals the
+    sum up to quantization error.  ``group=None`` or a one-member group is
+    the reference's one-device mesh: each gradient quantized with its own
+    scale and dequantized.  ``None`` stays ``None`` (zeros quantize to
+    zeros; every member has the same ``None`` leaves)."""
     out = {}
     for k, g in grads.items():
         if g is None:
             out[k] = None
             continue
-        q, scale = compress_int8(g)
-        out[k] = decompress_int8(q.to(torch.int32), scale).to(g.dtype)
+        gf = g.to(torch.float32)
+        amax = gf.abs().max()
+        if group is not None:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        scale = (amax + 1e-12) / 127.0
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        qsum = q.to(torch.int32)
+        if group is not None:
+            dist.all_reduce(qsum, group=group)
+        out[k] = decompress_int8(qsum, scale).to(g.dtype)
     return out

@@ -427,3 +427,49 @@ def test_restart_leg_fails_with_its_child(cs, monkeypatch):
                         subprocess.CompletedProcess(a, 1, "", "boom"))
     with pytest.raises(AssertionError, match="exited 1:\nboom"):
         cs.restart_leg()
+
+
+def smoke_dist_configs():
+    """The dist phase's models at SMOKE size (DeepSeek SMOKE with
+    ``moe_ep``, 8 experts over 4 ranks; TinyLlama SMOKE at 2 layers), in
+    their FULL dtypes where the phase runs bfloat16, at short sequences."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    moe = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
+                              moe_ep=True)
+    lm = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
+                             n_layers=2)
+    return {"moe_f32": dataclasses.replace(moe, n_layers=4),
+            "moe_bf16": dataclasses.replace(moe, dtype=torch.bfloat16),
+            "lm_f32": lm,
+            "lm_bf16": dataclasses.replace(lm, dtype=torch.bfloat16),
+            "ep_train": dataclasses.replace(moe, n_layers=2,
+                                            dtype=torch.bfloat16),
+            "prefill": 64, "prompt": 8, "new": 4, "f32_seq": 16, "seq": 32,
+            "steps": 4, "ep_seq": 16, "world": 4}
+
+
+def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
+    """The dist phase at SMOKE size in 4 gloo ranks on the CPU: leg A's
+    float32 EP forward against one process, leg B's greedy tokens equal on
+    every rank, leg C's float32 gradients, the compressed step, the
+    restart onto (2, 1) at 1e-5 and the EP steps on (2, 2) within
+    DIST_EP_TOL; no launch (CPU tensors run the plain versions), no
+    memory counter (the card's)."""
+    import sys
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.setattr(cs, "dist_configs", smoke_dist_configs)
+    counts = cs.dist_phase(torch.device("cpu"), "cpu rehearsal")
+    assert counts == {"flash_attention": 0, "moe_gmm": 0}
+    out = capsys.readouterr().out
+    assert "dist: 4 ranks on cpu rehearsal over gloo with cpu tensors" in out
+    assert "experts [(0, 2), (2, 4), (4, 6), (6, 8)] of 8" in out
+    assert re.search(r"leg A f32, 4 layers: EP vs one process max \|diff\|",
+                     out)
+    assert "equal to one process's on every rank" in out
+    assert re.search(r"worst gradient leaf \S+ at \S+ of its largest", out)
+    assert re.search(r"\(2, 1\) resumed \[.*\] \(1e-5\)", out)
+    assert "moe_ep on {'data': 2, 'model': 2}" in out

@@ -998,6 +998,74 @@ def test_restart_is_bit_exact_in_a_subprocess(dev):
     assert run.returncode == 0, run.stderr[-4000:]
 
 
+# -- expert parallelism over torch.distributed ------------------------------------
+
+def _ep_forward_rank(rank: int, toks, per_rank_card: bool):
+    """DeepSeek SMOKE with ``moe_ep`` on a (1, 2) mesh: the rank's half of
+    the experts, ``forward(use_kernel=True)`` -> (logits, aux, launches)."""
+    import dataclasses
+
+    from repro_torch.runtime import elastic
+
+    card = torch.device("cuda", rank if per_rank_card else 0)
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = elastic.carve_mesh(model_parallel=2)
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
+                              moe_ep=True)
+    model = transformer.init(cfg, seed=0, device=card, mesh=mesh)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, aux = transformer.forward(model, cfg, toks.to(card),
+                                          use_kernel=True)
+    torch.cuda.synchronize()
+    return logits.cpu(), float(aux), ops.launch_counts()
+
+
+def _ep_forward_against_one_process(dev, per_rank_card: bool, backend: str):
+    import dataclasses
+
+    from repro_torch.launch import mesh as lmesh
+
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    toks = torch.randint(0, cfg.vocab, (2, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(3))
+    got = lmesh.spawn(_ep_forward_rank, 2, toks, per_rank_card,
+                      backend=backend, timeout=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = transformer.init(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        want, aux = transformer.forward(one, cfg, toks.to(dev))
+    want = want.cpu()
+    for logits, a, counts in got:
+        err = (logits - want).abs()
+        assert bool((err <= 1e-4 * (1 + want.abs())).all()), float(err.max())
+        assert abs(a - float(aux)) <= 1e-5
+        assert counts["flash_attention"] == cfg.n_layers, counts
+        assert counts["moe_gmm"] == 0 and sum(counts.values()) == \
+            cfg.n_layers, counts
+    assert dataclasses.replace(cfg, moe_ep=True).moe_experts == 8
+
+
+def test_expert_parallel_forward_on_one_card_over_gloo(dev):
+    """Two ranks on cuda:0 over gloo (CUDA tensors through the host):
+    each rank's logits and aux equal the one-process forward's at 1e-4;
+    ``flash_attention`` once a layer, ``moe_gmm`` never (``apply_ep``
+    multiplies the experts with ``torch.bmm``, as the reference's
+    einsums)."""
+    _ep_forward_against_one_process(dev, False, "gloo")
+
+
+def test_expert_parallel_forward_over_nccl(dev):
+    """The same over NCCL with a card a rank; NCCL refuses two ranks on
+    one card, so a machine with one card skips it (not verified on GPU)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"not verified on GPU: NCCL takes a card a rank and "
+                    f"this machine has {n}")
+    _ep_forward_against_one_process(dev, True, "nccl")
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--fault-loop"]:
     fault_loop(*map(int, sys.argv[2:5]))
 if __name__ == "__main__" and sys.argv[1:2] == ["--restart"]:

@@ -270,18 +270,43 @@ def test_moe_and_hybrid_families_build(arch):
     assert torch.isfinite(logits).all() and float(aux) > 0
 
 
-def test_expert_parallelism_raises():
-    """``moe_ep=True`` runs the experts sharded over a mesh in the
-    reference (``apply_ep``); one GPU has no counterpart."""
+def test_expert_parallelism_raises(tmp_path):
+    """``moe_ep=True`` shards the experts over a mesh's "model" axis (the
+    reference's ``apply_ep``): without a mesh the model refuses to build,
+    naming expert parallelism; on a (1, 1) mesh (a world of one gloo
+    process) it builds, holds all 8 experts, and its forward equals the
+    one-process model's of the same seed (every collective runs over one
+    rank).  A config without a MoE layer has nothing to shard."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.elastic import carve_mesh
+
     cfg = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
                               moe_ep=True)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
+    with pytest.raises(ValueError, match="expert parallelism"):
         transformer.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="expert parallelism"):
         transformer.check_ported(cfg)
     dense = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
                                 moe_ep=True)
     transformer.check_ported(dense)          # no MoE layer: nothing to shard
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = carve_mesh(model_parallel=1, device_type="cpu")
+        assert dict(zip(mesh.mesh_dim_names, mesh.shape)) == \
+            {"data": 1, "model": 1}
+        transformer.check_ported(cfg, mesh)
+        model = transformer.init(cfg, device="cpu", mesh=mesh)
+        assert model.layers[1].ffn.wi.shape[0] == cfg.moe_experts
+        toks = torch.arange(12, dtype=torch.int32).reshape(2, 6) % cfg.vocab
+        got, aux = transformer.forward(model, cfg, toks)
+        plain = dataclasses.replace(cfg, moe_ep=False)
+        one = transformer.init(plain, device="cpu")
+        want, want_aux = transformer.forward(one, plain, toks)
+        assert torch.equal(got, want) and torch.equal(aux, want_aux)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", MOE + HYBRID)

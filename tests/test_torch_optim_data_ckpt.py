@@ -161,6 +161,57 @@ def test_apply_matches_reference():
     assert not torch.equal(state["master"]["c"], torch.from_numpy(init["c"]))
 
 
+@pytest.mark.parametrize("chunk", [1 << 22, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_is_the_references_expression_bit_for_bit(dtype, chunk,
+                                                        monkeypatch):
+    """``apply`` updates in place, a chunk of a leaf at a time (four ranks
+    on one card hold four copies of DeepSeek's replicated state); every
+    state and parameter equals, bit for bit, the reference's expression
+    evaluated as written on whole leaves, over six steps, a ``None``
+    gradient on every other step, with leaves inside one chunk and leaves
+    of several (a chunk of 100 elements)."""
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK", chunk)
+    def written(cfg, grads, state, params):
+        step = state["step"] + 1
+        scale = torch.clamp(cfg.clip_norm / (optim.global_norm(grads) + 1e-9),
+                            max=1.0)
+        lr = optim.schedule(cfg, step)
+        b1c = 1 - torch.pow(cfg.b1, step.to(torch.float32))
+        b2c = 1 - torch.pow(cfg.b2, step.to(torch.float32))
+        for k, p in params.items():
+            m, v, w = state["mu"][k], state["nu"][k], state["master"][k]
+            g = grads.get(k)
+            g = (torch.zeros_like(w) if g is None
+                 else g.to(torch.float32)) * scale
+            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+            v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+            w.copy_(w - lr * (m / b1c / (torch.sqrt(v / b2c) + cfg.eps)
+                              + cfg.weight_decay * w))
+            p.copy_(w)
+        state["step"] = step
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"a": (64, 33), "b": (1000,), "c": (7,)}
+    want = {k: torch.randn(s, generator=gen).to(dtype)
+            for k, s in shapes.items()}
+    got = {k: v.clone() for k, v in want.items()}
+    sw, sg = optim.init(want), optim.init(got)
+    cfg = optim.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+    for i in range(6):
+        g = {k: (torch.randn(s, generator=gen) * 3).to(dtype)
+             for k, s in shapes.items()}
+        g["c"] = None if i % 2 else g["c"]
+        written(cfg, g, sw, want)
+        optim.apply(cfg, g, sg, got)
+    for part in ("master", "mu", "nu"):
+        for k in shapes:
+            assert torch.equal(sg[part][k], sw[part][k]), (part, k)
+    for k in shapes:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_global_norm_counts_none_as_zero():
     g = {"a": torch.full((4,), 1.5), "b": None, "c": torch.full((1,), 4.0)}
     assert float(optim.global_norm(g)) == 5.0
