@@ -62,7 +62,19 @@ timed, with its all-reduces' host time and each rank's peak memory,
 training on (4, 1) (TinyLlama at full width, 2 layers: float32
 gradients against one process, a compressed step, ``fit`` restored onto
 (2, 1) after ``simulate_failure``, bfloat16 steps) and on (2, 2)
-(DeepSeek at 2 layers with ``moe_ep``).
+(DeepSeek at 2 layers with ``moe_ep``); and tensor parallelism, every
+"model" entry of the specs a shard: StableLM 2 12B FULL on (1, 4) (each
+rank's 6.07 GB of bfloat16 weights equal to the byte to the reference's
+specs on one device; float32 at 4 layers and greedy tokens against one
+process; the 40-layer bfloat16 prefill timed), the Jamba cut with
+``moe_ep`` on (1, 4) in float32 (``ssd_scan`` and ``flash_attention`` on
+each rank's heads), and TinyLlama at 2 layers on (2, 2) (gradients
+against one process, ``fit`` restored onto (1, 2)).  Leg A's DeepSeek
+shards its attention, dense layer 0 and shared experts too; its float32
+logits, and the Jamba cut's, are held to one process at every position,
+with one process's top-k sets replayed into the ranks' routing (the
+ranks' float32 sums run in another order and flip near-tied sets, which
+the phase counts beside their largest probability margin).
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -81,7 +93,9 @@ for flash_attention one TinyLlama prefill forward, and
 the train phase's eval loss, for moe_gmm one
 DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut; for
 flash_attention and moe_gmm ``dist_launches_per_rank``, one rank's
-expert-parallel prefill in the dist phase), its error against its plain version, and its times beside its bound: ``ms``
+expert-parallel prefill in the dist phase, for flash_attention and
+ssd_scan ``tp_launches_per_rank``, one rank's StableLM prefill and one
+rank's forward of the Jamba cut), its error against its plain version, and its times beside its bound: ``ms``
 (CUDA events around back-to-back calls of the wrapper) and ``device_ms``
 (the device operations those calls launched, from ``torch.profiler``), the
 same two for the library call, the CUDA launches of the port's kernels per
@@ -225,6 +239,15 @@ DIST_WORLD, DIST_BACKEND = 4, "gloo"
 DIST_PROMPT, DIST_NEW = 16, 16
 DIST_TRAIN_LAYERS, DIST_F32_SEQ, DIST_STEPS = 2, 256, 4
 DIST_EP_SEQ, DIST_EP_TOL = 512, 2e-2
+# its tensor-parallel legs on a (1, DIST_WORLD) mesh: D, StableLM 2 12B
+# (configs/stablelm_12b.py:FULL: 12.14 B parameters, 24.3 GB in bfloat16,
+# so four whole replicas would not fit the card) in float32 at
+# TP_F32_LAYERS, prefill 1 x TP_F32_SEQ, against one process at 1e-3, and
+# in bfloat16 at all 40 layers, prefill 1 x PREFILL, timed; E, the Jamba
+# cut (HYBRID_LAYERS at full width) with moe_ep in float32 at 1 x
+# TP_F32_SEQ, against one process at the hybrid phase's 5e-3; F,
+# TinyLlama at DIST_TRAIN_LAYERS on (2, 2)
+TP_ARCH, TP_F32_LAYERS, TP_F32_SEQ = "stablelm-12b", 4, 512
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
@@ -692,8 +715,10 @@ def flash_rows(g, dev) -> dict:
     reference's kernel-test tolerances (rtol = atol = 2e-3 float32, 2e-2
     bfloat16), then the TinyLlama prefill shape, the H2O-Danube3 shape,
     and the prefill shapes of DeepSeek-MoE (16 heads of 128), the Jamba
-    cut (64 query / 8 key-value heads of 128) and Llama 3.2 Vision (32 /
-    8 of 128), timed, at 4e-3 (``flash_case``)."""
+    cut (64 query / 8 key-value heads of 128), Llama 3.2 Vision (32 /
+    8 of 128) and one rank of StableLM 2 12B over 4 model ranks (8 / 2
+    of 160, the ``launch_bf16<192, 64>`` instantiation), timed, at 4e-3
+    (``flash_case``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
@@ -737,6 +762,11 @@ def flash_rows(g, dev) -> dict:
     vision = timed(flash_case("flash_attention", 1, vl.n_heads, vl.n_kv_heads,
                               PREFILL, PREFILL, vl.hd, vl.window, g, dev))
     row["at_llama_3_2_vision_prefill"] = dict_of(vision)
+    sl, m = get_config(TP_ARCH), DIST_WORLD
+    tp = timed(flash_case("flash_attention", 1, sl.n_heads // m,
+                          sl.n_kv_heads // m, PREFILL, PREFILL, sl.hd,
+                          sl.window, g, dev))
+    row["at_stablelm_12b_tp4_rank"] = dict_of(tp)
     torch.cuda.empty_cache()
     return row
 
@@ -1531,6 +1561,45 @@ def routed_apart(a: list, b: list) -> int:
     return sum(int((ta != tb).any(-1).sum()) for (ta, _), (tb, _) in zip(a, b))
 
 
+@contextlib.contextmanager
+def routing_tape(tape: list | None = None):
+    """Record (``tape`` None) or replay every ``moe`` routing's top-k
+    experts, call by call.  Recording yields the list of each call's (T, K)
+    top-k, in ``topk``'s order.  Replaying routes the i-th call's tokens to
+    ``tape[i]``, with gates from this run's own probabilities renormalised
+    over those K, and yields, per call, (the tokens whose own top-k set
+    differs, the largest margin that flipped one: its own k-th probability
+    less the replayed set's smallest); every entry of the tape must be
+    used."""
+    from repro_torch.models import moe
+
+    own = moe._top_k
+    calls = iter(tape or ())
+    log: list = []
+
+    def top_k(probs, cfg, dtype):
+        gate, topk = own(probs, cfg, dtype)
+        if tape is None:
+            log.append(topk.cpu())
+            return gate, topk
+        want = next(calls).to(probs.device)
+        apart = (topk.sort(-1).values != want.sort(-1).values).any(-1)
+        g = probs.gather(-1, want)
+        margin = probs.gather(-1, topk)[:, -1] - g.min(-1).values
+        log.append((int(apart.sum()),
+                    float(margin[apart].max()) if apart.any() else 0.0))
+        return (g / g.sum(-1, keepdim=True).clamp_min(1e-9)).to(dtype), want
+
+    moe._top_k = top_k
+    try:
+        yield log
+    finally:
+        moe._top_k = own
+    assert tape is None or (len(log) == len(tape)
+                            and next(calls, None) is None), (len(log),
+                                                             len(tape))
+
+
 def expected_launches(model) -> dict[str, int]:
     """Kernel launches of one forward(use_kernel=True): flash_attention per
     self-attention layer (a cross layer runs the plain attention, as the
@@ -2103,12 +2172,22 @@ def dist_configs() -> dict:
     float32 at MOE_F32_LAYERS and bfloat16 at all 28 (leg A, and leg B in
     float32); TinyLlama 1.1B FULL cut to DIST_TRAIN_LAYERS, float32 and
     bfloat16 (leg C); DeepSeek FULL cut to layer 0 and one MoE layer at
-    capacity factor 8.0 with ``moe_ep`` (leg C's expert-parallel steps)."""
+    capacity factor 8.0 with ``moe_ep`` (leg C's expert-parallel steps);
+    StableLM 2 12B FULL in float32 at TP_F32_LAYERS and bfloat16 at all 40
+    (leg D); the Jamba cut with ``moe_ep`` in float32 (leg E)."""
     from repro_torch.configs import get_config
 
     moe = dataclasses.replace(get_config(MOE_ARCH), moe_ep=True)
     lm = dataclasses.replace(get_config(LM_ARCH), n_layers=DIST_TRAIN_LAYERS)
-    return {"moe_f32": dataclasses.replace(moe, n_layers=MOE_F32_LAYERS,
+    tp = get_config(TP_ARCH)
+    return {"tp_f32": dataclasses.replace(tp, n_layers=TP_F32_LAYERS,
+                                          dtype=torch.float32),
+            "tp_bf16": tp,
+            "hy_f32": dataclasses.replace(get_config(HYBRID_ARCH),
+                                          n_layers=HYBRID_LAYERS,
+                                          dtype=torch.float32, moe_ep=True),
+            "tp_seq": TP_F32_SEQ,
+            "moe_f32": dataclasses.replace(moe, n_layers=MOE_F32_LAYERS,
                                            dtype=torch.float32),
             "moe_bf16": moe,
             "lm_f32": dataclasses.replace(lm, dtype=torch.float32),
@@ -2128,6 +2207,37 @@ def dist_tokens(c: dict, vocab: int):
                              .astype(np.int32)),
             torch.from_numpy(rng.integers(0, vocab, (2, c["prompt"]))
                              .astype(np.int32)))
+
+
+def tp_tokens(c: dict, vocab: int):
+    """Legs D and E's float32 prefill tokens (1, tp_seq), leg D's bfloat16
+    prefill (1, prefill) and its prompt (2, prompt), the same in the parent
+    and in every rank."""
+    rng = np.random.default_rng(12)
+    return tuple(torch.from_numpy(rng.integers(0, vocab, shape)
+                                  .astype(np.int32))
+                 for shape in ((1, c["tp_seq"]), (1, c["prefill"]),
+                               (2, c["prompt"])))
+
+
+def reference_bytes(cfg, dims: dict) -> int:
+    """The bytes of parameters that the reference's specs
+    (``transformer.param_specs``) put on one device of a mesh of ``dims``
+    ({axis: size}): each leaf's bytes over the sizes of the axes its spec
+    names (``NamedSharding``'s shard of dimensions that divide, which
+    tests/test_torch_tp.py holds the port's layout to)."""
+    from repro_torch.core.sharding import axis_size
+    from repro_torch.models import transformer
+
+    whole = transformer.Transformer(dataclasses.replace(cfg, moe_ep=False),
+                                    device="meta")
+    specs = transformer.param_specs(cfg)
+    total = 0
+    for name, p in whole.named_parameters():
+        names = [a for e in specs[name] if e is not None
+                 for a in ((e,) if isinstance(e, str) else e) if a in dims]
+        total += p.numel() * p.element_size() // axis_size(dims, names)
+    return total
 
 
 def dist_batch(cfg, batch: int, seq: int, step: int) -> dict:
@@ -2152,8 +2262,11 @@ def dist_reference(c: dict, dev, d: str) -> dict:
         cfg = dataclasses.replace(c["moe_f32"], moe_ep=False)
         toks, prompt = dist_tokens(c, cfg.vocab)
         model = transformer.init(cfg, seed=0, device=dev)
-        logits, _ = transformer.forward(model, cfg, toks, use_kernel=True)
+        with routing_tape() as tape:
+            logits, _ = transformer.forward(model, cfg, toks,
+                                            use_kernel=True)
         torch.save(logits.cpu(), os.path.join(d, "a_f32.pt"))
+        torch.save(tape, os.path.join(d, "a_f32_routing.pt"))
         del logits
         ref["tokens"] = serve.greedy_generate(model, cfg, prompt,
                                               c["new"]).cpu()
@@ -2167,6 +2280,40 @@ def dist_reference(c: dict, dev, d: str) -> dict:
             ref["prefill_ms"] = host_ms(lambda: transformer.forward(
                 model, cfg, toks, use_kernel=True))
         del model
+        empty_cache(dev)
+
+        # legs D and E
+        cfg = c["tp_f32"]
+        short, long, prompt = tp_tokens(c, cfg.vocab)
+        model = transformer.init(cfg, seed=0, device=dev)
+        logits, _ = transformer.forward(model, cfg, short, use_kernel=True)
+        torch.save(logits.cpu(), os.path.join(d, "d_f32.pt"))
+        del logits
+        ref["tp_tokens"] = serve.greedy_generate(model, cfg, prompt,
+                                                 c["new"]).cpu()
+        del model
+        empty_cache(dev)
+        cfg = c["tp_bf16"]
+        model = transformer.init(cfg, seed=0, device=dev)
+        ref["tp_param_gb"] = sum(p.numel() * p.element_size()
+                                 for p in model.parameters()) / 1e9
+        logits, _ = transformer.forward(model, cfg, long, use_kernel=True)
+        torch.save(logits.cpu(), os.path.join(d, "d_bf16.pt"))
+        del logits
+        if dev.type == "cuda":
+            ref["tp_prefill_ms"] = host_ms(lambda: transformer.forward(
+                model, cfg, long, use_kernel=True))
+        del model
+        empty_cache(dev)
+        cfg = dataclasses.replace(c["hy_f32"], moe_ep=False)
+        model = transformer.init(cfg, seed=0, device=dev)
+        with routing_tape() as tape:
+            logits, _ = transformer.forward(model, cfg,
+                                            tp_tokens(c, cfg.vocab)[0],
+                                            use_kernel=True)
+        torch.save(logits.cpu(), os.path.join(d, "e_f32.pt"))
+        torch.save(tape, os.path.join(d, "e_f32_routing.pt"))
+        del logits, model
         empty_cache(dev)
 
     lm = c["lm_f32"]
@@ -2234,6 +2381,12 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def flipped(flips: list) -> tuple[int, float]:
+    """``routing_tape``'s replay log -> (the (token, layer) pairs whose own
+    top-k set differed from the replayed one, the largest margin)."""
+    return (sum(n for n, _ in flips), max((m for _, m in flips), default=0.0))
+
+
 def counted(fn, dev):
     """``fn()`` with every launch count set to 0 just before it -> (its
     result, the launches)."""
@@ -2274,11 +2427,15 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
                           model.layers[1].ffn.experts.stop)
         fwd = lambda: transformer.forward(model, cfg, toks,  # noqa: E731
                                           use_kernel=True)[0]
-        got, out["f32_launches"] = counted(fwd, dev)
+        with routing_tape(torch.load(os.path.join(
+                d, "a_f32_routing.pt"))) as flips:
+            got, out["f32_launches"] = counted(fwd, dev)
+        out["f32_flips"] = flipped(flips)
         if rank == 0:
             want = torch.load(os.path.join(d, "a_f32.pt")).to(dev)
-            out["f32_err"] = check("dist EP f32 vs one process", got, want,
-                                   rel(want, 1e-3))
+            out["f32_err"] = check(
+                "dist TP + EP f32 vs one process, its top-k sets", got, want,
+                rel(want, 1e-3))
             del want
         del got
         out["tokens"] = serve.greedy_generate(model, cfg, prompt,
@@ -2362,7 +2519,121 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
                                          c["ep_seq"], 2)
     if dev.type == "cuda":
         out["ep_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    empty_cache(dev)
+    tp_legs(rank, c, d, dev, mesh, m22, out)
     return out
+
+
+def tp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
+    """Legs D, E and F of one rank (``dist_rank``'s meshes: ``mesh`` the
+    (1, 4) one, ``m22`` the (2, 2) one), into ``out``."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import sharding
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.runtime import elastic
+
+    # leg D: StableLM 2 12B, float32 at 4 layers, then bfloat16 at 40
+    cfg = c["tp_f32"]
+    short, long, prompt = (t.to(dev) for t in tp_tokens(c, cfg.vocab))
+    with torch.no_grad():
+        model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+        blk = model.layers[0].mixer
+        out["d_heads"] = blk.heads
+        got, out["d_f32_launches"] = counted(
+            lambda: transformer.forward(model, cfg, short,
+                                        use_kernel=True)[0], dev)
+        if rank == 0:
+            want = torch.load(os.path.join(d, "d_f32.pt")).to(dev)
+            out["d_f32_err"] = check("dist TP f32 vs one process", got, want,
+                                     rel(want, 1e-3))
+            del want
+        del got
+        out["d_tokens"] = serve.greedy_generate(model, cfg, prompt,
+                                                c["new"]).cpu()
+        del model
+        empty_cache(dev)
+
+        cfg = c["tp_bf16"]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+        out["d_param_bytes"] = sum(p.numel() * p.element_size()
+                                   for p in model.parameters())
+        fwd = lambda: transformer.forward(model, cfg, long,  # noqa: E731
+                                          use_kernel=True)[0]
+        got, out["d_bf16_launches"] = counted(fwd, dev)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        if rank == 0:
+            want = torch.load(os.path.join(d, "d_bf16.pt")).to(dev)
+            out["d_bf16_err"] = float((got.float() - want.float()).abs().max())
+            out["d_bf16_agree"] = float((got.argmax(-1) == want.argmax(-1))
+                                        .float().mean())
+            del want
+        del got
+        sync(dev)
+        sharding.reset_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fwd()
+        sync(dev)
+        out["d_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["d_allreduce"] = {k: v / 3 for k, v in sharding.STATS.items()}
+        if dev.type == "cuda":
+            out["d_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del model
+        empty_cache(dev)
+
+        # leg E: the Jamba cut with moe_ep, float32
+        cfg = c["hy_f32"]
+        model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+        mixers = {b.desc["mixer"]: b.mixer for b in model.layers}
+        mamba, attn = mixers["mamba"], mixers["attn"]
+        out["e_heads"] = {"attention": attn.heads,
+                          "mamba": mamba.conv.shape[1] // cfg.ssm_head_dim}
+        with routing_tape(torch.load(os.path.join(
+                d, "e_f32_routing.pt"))) as flips:
+            got, out["e_launches"] = counted(
+                lambda: transformer.forward(
+                    model, cfg, tp_tokens(c, cfg.vocab)[0].to(dev),
+                    use_kernel=True)[0], dev)
+        out["e_flips"] = flipped(flips)
+        if rank == 0:
+            want = torch.load(os.path.join(d, "e_f32.pt")).to(dev)
+            out["e_err"] = check(
+                "dist TP + EP Jamba cut f32 vs one process, its top-k sets",
+                got, want, rel(want, 5e-3))
+            del want
+        del got, model
+        empty_cache(dev)
+
+    # leg F: TinyLlama on (2, 2), float32
+    lm = c["lm_f32"]
+    model, _ = train.init_state(0, lm, dev, m22)
+    b = train.shard_batch(dist_batch(lm, 4, c["f32_seq"], 0), lm, m22, dev)
+    loss, g = train.make_grads(lm, m22)(model, b)
+    out["f_loss"] = float(loss)
+    want = torch.load(os.path.join(d, "c_grads.pt"))
+    parts = transformer.leaf_parts(model)
+    gaps = {}
+    for k, w in want.items():
+        part = w if k not in parts else parts[k][0].take(w, parts[k][1])
+        gaps[k] = float((g[k].cpu() - part).abs().max() / w.abs().max())
+    worst = max(gaps, key=gaps.get)
+    out["f_grad_worst"] = (worst, gaps[worst])
+    assert gaps[worst] <= GRAD_TOL, (rank, worst, gaps[worst])
+    del model, g, want
+    empty_cache(dev)
+    out["f_fit"] = dist_fit(lm, dev, m22, c, c["steps"])
+    ck = os.path.join(d, "ck_tp")
+    out["f_first"] = dist_fit(lm, dev, m22, c, c["steps"] // 2,
+                              Checkpointer(ck, keep=2), c["steps"] // 2)
+    m12 = elastic.simulate_failure(m22, n_lost=2, model_parallel=2)
+    out["f_mesh_restart"] = dict(zip(m12.mesh_dim_names, m12.shape))
+    if sharding.member(m12):
+        out["f_resumed"] = dist_fit(lm, dev, m12, c, c["steps"],
+                                    Checkpointer(ck))
+    empty_cache(dev)
 
 
 def dist_phase(dev, card: str) -> dict[str, int]:
@@ -2385,8 +2656,10 @@ def dist_phase(dev, card: str) -> dict[str, int]:
     resuming to the uninterrupted losses at 1e-5; bfloat16 steps at
     4 x TRAIN_SEQ printed beside one process's; DeepSeek cut to 2 layers
     with ``moe_ep`` on (2, 2) at capacity factor 8.0, 2 steps, the loss
-    against one process at DIST_EP_TOL (1 + |loss|).  Returns the
-    launches per rank of leg A's bfloat16 prefill."""
+    against one process at DIST_EP_TOL (1 + |loss|).  Legs D, E and F:
+    tensor parallelism (``tp_legs``, ``tp_report``).  Returns the
+    launches per rank of leg A's bfloat16 prefill ("ep") and of legs D
+    and E ("tp")."""
     import tempfile
 
     from repro_torch.launch import mesh as lmesh
@@ -2439,8 +2712,11 @@ def dist_phase(dev, card: str) -> dict[str, int]:
           f"{DIST_WORLD}), experts {[r['experts'] for r in ranks]} of {E}; "
           f"launches per rank f32 {want_launches(n_attn)}, bf16 "
           f"{want_launches(moe.n_layers)} (every rank)")
-    print(f"  leg A f32, {n_attn} layers: EP vs one process max |diff| "
-          f"{r0['f32_err']:.3e} (1e-3 relative)")
+    print(f"  leg A f32, {n_attn} layers: TP + EP vs one process max |diff| "
+          f"{r0['f32_err']:.3e} (1e-3 relative) over all {c['prefill']} "
+          f"positions, routed to one process's top-k sets; the ranks' own "
+          f"sets differ at {r0['f32_flips'][0]} (token, layer) pairs, by a "
+          f"probability margin of at most {r0['f32_flips'][1]:.3e}")
     ar = r0["allreduce"]
     print(f"  leg A bf16, {moe.n_layers} layers, prefill 1 x {c['prefill']}:"
           f" {[round(r['prefill_ms'], 2) for r in ranks]} ms per rank "
@@ -2489,7 +2765,88 @@ def dist_phase(dev, card: str) -> dict[str, int]:
           f"({[round(x, 1) for x in r0['ep_ms']]} ms a step), one process "
           f"{ref['ep']}; peak memory per rank "
           f"{[round(r.get('ep_peak_gb', 0.0), 2) for r in ranks]} GB")
-    return want_launches(moe.n_layers)
+    tp = tp_report(c, ranks, ref, dev, card)
+    return {"ep": want_launches(moe.n_layers), "tp": tp}
+
+
+def tp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
+    """Legs D, E and F's gates and lines (``tp_legs``) -> the launches a
+    rank of leg D's bfloat16 prefill and of leg E's forward."""
+    r0, cuda = ranks[0], int(dev.type == "cuda")
+    tp, hy, m = c["tp_bf16"], c["hy_f32"], c["world"]
+    from repro_torch.models import attention
+
+    want = reference_bytes(tp, {"data": 1, "model": m})
+    kv = attention.kv_heads(tp, m, 0)
+    for r in ranks:
+        assert r["d_heads"] == (tp.n_heads // m, kv.stop - kv.start), r
+        for key, n in (("d_f32_launches", c["tp_f32"].n_layers),
+                       ("d_bf16_launches", tp.n_layers)):
+            assert r[key]["flash_attention"] == n * cuda, (key, r[key])
+            assert sum(r[key].values()) == n * cuda, (key, r[key])
+        assert torch.equal(r["d_tokens"], ref["tp_tokens"]), (
+            r["d_tokens"], ref["tp_tokens"])
+        assert r["d_param_bytes"] == want, (r["rank"], r["d_param_bytes"],
+                                            want)
+        kv = attention.kv_heads(hy, m, 0)
+        assert r["e_heads"] == {"attention": (hy.n_heads // m,
+                                              kv.stop - kv.start),
+                                "mamba": 2 * hy.d_model // hy.ssm_head_dim
+                                // m}, r["e_heads"]
+        e = {k: r["e_launches"][k] for k in ("flash_attention", "moe_gmm",
+                                             "ssd_scan")}
+        assert e == {"flash_attention": cuda, "moe_gmm": 0,
+                     "ssd_scan": cuda}, r["e_launches"]
+    ar = r0["d_allreduce"]
+    print(f"  leg D: StableLM 2 12B on (data 1, model {m}): "
+          f"{r0['d_param_bytes'] / 1e9:.3f} GB of bfloat16 parameters a "
+          f"rank, equal to the byte to the reference's specs on one device "
+          f"of (1, {m}) ({want} B; one process holds "
+          f"{ref['tp_param_gb']:.3f} GB); heads a rank {r0['d_heads']}")
+    print(f"  leg D f32, {c['tp_f32'].n_layers} layers, prefill 1 x "
+          f"{c['tp_seq']}: TP vs one process max |diff| {r0['d_f32_err']:.3e}"
+          f" (1e-3 relative); greedy 2 x ({c['prompt']} + {c['new']}) "
+          f"tokens equal to one process's on every rank")
+    print(f"  leg D bf16, {tp.n_layers} layers, prefill 1 x {c['prefill']}: "
+          f"{[round(r['d_ms'], 2) for r in ranks]} ms per rank (mean of 3; "
+          f"one process {ref.get('tp_prefill_ms', float('nan')):.2f} ms); "
+          f"all-reduces and gathers per prefill on rank 0: "
+          f"{ar['calls']:.0f} calls, {ar['bytes'] / 1e6:.1f} MB, "
+          f"{ar['seconds'] * 1e3:.2f} ms of host time; flash_attention "
+          f"{r0['d_bf16_launches']['flash_attention']} launches a rank; peak "
+          f"memory per rank {[round(r.get('d_peak_gb', 0.0), 2) for r in ranks]}"
+          f" GB; vs one process max |diff| {r0['d_bf16_err']:.3e}, argmax "
+          f"agrees at {r0['d_bf16_agree']:.4f}; on {card} (4 ranks on one "
+          f"card: the all-reduces go through the host, not a 4-card mesh's "
+          f"times)")
+    print(f"  leg E: the Jamba cut, {hy.n_layers} layers, moe_ep on (1, {m}),"
+          f" float32, prefill 1 x {c['tp_seq']}: vs one process max |diff| "
+          f"{r0['e_err']:.3e} (5e-3 relative) over all positions, routed to "
+          f"one process's top-k sets (the ranks' own differ at "
+          f"{r0['e_flips'][0]} (token, layer) pairs, margin at most "
+          f"{r0['e_flips'][1]:.3e}); a rank's heads {r0['e_heads']}, launches "
+          f"{ {k: v for k, v in r0['e_launches'].items() if v} }")
+    whole = r0["f_fit"]
+    np.testing.assert_allclose(whole, ref["f32_fit"], rtol=1e-4, atol=1e-4)
+    assert abs(r0["f_loss"] - ref["f32_loss"]) <= 1e-4, (r0["f_loss"],
+                                                          ref["f32_loss"])
+    for r in ranks:
+        assert r["f_fit"] == whole and r["f_first"] == whole[:len(
+            r["f_first"])]
+        assert r["f_mesh_restart"] == {"data": 1, "model": 2}
+    half = len(r0["f_first"])
+    for r in ranks[:2]:
+        np.testing.assert_allclose(r["f_resumed"], whole[half:],
+                                   rtol=1e-5, atol=1e-5)
+    assert all("f_resumed" not in r for r in ranks[2:])
+    worst = max((r["f_grad_worst"] for r in ranks), key=lambda t: t[1])
+    print(f"  leg F f32, TinyLlama {c['lm_f32'].n_layers} layers, 4 x "
+          f"{c['f32_seq']} on (2, 2): loss {r0['f_loss']:.6f} vs one process "
+          f"{ref['f32_loss']:.6f}; worst gradient part {worst[0]} at "
+          f"{worst[1]:.3e} of its largest |g|; {len(whole)} steps {whole}; "
+          f"{half} + a checkpoint, 2 ranks lost, (1, 2) resumed "
+          f"{r0['f_resumed']} (1e-5)")
+    return {"flash_attention": tp.n_layers * cuda, "ssd_scan": cuda}
 
 
 def main() -> int:
@@ -2625,7 +2982,10 @@ def main() -> int:
         counts = dist_phase(dev, smi)
         for name in ("flash_attention", "moe_gmm"):
             if name in row:
-                row[name]["dist_launches_per_rank"] = counts[name]
+                row[name]["dist_launches_per_rank"] = counts["ep"][name]
+        for name in ("flash_attention", "ssd_scan"):
+            if name in row:
+                row[name]["tp_launches_per_rank"] = counts["tp"][name]
         print(f"dist: {time.perf_counter() - t0:.2f} s")
     for r in rows:
         print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "

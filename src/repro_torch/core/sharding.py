@@ -16,15 +16,20 @@ not imported.
 The collectives reduce over one mesh axis after another (a sum or a max
 over the product of axes is the same thing); each call adds to ``STATS``
 its host seconds, which include waiting for the device work that made the
-operand.  Two autograd pairs carry expert parallelism's combine
-(Megatron's conjugate pair): ``reduce_from`` sums forward and passes the
-gradient through; ``copy_to`` passes the value through and sums the
-gradient.
+operand.  The autograd functions carry tensor and expert parallelism
+(Megatron's conjugate pair and its kin): ``reduce_from`` sums forward and
+passes the gradient through; ``copy_to`` passes the value through and
+sums the gradient; ``reduce_both`` sums both ways (a sum that each rank
+then uses for its own part); ``gather`` concatenates the ranks' blocks
+and gives each rank its block of the gradient.  ``Group`` holds one mesh
+axis as a rank sees it (its size, the rank's index, those collectives),
+and ``SOLO`` is the group of one, whose collectives return their input.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 import torch.distributed as dist
@@ -92,6 +97,13 @@ def axis_index(mesh, axes) -> int:
     for a in _names(axes):
         i = i * shape[a] + mesh.get_local_rank(a)
     return i
+
+
+def block(n: int, mesh, axis: str = "model") -> slice:
+    """This rank's block of ``n`` split evenly over ``axis`` (no
+    communication); ``n`` must divide."""
+    return Group(mesh, axis, axis_size(mesh, axis),
+                 axis_index(mesh, axis)).block(n)
 
 
 def member(mesh) -> bool:
@@ -184,6 +196,126 @@ def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``x``, replicated over ``axis``, entering work that each rank does
     for its own part: the gradients of the parts are summed."""
     return _CopyTo.apply(x, mesh, axis)
+
+
+class _ReduceBoth(torch.autograd.Function):
+    """All-reduce forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.mesh, ctx.axis), None, None
+
+
+def reduce_both(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of each rank's partial ``x``, which each rank
+    then uses for its own part: the gradients of those uses are summed
+    too (``reduce_from``'s identity backward would give each rank its own
+    use's share)."""
+    return _ReduceBoth.apply(x, mesh, axis)
+
+
+def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The blocks of ``x`` along ``axis`` concatenated on ``dim``, on
+    ``x``'s device.  Over gloo a CUDA tensor is gathered as the all-reduce
+    of a zero-filled whole (gloo gathers no CUDA tensor); otherwise by
+    ``all_gather``."""
+    n, i = axis_size(mesh, axis), axis_index(mesh, axis)
+    group = mesh.get_group(axis)
+    x = x.contiguous()
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        shape = list(x.shape)
+        k, shape[dim] = shape[dim], shape[dim] * n
+        whole = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        whole.narrow(dim, i * k, k).copy_(x)
+        return all_reduce(whole, mesh, axis)
+    t0 = time.perf_counter()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    STATS["calls"] += 1
+    STATS["seconds"] += time.perf_counter() - t0
+    STATS["bytes"] += x.numel() * x.element_size() * n
+    return torch.cat(parts, dim=dim)
+
+
+class _Gather(torch.autograd.Function):
+    """Gather forward, the rank's block of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.block = (dim, axis_index(mesh, axis) * x.shape[dim], x.shape[dim])
+        return _gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.block), None, None, None
+
+
+def gather(x: torch.Tensor, mesh, axis: str, dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``axis`` concatenated on ``dim``
+    (in the axis's order), on ``x``'s device.  The gradient of each block
+    is its block of the whole's gradient: right where every rank uses the
+    whole alike (the logits of a replicated loss); where the ranks use it
+    differently, sum first (``copy_to`` of the gathered whole)."""
+    return _Gather.apply(x, mesh, axis, dim % x.dim())
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """One mesh axis as this rank sees it: its ``size``, the rank's
+    ``index`` along it and the collectives over it.  The default is the
+    group of one (``SOLO``), whose collectives return their input and
+    whose ``block`` is the whole."""
+    mesh: Any = None
+    axis: str = "model"
+    size: int = 1
+    index: int = 0
+
+    def block(self, n: int) -> slice:
+        if n % self.size:
+            raise ValueError(f"{n} does not split over {self.size} ranks "
+                             f"of {self.axis!r}")
+        k = n // self.size
+        return slice(self.index * k, (self.index + 1) * k)
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.size == 1 else copy_to(x, self.mesh, self.axis)
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.size == 1 else reduce_from(x, self.mesh, self.axis)
+
+    def reduce_both(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.size == 1 else reduce_both(x, self.mesh, self.axis)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return x if self.size == 1 else gather(x, self.mesh, self.axis, dim)
+
+    def part(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's block of dimension ``dim`` of the replicated ``w``,
+        through ``copy_to``: the ranks' gradients of their parts are
+        summed, so each holds ``w``'s whole gradient."""
+        if self.size == 1:
+            return w
+        sl = self.block(w.shape[dim])
+        return self.copy_to(w).narrow(dim, sl.start, sl.stop - sl.start)
+
+
+#: the group of one: no mesh, or an axis of size 1
+SOLO = Group()
+
+
+def group(mesh, axis: str = "model") -> Group:
+    """``axis`` of ``mesh`` as this rank sees it; ``SOLO`` without a mesh,
+    without that axis, or where it has one rank."""
+    if mesh is None or mesh_shape(mesh).get(axis, 1) == 1:
+        return SOLO
+    return Group(mesh, axis, axis_size(mesh, axis), axis_index(mesh, axis))
 
 
 def mean_value(x: torch.Tensor, mesh, axes) -> torch.Tensor:

@@ -14,8 +14,11 @@ On a mesh the batch goes over the data axes when it divides
 streams' rows of the cache and decodes them, and every MoE layer routes
 the whole decode batch with the rank's experts (``transformer``).  A
 batch that does not divide is replicated, as the reference replicates its
-inputs: every rank decodes it whole, and only the experts' "model" axis
-is used.  The specs' other shards (sequence, heads) are realized as
+inputs: every rank decodes it whole.  Over the "model" axis the model is
+tensor parallel whatever the batch: each rank's cache holds its kv heads
+(or the kv heads its query heads use), Mamba channels and mLSTM heads —
+the specs' "model" shard of heads / state.  The specs' "data" shard of
+the sequence (the long-context batch-1 cache) is realized as
 replication, the same function in more memory.
 """
 from __future__ import annotations

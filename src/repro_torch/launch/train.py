@@ -7,10 +7,12 @@ in place, with:
   * the batch split over the data axes ("pod", "data") of ``mesh``: each
     data rank takes its rows of the global batch (``shard_batch``, the
     reference's ``P(data_axes, None)``); the loss is the global mean, and
-    each gradient the mean of the data ranks' (the replicated parameters'
-    and the experts'; a rank of the "model" axis computes the same
-    replicated gradients as the others, so nothing is summed over
-    "model"); the gradient norm sums the experts' squares over "model";
+    each gradient the mean of the data ranks' (a leaf a rank holds a part
+    of — tensor parallelism's dense leaves, the experts under ``moe_ep``
+    — has the gradient of its part, the rank's own; a replicated leaf has
+    the same whole gradient on every rank of the "model" axis, so nothing
+    is summed over "model"); the gradient norm sums the sharded leaves'
+    squares over "model";
   * gradient-accumulation microbatching (``microbatches`` > 1): each
     microbatch's gradients from ``torch.autograd.grad``, summed into
     float32 and divided, as the reference's scan sums into float32 zeros
@@ -22,10 +24,10 @@ in place, with:
     data-parallel meshes only: a "model" axis larger than 1 raises, as the
     reference's does); with ``mesh=None``, over a one-device group.
 
-Parameters follow the reference's spec tree (``transformer.param_specs``)
-only where expert parallelism shards them: the experts under ``moe_ep``.
-Every other "model" entry (tensor parallelism) and the FSDP "data"
-entries are realized as replication: the same function, in more memory.
+Parameters follow the reference's spec tree (``transformer.param_specs``):
+every "model" entry is a shard (tensor parallelism, and the experts under
+``moe_ep``); the FSDP "data" entries are realized as replication, the
+same function in more memory.
 No kernel lies on the gradient path: the reference has no backward for
 its Pallas kernels and trains with ``use_kernel=False``, and
 ``use_kernel=True`` raises here (the CUDA wrappers refuse autograd
@@ -33,8 +35,8 @@ inputs, ``kernels/cuda_lib.require_cuda``).
 
 The driver loop (``fit``) wires in the substrate: checkpointing (atomic +
 async, the reference's tree layout through ``models.convert``, written
-by rank 0 with the experts gathered, so a checkpoint of either package
-resumes in the other), straggler monitoring, deterministic seekable data,
+by rank 0 with the sharded leaves gathered whole, so a checkpoint of
+either package resumes in the other, on a mesh of any "model" axis), straggler monitoring, deterministic seekable data,
 and elastic restart (restore onto whatever mesh is alive).
 """
 from __future__ import annotations
@@ -75,7 +77,7 @@ def opt_state_specs(param_specs) -> dict:
 
 def init_state(seed: int, cfg: ModelConfig, device=None, mesh=None):
     """A seeded model with trainable parameters on ``device`` (default
-    ``cuda:0``), built on ``mesh`` (the rank's experts under ``moe_ep``),
+    ``cuda:0``), built on ``mesh`` (the rank's part of each sharded leaf),
     and its optimizer state -> (model, opt_state)."""
     model = transformer.init(cfg, seed=seed, device=device, mesh=mesh)
     model.requires_grad_(True)
@@ -133,8 +135,9 @@ def make_grads(cfg: ModelConfig, mesh=None, *, microbatches: int = 1,
                loss_chunks: int = 0):
     """``grads(model, batch)`` -> (loss, {name: grad or None}): the loss of
     the global batch and each parameter's gradient of it, averaged over
-    the data ranks of ``mesh`` (the rank's experts' own; identical on
-    every rank otherwise), before any compression."""
+    the data ranks of ``mesh`` (the rank's own for the leaves it holds a
+    part of; identical on every model rank otherwise), before any
+    compression."""
     dp = _dp(mesh) if mesh is not None else ()
     D = axis_size(mesh, dp) if dp else 1
 
@@ -203,8 +206,8 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, mesh=None, *,
             for a in dp if D > 1 else (None,):
                 grads = optim.psum_compressed(
                     grads, a and mesh.get_group(a))
-        sharded = transformer.expert_leaves(model)
-        kw = {"sharded": sharded, "group": mesh.get_group("model")} \
+        sharded = transformer.sharded_leaves(model)
+        kw = {"sharded": set(sharded), "group": mesh.get_group("model")} \
             if sharded else {}
         _, opt_state, om = optim.apply(ocfg, grads, opt_state, params, **kw)
         return model, opt_state, {"loss": loss, **om}
@@ -214,8 +217,8 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, mesh=None, *,
 
 def _checkpoint_tree(model, opt_state: dict, cfg: ModelConfig) -> dict:
     """The reference's layout: the parameters as tensors (bfloat16 stays
-    bfloat16), the optimizer state as float32 / int32 arrays, the experts
-    whole (every rank of a model group takes part)."""
+    bfloat16), the optimizer state as float32 / int32 arrays, the sharded
+    leaves whole (every rank of a model group takes part)."""
     return {"params": convert.reference_tree(
                 convert.whole(dict(model.named_parameters()), model), cfg),
             "opt": convert.opt_state_to_reference(opt_state, cfg, model)}
@@ -229,8 +232,9 @@ def fit(cfg: ModelConfig, *, steps: int, data_loader,
     """End-to-end training driver with restart support, on ``device``
     (default ``cuda:0``) -> (model, opt_state, loss history).  On ``mesh``
     every rank of it calls ``fit``: each takes its rows of the loader's
-    global batches, rank 0 writes the checkpoints, and a restart restores
-    onto whatever mesh it is given (carve, restore, continue at step k)."""
+    global batches, rank 0 writes the checkpoints (whole), and a restart
+    restores onto whatever mesh it is given, each rank taking its part
+    (carve, restore, continue at step k)."""
     ocfg = ocfg or optim.AdamWConfig(total_steps=steps)
     dev = _device(device)
     rank0 = mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])

@@ -13,6 +13,16 @@ Weights are ``(d_in, d_out)`` parameters named as the reference's keys
 new one; here the new key and value are written into the cache tensors
 in place (no copy of the cache per token), and the returned cache is the
 same dict with its ``len`` advanced.
+
+Tensor parallelism (a layer built with ``tp``, the mesh's "model" axis of
+M ranks): rank r holds the columns of its query heads r·H/M … of ``wq``
+(``bq``), the rows of those heads of ``wo``, and the block r of the
+columns of ``wk`` / ``wv`` (``bk`` / ``bv``).  Where the kv heads divide
+(KVH % M == 0) that block is the rank's kv heads; otherwise the rank
+computes its block of the keys and values, gathers them over "model" and
+keeps the kv heads its query heads use.  The layer's input enters through
+``copy_to`` and its output is the ranks' partial sums added
+(``reduce_from``); the caches hold the kv heads the rank uses.
 """
 from __future__ import annotations
 
@@ -20,29 +30,52 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
-from repro_torch.core.sharding import P
-from .layers import ModelConfig, _param, dense_init, emb_axis, rope
+from repro_torch.core.sharding import SOLO, Group, P
+from .layers import ModelConfig, _param, build, emb_axis, layout, rope
+
+
+def kv_heads(cfg: ModelConfig, m: int, r: int) -> slice:
+    """The kv heads that the query heads of rank ``r`` of ``m`` use;
+    raises where the rank's query heads do not group evenly over them
+    (``transformer.check_ported`` says so first)."""
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    if H % m:
+        raise ValueError(f"{cfg.name}: {H} heads do not split over {m} "
+                         f"model ranks")
+    hl, rep = H // m, H // KVH
+    if hl % rep and rep % hl:
+        raise ValueError(f"{cfg.name}: {hl} query heads a rank do not group "
+                         f"evenly over kv heads of {rep} query heads each")
+    return slice(r * hl // rep, ((r + 1) * hl - 1) // rep + 1)
+
 
 class Attention(nn.Module):
     """One attention layer's weights, drawn from ``gen`` when it is given
     (the reference's init scheme) and left uninitialised otherwise (for a
-    weight carry)."""
+    weight carry); on ``tp`` the rank's part (module docstring).
+    ``heads``: (query, kv) heads the rank computes; ``kv``: the kv heads
+    it keeps, of the gathered whole when ``gathered``."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None):
+                 device=None, tp: Group = SOLO):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
         H, KVH = cfg.n_heads, cfg.n_kv_heads
         shapes = {"wq": (d, H * hd), "wk": (d, KVH * hd),
                   "wv": (d, KVH * hd), "wo": (H * hd, d)}
-        for name, shape in shapes.items():
-            w = (dense_init(gen, shape, cfg.dtype, device) if gen is not None
-                 else torch.empty(shape, dtype=cfg.dtype, device=device))
-            setattr(self, name, _param(w))
+        sp = specs(cfg)
+        build(self, shapes, sp, cfg.dtype, gen, device, tp)
         if cfg.qkv_bias:
             for name, n in (("bq", H * hd), ("bk", KVH * hd), ("bv", KVH * hd)):
-                setattr(self, name, _param(torch.zeros(n, dtype=cfg.dtype,
-                                                       device=device)))
+                lay = layout(name, sp[name], (n,), tp.size)
+                setattr(self, name, _param(torch.zeros(
+                    lay.local((n,)) if lay else n, dtype=cfg.dtype,
+                    device=device)))
+                if lay is not None:
+                    self.layouts[name] = lay
+        self.kv = kv_heads(cfg, tp.size, tp.index)
+        self.gathered = KVH % tp.size != 0
+        self.heads = (H // tp.size, self.kv.stop - self.kv.start)
 
 
 def specs(cfg: ModelConfig) -> dict:
@@ -63,39 +96,58 @@ def _bias(p: Attention, name: str):
     return getattr(p, name) if hasattr(p, name) else 0
 
 
+def _kv(p: Attention, cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """The rank's keys or values (B, S, ·) as (B, S, kv heads, hd): its
+    block, or the kv heads it keeps of the gathered whole (whose
+    gradients the ranks sum)."""
+    B, S, _ = t.shape
+    if p.gathered:
+        t = p.tp.copy_to(p.tp.gather(t, dim=-1))
+        return t.reshape(B, S, cfg.n_kv_heads, cfg.hd)[:, :, p.kv]
+    return t.reshape(B, S, p.heads[1], cfg.hd)
+
+
 def _project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor):
     B, S, _ = x.shape
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     q = x @ p.wq + _bias(p, "bq")
     k = x @ p.wk + _bias(p, "bk")
     v = x @ p.wv + _bias(p, "bv")
-    q = q.reshape(B, S, H, hd).transpose(1, 2)
-    k = k.reshape(B, S, KVH, hd).transpose(1, 2)
-    v = v.reshape(B, S, KVH, hd).transpose(1, 2)
+    q = q.reshape(B, S, p.heads[0], hd).transpose(1, 2)
+    k = _kv(p, cfg, k).transpose(1, 2)
+    v = _kv(p, cfg, v).transpose(1, 2)
     q = rope(q, positions[:, None, :], cfg.rope_theta)
     k = rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
 
 
+def _out(p: Attention, o: torch.Tensor, reduce: bool) -> torch.Tensor:
+    """The rank's heads' output (B, S, heads · hd) through its rows of
+    ``wo``; the ranks' partial sums added unless ``reduce=False``."""
+    y = o @ p.wo
+    return p.tp.reduce_from(y) if reduce else y
+
+
 def apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
           positions: torch.Tensor | None = None,
-          use_kernel: bool = False) -> torch.Tensor:
-    """Training / prefill self-attention. x: (B, S, d)."""
+          use_kernel: bool = False, reduce: bool = True) -> torch.Tensor:
+    """Training / prefill self-attention. x: (B, S, d); ``reduce=False``
+    gives the rank's partial sum (the caller adds the ranks')."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _project(p, cfg, x, positions)
+    q, k, v = _project(p, cfg, p.tp.copy_to(x), positions)
     attn = ops.attention if use_kernel else kref.attention
     o = attn(q, k, v, causal=True, window=cfg.window)
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-    return o @ p.wo
+    return _out(p, o.transpose(1, 2).reshape(B, S, -1), reduce)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None) -> dict:
+               device=None, kv_heads: int | None = None) -> dict:
+    """``kv_heads``: the kv heads the rank keeps (default all)."""
     dtype = dtype or cfg.dtype
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+    shape = (batch, kv_heads or cfg.n_kv_heads, max_len, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -116,24 +168,25 @@ def attend_cached(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                              window=cfg.window,
                              impl="grouped" if cfg.fast_decode else "ref")
     cache["len"] = lengths
-    return o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.hd), cache
+    return o.transpose(1, 2).reshape(B, 1, q.shape[1] * cfg.hd), cache
 
 
-def decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+def decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+           reduce: bool = True):
     """Single-token decode. x: (B, 1, d); returns (y, cache)."""
     positions = cache["len"][:, None]
-    q, k, v = _project(p, cfg, x, positions)
+    q, k, v = _project(p, cfg, p.tp.copy_to(x), positions)
     o, cache = attend_cached(cfg, q, k, v, cache)
-    return o @ p.wo, cache
+    return _out(p, o, reduce), cache
 
 
 # -- cross attention (VLM image layers) --------------------------------------
 
-def init_cross(gen: torch.Generator, cfg: ModelConfig,
-               device=None) -> Attention:
+def init_cross(gen: torch.Generator, cfg: ModelConfig, device=None,
+               tp: Group = SOLO) -> Attention:
     """A cross-attention layer's weights: the keys of a self-attention
     layer, as the reference's ``init_cross``."""
-    return Attention(cfg, gen=gen, device=device)
+    return Attention(cfg, gen=gen, device=device, tp=tp)
 
 
 def promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -148,12 +201,11 @@ def promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def cross_kv(p: Attention, cfg: ModelConfig, kv_tokens: torch.Tensor):
-    """The frontend's keys and values, (B, KVH, T, hd) each, in the
-    promoted dtype of the frontend and the weights."""
-    B, T, _ = kv_tokens.shape
-    KVH, hd = cfg.n_kv_heads, cfg.hd
-    k = promoted_matmul(kv_tokens, p.wk).reshape(B, T, KVH, hd)
-    v = promoted_matmul(kv_tokens, p.wv).reshape(B, T, KVH, hd)
+    """The frontend's keys and values, (B, kv heads, T, hd) each (the kv
+    heads the rank keeps), in the promoted dtype of the frontend and the
+    weights."""
+    k = _kv(p, cfg, promoted_matmul(kv_tokens, p.wk))
+    v = _kv(p, cfg, promoted_matmul(kv_tokens, p.wv))
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -165,11 +217,10 @@ def apply_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError("a cross-attention layer needs the frontend's "
                          "tokens: pass frontend=")
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
-    q = (x @ p.wq).reshape(B, S, H, hd).transpose(1, 2)
+    q = (p.tp.copy_to(x) @ p.wq).reshape(B, S, p.heads[0], cfg.hd)
     k, v = cross_kv(p, cfg, kv_tokens)
-    o = kref.attention(q, k, v, causal=False)
-    return o.transpose(1, 2).reshape(B, S, H * hd) @ p.wo
+    o = kref.attention(q.transpose(1, 2), k, v, causal=False)
+    return _out(p, o.transpose(1, 2).reshape(B, S, -1), True)
 
 
 def init_cross_cache(p: Attention, cfg: ModelConfig,
@@ -188,8 +239,9 @@ def decode_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     """One token's cross attention over the cached frontend keys and
     values (all T of them valid). x: (B, 1, d); returns (y, cache)."""
     B = x.shape[0]
-    q = (x @ p.wq).reshape(B, 1, cfg.n_heads, cfg.hd).transpose(1, 2)
+    q = (p.tp.copy_to(x) @ p.wq).reshape(B, 1, p.heads[0], cfg.hd)
     T = cache["ck"].shape[2]
     lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
-    o = ops.decode_attention(q, cache["ck"], cache["cv"], lens, impl="ref")
-    return o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo, cache
+    o = ops.decode_attention(q.transpose(1, 2), cache["ck"], cache["cv"],
+                             lens, impl="ref")
+    return _out(p, o.transpose(1, 2).reshape(B, 1, -1), True), cache

@@ -14,11 +14,14 @@ Both packages store weights as ``(d_in, d_out)``, so every leaf is a copy,
 never a transpose.  A caller holding the reference's jax arrays passes
 ``jax.tree.map(np.asarray, params)``; this module imports no JAX.
 
-On a mesh under ``moe_ep`` a rank holds its model rank's experts: a carry
-from the reference keeps that slice of each ``wi`` / ``wo`` (and of the
-optimizer's), and a carry back gathers the slices over "model", so the
-reference's tree is whole and a checkpoint resumes in either package on
-any mesh.
+On a mesh a rank holds its part of each leaf that the model shards over
+"model" (``transformer.sharded_leaves``: the dense leaves of tensor
+parallelism by ``layers.layout``, the experts under ``moe_ep``): a carry
+from the reference keeps that part of the leaf (and of the optimizer's),
+and a carry back gathers the parts over "model" and puts each where the
+whole leaf holds it (``Layout.assemble``, which undoes the fused leaves'
+placement), so the reference's tree is whole and a checkpoint resumes in
+either package on any mesh, whatever its "model" axis.
 """
 from __future__ import annotations
 
@@ -28,9 +31,8 @@ import torch
 from repro_torch.core import sharding
 from repro_torch.core.banked import _device
 from repro_torch.core.sharding import P
-from . import moe
 from .layers import ModelConfig
-from .transformer import Transformer, expert_leaves, layer_plan
+from .transformer import Transformer, layer_plan, leaf_parts, sharded_leaves
 
 #: the leaves outside the blocks
 _TOP = ("embed", "final_norm", "lm_head")
@@ -85,21 +87,27 @@ def _nested(flat: dict) -> dict:
     return root
 
 
+def _part(t: torch.Tensor, name: str, parts: dict):
+    """``t``, the whole leaf ``name``, or the rank's part of it where
+    ``parts`` (``transformer.leaf_parts``) has it."""
+    if name not in parts:
+        return t
+    lay, index = parts[name]
+    return lay.take(t, index)
+
+
 def _load(module: torch.nn.Module, tree: dict, where: str) -> None:
     """Copy ``tree``'s leaves into ``module``'s parameters of the same
     dotted names; the two must hold the same names, shapes and dtypes,
-    but for the experts of a rank under ``moe_ep``, which take their
-    slice."""
+    but for the leaves a rank holds a part of, which take their part."""
     flat = _dotted(tree)
     params = dict(module.named_parameters())
     if set(flat) != set(params):
         raise ValueError(f"{where}: reference leaves {sorted(flat)} != port "
                          f"parameters {sorted(params)}")
-    experts = moe.expert_slices(module)
+    parts = leaf_parts(module)
     for name, p in params.items():
-        src = _tensor(flat[name])
-        if name in experts:
-            src = src[experts[name]]
+        src = _part(_tensor(flat[name]), name, parts)
         if src.shape != p.shape or src.dtype != p.dtype:
             raise ValueError(f"{where}.{name}: reference {tuple(src.shape)} "
                              f"{src.dtype}, port {tuple(p.shape)} {p.dtype}")
@@ -111,13 +119,13 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None,
                           mesh=None) -> Transformer:
     """The port's model on ``device`` (default ``cuda:0``) holding the
     reference's weights ``tree`` (numpy leaves, or tensors) for ``cfg``,
-    built on ``mesh`` (under ``moe_ep`` the rank keeps its experts)."""
+    built on ``mesh`` (the rank keeps its part of each sharded leaf)."""
     model = Transformer(cfg, device=device, mesh=mesh)
     pro, period, _ = layer_plan(cfg)
-    top = {k: tree[k] for k in _TOP}
+    parts = leaf_parts(model)
     with torch.no_grad():
-        for k, v in top.items():
-            getattr(model, k).copy_(_tensor(v))
+        for k in _TOP:
+            getattr(model, k).copy_(_part(_tensor(tree[k]), k, parts))
     for li, blk in enumerate(model.layers):
         _load(blk, _layer_tree(tree, len(pro), max(len(period), 1), li),
               f"layer {li}")
@@ -193,18 +201,26 @@ def _map(fn, tree):
 
 def whole(named: dict, model: Transformer) -> dict:
     """``named`` (the model's parameters, or the optimizer's master, mu or
-    nu) with every expert leaf gathered over the model's "model" axis
-    onto the CPU: the leaves of the one-process model.  Off a mesh, or
-    without ``moe_ep``, ``named`` itself."""
-    split = set(expert_leaves(model))
-    return {k: sharding.all_gather(v, model.mesh, "model") if k in split
-            else v for k, v in named.items()}
+    nu) with every leaf the rank holds a part of gathered over the model's
+    "model" axis onto the CPU and put in its place
+    (``Layout.assemble``): the leaves of the one-process model.  Off a
+    mesh, ``named`` itself."""
+    parts = sharded_leaves(model)
+    out = {}
+    for k, v in named.items():
+        lay = parts.get(k)
+        if lay is None:
+            out[k] = v
+            continue
+        blocks = sharding.all_gather(v, model.mesh, "model", dim=lay.dim)
+        out[k] = lay.assemble(blocks.chunk(lay.m, dim=lay.dim))
+    return out
 
 
 def params_to_reference(model: Transformer, cfg: ModelConfig) -> dict:
     """The model's weights as the reference's tree of numpy arrays, the
-    inverse of ``params_from_reference``; on a mesh the experts are
-    gathered (every rank of a model group calls it)."""
+    inverse of ``params_from_reference``; on a mesh the sharded leaves
+    are gathered (every rank of a model group calls it)."""
     return _map(_numpy, reference_tree(
         whole(dict(model.named_parameters()), model), cfg))
 
@@ -213,7 +229,8 @@ def opt_state_to_reference(state: dict, cfg: ModelConfig,
                            model: Transformer | None = None) -> dict:
     """The port's optimizer state (``optim.init``: master, mu and nu by
     parameter name, an int32 step) as the reference's tree of numpy
-    arrays; with ``model`` on a mesh, the experts' state is gathered."""
+    arrays; with ``model`` on a mesh, the sharded leaves' state is
+    gathered."""
     tree = {k: reference_tree(state[k] if model is None
                               else whole(state[k], model), cfg)
             for k in ("master", "mu", "nu")}
@@ -224,10 +241,10 @@ def opt_state_from_reference(tree: dict, cfg: ModelConfig, device=None,
                              model: Transformer | None = None) -> dict:
     """The reference's optimizer state (numpy arrays or tensors) as the
     port's, on ``device`` (default ``cuda:0``); with ``model`` on a mesh,
-    each expert leaf's slice that the model holds."""
+    the part of each leaf that the model holds."""
     dev = _device(device)
-    experts = {} if model is None else moe.expert_slices(model)
-    state = {k: {name: _tensor(v)[experts.get(name, slice(None))]
+    parts = {} if model is None else leaf_parts(model)
+    state = {k: {name: _part(_tensor(v), name, parts)
                  .to(dev).contiguous()
                  for name, v in from_reference_tree(tree[k], cfg).items()}
              for k in ("master", "mu", "nu")}

@@ -8,6 +8,16 @@ otherwise) → gate y·silu(z) → RMSNorm → out_proj.  Decode keeps the last
 conv_k − 1 inputs and the (H, N, P) float32 state as its cache: O(1) per
 token.  Parameters are named as the reference's keys; ``dt_bias`` and
 ``a_log`` are float32 whatever the model's dtype.
+
+Tensor parallelism (``tp``, the "model" axis of M ranks): rank r holds the
+channels block r of the inner width di — its heads r·H/M … (the head dim
+divides the block) — in ``in_proj`` (x block and z block), ``conv`` and
+``norm``, the rows of those channels in ``bc_proj``, ``dt_proj`` and
+``out_proj``, and ``dt_bias`` / ``a_log`` whole, of which it uses its
+heads' part through ``copy_to``.  ``bc_proj`` / ``dt_proj``'s products,
+and the gated norm's sum of squares over di, are summed over the ranks in
+both directions (each rank uses the sum for its own heads); ``out_proj``'s
+partial sums are added.  The cache holds the rank's channels and heads.
 """
 from __future__ import annotations
 
@@ -16,8 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
-from repro_torch.core.sharding import P
-from .layers import ModelConfig, _param, dense_init, emb_axis, rms_norm
+from repro_torch.core.sharding import SOLO, Group, P
+from .layers import (ModelConfig, _param, build, emb_axis, layout,
+                     rms_norm_parts)
 
 
 def _dims(cfg: ModelConfig):
@@ -29,23 +40,25 @@ def _dims(cfg: ModelConfig):
 
 class Mamba(nn.Module):
     """One Mamba mixer's weights, drawn from ``gen`` when it is given (the
-    reference's scheme) and left uninitialised otherwise."""
+    reference's scheme) and left uninitialised otherwise; on ``tp`` the
+    rank's part (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None):
+                 device=None, tp: Group = SOLO):
         super().__init__()
         d = cfg.d_model
         di, H, _, N = _dims(cfg)
         shapes = {"in_proj": (d, 2 * di), "conv": (cfg.ssm_conv, di),
                   "bc_proj": (di, 2 * N), "dt_proj": (di, H),
                   "out_proj": (di, d)}
-        for name, shape in shapes.items():
-            w = (dense_init(gen, shape, cfg.dtype, device) if gen is not None
-                 else torch.empty(shape, dtype=cfg.dtype, device=device))
-            setattr(self, name, _param(w))
+        build(self, shapes, specs(cfg), cfg.dtype, gen, device, tp)
         self.dt_bias = _param(torch.zeros(H, dtype=torch.float32, device=device))
         self.a_log = _param(torch.zeros(H, dtype=torch.float32, device=device))
-        self.norm = _param(torch.ones(di, dtype=cfg.dtype, device=device))
+        lay = layout("norm", specs(cfg)["norm"], (di,), tp.size)
+        self.norm = _param(torch.ones(lay.local((di,)) if lay else di,
+                                      dtype=cfg.dtype, device=device))
+        if lay is not None:
+            self.layouts["norm"] = lay
 
 
 def specs(cfg: ModelConfig) -> dict:
@@ -69,49 +82,63 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_inputs(p: Mamba, cfg: ModelConfig, xc: torch.Tensor):
-    B, S, di = xc.shape
+    """From the rank's channels ``xc`` (B, S, di / M): the scan's inputs
+    of its heads."""
+    B, S, _ = xc.shape
     _, H, P, N = _dims(cfg)
-    b, c = (xc @ p.bc_proj).chunk(2, dim=-1)                # (B, S, N) each
+    tp = p.tp
+    heads = tp.block(H)
+    b, c = tp.reduce_both(xc @ p.bc_proj).chunk(2, dim=-1)  # (B, S, N) each
+    dt = tp.reduce_both(xc.to(torch.float32) @ p.dt_proj.to(torch.float32))
+    if tp.size > 1:
+        dt = dt[..., heads]
     # softplus as jax.nn.softplus writes it, log(exp(x) + 1)
-    dt = torch.logaddexp(xc.to(torch.float32) @ p.dt_proj.to(torch.float32)
-                         + p.dt_bias, torch.zeros((), device=xc.device))
-    a = torch.exp(-dt * torch.exp(p.a_log))                 # decay in (0, 1)
-    xh = xc.reshape(B, S, H, P)
+    dt = torch.logaddexp(dt + tp.part(p.dt_bias, 0),
+                         torch.zeros((), device=xc.device))
+    a = torch.exp(-dt * torch.exp(tp.part(p.a_log, 0)))     # decay in (0, 1)
+    xh = xc.reshape(B, S, H // tp.size, P)
     u = xh * dt[..., None].to(xh.dtype)                     # Δ-scaled input
     return u, a, b, c, xh
+
+
+def _out(p: Mamba, cfg: ModelConfig, y: torch.Tensor,
+         z: torch.Tensor) -> torch.Tensor:
+    """The gate, the norm over di and ``out_proj`` of the rank's channels;
+    the ranks' partial sums added."""
+    y = y * F.silu(z.to(torch.float32)).to(z.dtype)
+    y = rms_norm_parts(y, p.norm, _dims(cfg)[0], p.tp) @ p.out_proj
+    return p.tp.reduce_from(y)
 
 
 def apply(p: Mamba, cfg: ModelConfig, x: torch.Tensor, *,
           use_kernel: bool = False) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
-    di = _dims(cfg)[0]
-    xi, z = (x @ p.in_proj).chunk(2, dim=-1)
+    xi, z = (p.tp.copy_to(x) @ p.in_proj).chunk(2, dim=-1)
     xc = _conv_causal(xi, p.conv)
     u, a, b, c, _ = _ssm_inputs(p, cfg, xc)
     scan = ops.ssd_scan if use_kernel else kref.ssd_scan
     y, _ = scan(u, a, b, c)                                 # (B, S, H, P)
-    y = y.reshape(B, S, di)
-    y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    return rms_norm(y, p.norm) @ p.out_proj
+    return _out(p, cfg, y.reshape(B, S, -1), z)
 
 
-def init_cache(cfg: ModelConfig, batch: int, dtype=None, device=None) -> dict:
-    """``conv``: the last conv_k − 1 inputs (B, K − 1, di) in the model's
-    dtype; ``ssm``: the state (B, H, N, P) in float32."""
+def init_cache(cfg: ModelConfig, batch: int, dtype=None, device=None,
+               m: int = 1) -> dict:
+    """``conv``: the last conv_k − 1 inputs (B, K − 1, di / m) in the
+    model's dtype; ``ssm``: the state (B, H / m, N, P) in float32 — the
+    rank's channels and heads of ``m`` model ranks."""
     dtype = dtype or cfg.dtype
     di, H, P, N = _dims(cfg)
-    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype,
-                                device=device),
-            "ssm": torch.zeros((batch, H, N, P), dtype=torch.float32,
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, di // m),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, H // m, N, P), dtype=torch.float32,
                                device=device)}
 
 
 def decode(p: Mamba, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     """x: (B, 1, d); one step of the recurrence.  Returns (y, new cache)."""
     B = x.shape[0]
-    di = _dims(cfg)[0]
-    xi, z = (x @ p.in_proj).chunk(2, dim=-1)                # (B, 1, di)
+    xi, z = (p.tp.copy_to(x) @ p.in_proj).chunk(2, dim=-1)  # (B, 1, di / M)
     window = torch.cat([cache["conv"], xi], dim=1)          # (B, K, di)
     w = p.conv
     xc = sum(window[:, i:i + 1, :] * w[i] for i in range(w.shape[0]))
@@ -120,6 +147,5 @@ def decode(p: Mamba, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     h = a[:, 0, :, None, None] * cache["ssm"] + torch.einsum(
         "bn,bhp->bhnp", b[:, 0].to(torch.float32), u[:, 0].to(torch.float32))
     y = torch.einsum("bn,bhnp->bhp", c[:, 0].to(torch.float32), h)
-    y = y.reshape(B, 1, di).to(x.dtype)
-    y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    return rms_norm(y, p.norm) @ p.out_proj, {"conv": window[:, 1:], "ssm": h}
+    y = y.reshape(B, 1, -1).to(x.dtype)
+    return _out(p, cfg, y, z), {"conv": window[:, 1:], "ssm": h}

@@ -28,6 +28,11 @@ batch split over the data axes, replicated over "model":
   over the whole batch; experts sharded under ``moe_ep`` are combined over
   "model" as above.
 
+Under tensor parallelism (the model's "model" axis of M > 1 ranks) the
+shared experts hold the dense FFN's layout (``layers.MLP``): their
+partial sums join the experts' combine in one all-reduce where the
+experts are split, and are added by their own otherwise.
+
 The gradients follow the function: the combine sums forward and passes
 the gradient through, the router's probabilities and the tokens enter
 each rank's pairs replicated and their gradients are summed over "model"
@@ -42,9 +47,9 @@ import torch
 from torch import nn
 
 from repro_torch.core import sharding
-from repro_torch.core.sharding import P
+from repro_torch.core.sharding import SOLO, Group, P
 from repro_torch.kernels import ops
-from .layers import MLP, ModelConfig, _param, dense_init, emb_axis, swiglu
+from .layers import MLP, ModelConfig, build, emb_axis, mlp, swiglu
 
 
 def ep_slice(cfg: ModelConfig, mesh, model_axis: str = "model") -> slice:
@@ -62,8 +67,7 @@ def ep_slice(cfg: ModelConfig, mesh, model_axis: str = "model") -> slice:
     if E % m:
         raise ValueError(f"{cfg.name}: expert parallelism over {m} model "
                          f"ranks needs the {E} experts to divide")
-    j = mesh.get_local_rank(model_axis)
-    return slice(j * E // m, (j + 1) * E // m)
+    return sharding.block(E, mesh, model_axis)
 
 
 class MoE(nn.Module):
@@ -73,12 +77,13 @@ class MoE(nn.Module):
     ``gen`` when it is given (the reference's scheme: fan-in of d for
     ``wi``, of f for ``wo``), uninitialised otherwise (for a weight
     carry).  Under ``moe_ep`` on ``mesh``, ``wi`` and ``wo`` hold the
-    rank's experts only (``self.experts``): each is drawn whole, as one
-    process draws it, and sliced, so the rank's rows equal the same rows
-    of the one-process model of the same seed."""
+    rank's experts only (``self.experts``): each is drawn as one process
+    draws it (``layers.leaf``) and the rank keeps its experts, so its rows
+    equal the same rows of the one-process model of the same seed.  On
+    ``tp`` the shared experts hold the rank's part."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None, mesh=None):
+                 device=None, mesh=None, tp: Group = SOLO):
         super().__init__()
         d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
         self.experts = ep_slice(cfg, mesh)
@@ -86,26 +91,15 @@ class MoE(nn.Module):
         shapes = {"router": ((d, E), torch.float32, 0),
                   "wi": ((E, d, 2 * f), cfg.dtype, 1),
                   "wo": ((E, f, d), cfg.dtype, 1)}
-        for name, (shape, dtype, in_axis) in shapes.items():
-            if gen is not None:
-                w = dense_init(gen, shape, dtype, device, in_axis=in_axis)
-                if name != "router" and n < E:
-                    w = w[self.experts].clone()
-            else:
-                shape = shape if name == "router" else (n, *shape[1:])
-                w = torch.empty(shape, dtype=dtype, device=device)
-            setattr(self, name, _param(w))
+        # the experts' group (its index their block), then the layer's
+        # tensor-parallel one
+        build(self, shapes, specs(cfg), cfg.dtype, gen, device,
+              Group(mesh, "model", E // n, self.experts.start // n)
+              if n < E else SOLO, moe_ep=True)
+        self.tp = tp
         if cfg.moe_shared_experts:
             self.shared = MLP(cfg, f * cfg.moe_shared_experts, gen=gen,
-                              device=device)
-
-
-def expert_slices(module: nn.Module) -> dict[str, slice]:
-    """The dotted name, under ``module``, of each MoE layer's ``wi`` and
-    ``wo``, and the experts of the one-process tensor the rank holds."""
-    return {f"{name}.{leaf}".lstrip("."): m.experts
-            for name, m in module.named_modules() if isinstance(m, MoE)
-            for leaf in ("wi", "wo")}
+                              device=device, tp=tp)
 
 
 def specs(cfg: ModelConfig) -> dict:
@@ -245,11 +239,14 @@ def _moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, use_kernel: bool, mesh,
         apply.routing.append((topk.sort(-1).values, int((~kept).sum())))
 
     y = _experts(p, xin, ef, rank, kept, gate, C, cnt[p.experts], use_kernel)
+
+    joined = cfg.moe_shared_experts and split and p.tp.size > 1
+    if joined:      # the shared experts' partial sums join the combine
+        y = y + swiglu(xin, p.shared.wi, p.shared.wo)
     if split:
         y = sharding.reduce_from(y, mesh, model_axis)        # the combine
-
-    if cfg.moe_shared_experts:
-        y = y + swiglu(xt, p.shared.wi, p.shared.wo)
+    if cfg.moe_shared_experts and not joined:
+        y = y + mlp(p.shared, xt)
 
     n_pairs = (T if per_shard else T * D) * K
     frac_tok = total.to(torch.float32) / max(n_pairs, 1)

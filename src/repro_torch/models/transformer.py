@@ -12,19 +12,26 @@ loop, which gives the same numbers.  Ported: the ``attn``, ``cross``
 (the VLM family's image layers, over ``frontend=`` tokens), ``mamba``,
 ``mlstm`` and ``slstm`` mixers, the ``dense``, ``moe`` and ``none``
 FFNs, ``parallel_block`` (stablelm), ``qkv_bias`` (codeqwen) and the
-audio family's ``embeds=`` input.  Expert parallelism (``moe_ep``) runs
-on a mesh (``core.sharding``): the model is built with ``mesh=``, each
-MoE layer holds its model rank's experts and runs ``moe.apply_ep``, as
+audio family's ``embeds=`` input.
+
+On a mesh (``core.sharding``) the model is built with ``mesh=`` and
+``x`` is the rank's rows of a batch split over the data axes.  Every
+"model" entry of ``param_specs`` is a shard on a "model" axis of M > 1
+ranks (``layers.layout``): tensor parallelism, Megatron's column- and
+row-parallel matmuls — each layer's input enters its rank's heads or
+columns through ``copy_to`` and its output is the ranks' partial sums
+added (``reduce_from``; one all-reduce for a ``parallel_block`` layer's
+attention and FFN), the embedding a masked lookup of the rank's vocab
+rows, the logits the rank's vocab columns gathered (``loss_fn``'s
+streamed CE combines the ranks' log-sum-exp instead).  The experts shard
+over "model" under ``moe_ep`` (each MoE layer runs ``moe.apply_ep``, as
 the reference's block does; ``moe_ep`` without a mesh that has a "model"
-axis raises a ``ValueError`` when the model is built.  On a mesh, ``x``
-is the rank's rows of a batch split over the data axes; a MoE layer
-without ``moe_ep``, and every MoE layer in decode (the reference's decode
-block calls ``moe.apply``), gives ``moe.apply``'s result over the whole
-batch.  ``param_specs`` gives the reference's spec of every parameter.
-Of those specs, only the experts' "model" entry under ``moe_ep`` is
-realized as a shard; every other "model" entry (tensor parallelism of the
-dense weights) and the FSDP "data" entries are realized as replication,
-which computes the same function in more memory.
+axis raises a ``ValueError`` when the model is built) and are replicated
+otherwise; a MoE layer without ``moe_ep``, and every MoE layer in decode
+(the reference's decode block calls ``moe.apply``), gives
+``moe.apply``'s result over the whole batch.  The FSDP "data" entries are
+realized as replication.  A config whose "model" dimensions or heads do
+not split over M raises (``check_ported``).
 The training loss is ``loss_fn`` (next-token CE in float32, through the
 whole logits or streamed over vocab chunks by ``_chunked_ce``, plus the
 MoE aux); with ``cfg.remat`` and grad on, ``trunk`` recomputes each repeat
@@ -33,6 +40,7 @@ of the layer group in the backward pass, as the reference's
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -41,11 +49,12 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.core import sharding
 from repro_torch.core.banked import _device
 from repro_torch.core.sharding import P
 from . import attention, mamba, moe, xlstm
-from .layers import (MLP, ModelConfig, _param, dense_init, emb_axis,
-                     mlp_specs, rms_norm, swiglu)
+from .layers import (MLP, ModelConfig, _param, build, emb_axis, layout,
+                     mlp, mlp_specs, rms_norm, swiglu)
 
 #: each mixer's module
 _MIXERS = {"attn": attention.Attention, "cross": attention.Attention,
@@ -96,9 +105,42 @@ def layer_plan(cfg: ModelConfig):
 def check_ported(cfg: ModelConfig, mesh=None) -> None:
     """Raise ``ValueError`` when ``cfg`` cannot be built on ``mesh``:
     expert parallelism (``moe_ep``) needs a mesh with a "model" axis over
-    which the experts divide."""
+    which the experts divide; tensor parallelism over a "model" axis of M
+    > 1 ranks needs every "model" dimension of ``param_specs`` to divide
+    by M (``jax.jit`` refuses such a spec), each fused leaf's halves too,
+    the query heads (and Mamba's heads) to divide by M (the reference
+    would split a head), each rank's query heads to group evenly over
+    the kv heads, and a ``parallel_block`` config's dense layers to mix by
+    self-attention (the one mixer whose partial sum joins the FFN's)."""
     if any(_desc(cfg, li)["ffn"] == "moe" for li in range(cfg.n_layers)):
         moe.ep_slice(cfg, mesh)
+    m = sharding.mesh_shape(mesh).get("model", 1) if mesh is not None else 1
+    if m == 1:
+        return
+    why = f"{cfg.name}: tensor parallelism over {m} model ranks"
+    mixers = {_desc(cfg, li)["mixer"] for li in range(cfg.n_layers)}
+    if cfg.parallel_block and {
+            _desc(cfg, li)["mixer"] for li in range(cfg.n_layers)
+            if _desc(cfg, li)["ffn"] == "dense"} - {"attn"}:
+        raise ValueError(f"{why} joins only a self-attention mixer's partial "
+                         f"sum to a parallel_block layer's FFN")
+    if mixers & {"attn", "cross", "mlstm"}:
+        if cfg.n_heads % m:
+            raise ValueError(f"{why} needs the {cfg.n_heads} heads to divide")
+        try:
+            attention.kv_heads(cfg, m, 0)
+        except ValueError as e:
+            raise ValueError(f"{why}: {e}") from None
+    if "mamba" in mixers and mamba._dims(cfg)[1] % m:
+        raise ValueError(f"{why} needs the {mamba._dims(cfg)[1]} Mamba heads "
+                         f"to divide")
+    whole = Transformer(dataclasses.replace(cfg, moe_ep=False), device="meta")
+    shapes = {k: tuple(v.shape) for k, v in whole.named_parameters()}
+    for name, spec in param_specs(cfg).items():
+        try:
+            layout(name, spec, shapes[name], m, cfg.moe_ep)
+        except ValueError as e:
+            raise ValueError(f"{why}: {e}") from None
 
 
 #: each mixer's specs
@@ -135,13 +177,20 @@ def _named(tree: dict, prefix: str):
             yield prefix + k, v
 
 
-def expert_leaves(model) -> list[str]:
-    """The names of the parameters this rank holds a shard of: the
-    experts of each MoE layer under ``moe_ep`` on a mesh of several
-    model ranks."""
-    E = model.cfg.moe_experts
-    return [k for k, sl in moe.expert_slices(model).items()
-            if sl.stop - sl.start < E]
+def leaf_parts(model: nn.Module) -> dict:
+    """The dotted name of every parameter under ``model`` (a model or any
+    of its modules) that this rank holds a part of — the dense leaves of
+    tensor parallelism and the experts under ``moe_ep``, on a mesh of
+    several model ranks — and (its ``layers.Layout``, the rank's index in
+    it)."""
+    return {f"{name}.{leaf}".lstrip("."): (lay, mod.part_index)
+            for name, mod in model.named_modules()
+            for leaf, lay in getattr(mod, "layouts", {}).items()}
+
+
+def sharded_leaves(model: nn.Module) -> dict:
+    """``leaf_parts``' names and layouts."""
+    return {k: lay for k, (lay, _) in leaf_parts(model).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -154,17 +203,20 @@ class Block(nn.Module):
     MoE): the reference's block keys."""
 
     def __init__(self, cfg: ModelConfig, desc: dict, *,
-                 gen: torch.Generator | None = None, device=None, mesh=None):
+                 gen: torch.Generator | None = None, device=None, mesh=None,
+                 tp=sharding.SOLO):
         super().__init__()
         d = cfg.d_model
         self.desc = desc
+        self.tp = tp
         self.norm1 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
-        self.mixer = _MIXERS[desc["mixer"]](cfg, gen=gen, device=device)
+        self.mixer = _MIXERS[desc["mixer"]](cfg, gen=gen, device=device, tp=tp)
         if desc["ffn"] != "none":
             self.norm2 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
-            self.ffn = (moe.MoE(cfg, gen=gen, device=device, mesh=mesh)
+            self.ffn = (moe.MoE(cfg, gen=gen, device=device, mesh=mesh, tp=tp)
                         if desc["ffn"] == "moe"
-                        else MLP(cfg, desc["ff"], gen=gen, device=device))
+                        else MLP(cfg, desc["ff"], gen=gen, device=device,
+                                 tp=tp))
 
 
 class Transformer(nn.Module):
@@ -173,8 +225,9 @@ class Transformer(nn.Module):
     unless ``device="cpu"``); weights drawn from ``gen`` when it is given,
     uninitialised otherwise (``models/convert.py`` fills them).  ``mesh``:
     the mesh the model runs on (``self.mesh``, the default of ``forward``,
-    ``loss_fn`` and ``decode_step``), whose "model" axis shards the experts
-    under ``moe_ep``."""
+    ``loss_fn`` and ``decode_step``), whose "model" axis (``self.tp``)
+    shards the dense leaves and, under ``moe_ep``, the experts: the rank
+    draws each leaf as one process draws it and keeps its part."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
                  device=None, mesh=None):
@@ -183,17 +236,15 @@ class Transformer(nn.Module):
         dev = _device(device)
         self.cfg = cfg
         self.mesh = mesh
+        tp = sharding.group(mesh, "model")
         d, V = cfg.d_model, cfg.vocab
-        if gen is not None:
-            self.embed = _param(dense_init(gen, (V, d), cfg.dtype, dev))
-            self.lm_head = _param(dense_init(gen, (d, V), cfg.dtype, dev))
-        else:
-            self.embed = _param(torch.empty((V, d), dtype=cfg.dtype, device=dev))
-            self.lm_head = _param(torch.empty((d, V), dtype=cfg.dtype,
-                                              device=dev))
+        e = emb_axis(cfg.fsdp)
+        build(self, {"embed": (V, d), "lm_head": (d, V)},
+              {"embed": P("model", e), "lm_head": P(e, "model")}, cfg.dtype,
+              gen, dev, tp)
         self.final_norm = _param(torch.ones(d, dtype=cfg.dtype, device=dev))
         self.layers = nn.ModuleList(
-            Block(cfg, _desc(cfg, li), gen=gen, device=dev, mesh=mesh)
+            Block(cfg, _desc(cfg, li), gen=gen, device=dev, mesh=mesh, tp=tp)
             for li in range(cfg.n_layers))
 
     @property
@@ -220,11 +271,14 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
 # ---------------------------------------------------------------------------
 
 def _mix(p: Block, cfg: ModelConfig, h: torch.Tensor, frontend,
-         use_kernel: bool) -> torch.Tensor:
-    """The block's mixer on the normed hidden ``h``."""
+         use_kernel: bool, reduce: bool = True) -> torch.Tensor:
+    """The block's mixer on the normed hidden ``h``; ``reduce=False``: the
+    rank's partial sum of a self-attention mixer (the only mixer of a
+    ``parallel_block`` config on a mesh, ``check_ported``)."""
     mixer = p.desc["mixer"]
     if mixer == "attn":
-        return attention.apply(p.mixer, cfg, h, use_kernel=use_kernel)
+        return attention.apply(p.mixer, cfg, h, use_kernel=use_kernel,
+                               reduce=reduce)
     if mixer == "cross":
         return attention.apply_cross(p.mixer, cfg, h, frontend)
     if mixer == "mamba":
@@ -244,12 +298,12 @@ def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
     attends to; ``mesh`` the mesh whose data axes split ``x``'s batch."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.norm1)
+    if cfg.parallel_block and p.desc["ffn"] == "dense":
+        return _parallel(p, x, h, _mix(p, cfg, h, frontend, use_kernel,
+                                       reduce=False)), aux
     mo = _mix(p, cfg, h, frontend, use_kernel)
     if p.desc["ffn"] == "none":
         return x + mo, aux
-    if cfg.parallel_block:          # stablelm: attn ∥ ffn off one norm
-        fo = swiglu(h, p.ffn.wi, p.ffn.wo)
-        return x + mo + fo, aux
     x = x + mo
     h2 = rms_norm(x, p.norm2)
     if p.desc["ffn"] == "moe":
@@ -259,8 +313,18 @@ def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
             fo, aux = moe.apply(p.ffn, cfg, h2, use_kernel=use_kernel,
                                 mesh=mesh)
     else:
-        fo = swiglu(h2, p.ffn.wi, p.ffn.wo)
+        fo = mlp(p.ffn, h2)
     return x + fo, aux
+
+
+def _parallel(p: Block, x: torch.Tensor, h: torch.Tensor,
+              mo: torch.Tensor) -> torch.Tensor:
+    """stablelm's attn ∥ ffn off one norm: ``x`` plus the mixer's output
+    ``mo`` and the FFN's, the ranks' partial sums of both added in one
+    all-reduce."""
+    if p.tp.size == 1:
+        return x + mo + swiglu(h, p.ffn.wi, p.ffn.wo)
+    return x + p.tp.reduce_from(mo + mlp(p.ffn, h, reduce=False))
 
 
 def _mesh(model: Transformer, mesh):
@@ -289,9 +353,19 @@ def as_frontend(frontend, device) -> torch.Tensor | None:
 
 
 def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
-    if embeds is None:
-        return model.embed[as_tokens(tokens, model.device)]
-    return embeds.to(cfg.dtype)
+    """The token embeddings; on a "model" axis each rank looks up the
+    tokens of its vocab rows (zeros for the others) and the ranks' rows
+    are added."""
+    if embeds is not None:
+        return embeds.to(cfg.dtype)
+    ids = as_tokens(tokens, model.device)
+    tp = model.tp
+    if tp.size == 1:
+        return model.embed[ids]
+    rows = tp.block(cfg.vocab)
+    mine = (ids >= rows.start) & (ids < rows.stop)
+    e = model.embed[torch.where(mine, ids - rows.start, 0)]
+    return tp.reduce_from(torch.where(mine[..., None], e, 0))
 
 
 def _group_apply(blocks, cfg: ModelConfig, x: torch.Tensor,
@@ -354,15 +428,42 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
     VLM family. Returns (logits, aux)."""
     x, aux = trunk(model, cfg, tokens=tokens, embeds=embeds,
                    frontend=frontend, use_kernel=use_kernel, mesh=mesh)
-    return x @ model.lm_head, aux
+    return _logits(model, x), aux
+
+
+def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """``x @ lm_head``; on a "model" axis the ranks' vocab columns
+    gathered."""
+    tp = model.tp
+    return tp.gather(tp.copy_to(x) @ model.lm_head, dim=-1)
 
 
 def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
-                n_chunks: int) -> torch.Tensor:
+                n_chunks: int, tp=sharding.SOLO) -> torch.Tensor:
     """Streaming CE over vocab chunks: the (B, S, V) logits are never
     whole (one (B, S, V / k) chunk at a time, a float32 running max, sum
     and gold logit).  The head is zero-padded to ``n_chunks`` chunks of
-    ceil(V / n_chunks) columns; padded columns read -1e30."""
+    ceil(V / n_chunks) columns; padded columns read -1e30.  On ``tp``
+    ``lm_head`` is the rank's vocab columns: each rank streams its own,
+    and the ranks' maxima, sums and gold logits are combined."""
+    if tp.size > 1:
+        x = tp.copy_to(x)
+        labels = labels - tp.block(lm_head.shape[1] * tp.size).start
+    m, s, gold = _ce_parts(x, lm_head, labels, n_chunks)
+    if tp.size > 1:
+        # the log-sum-exp of every rank's columns: the largest maximum (a
+        # shift, no gradient), each rank's sum rescaled to it and added
+        mg = sharding.all_reduce(m.detach().clone(), tp.mesh, tp.axis,
+                                 op=sharding.dist.ReduceOp.MAX)
+        s = tp.reduce_from(s * torch.exp(m - mg))
+        m, gold = mg, tp.reduce_from(gold)
+    return (m + torch.log(s) - gold).mean()
+
+
+def _ce_parts(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
+              n_chunks: int):
+    """``_chunked_ce``'s float32 running max, sum and gold logit (0 where
+    the label is not among the columns) over ``lm_head``'s columns."""
     d, V = lm_head.shape
     vc = -(-V // n_chunks)
     w = torch.nn.functional.pad(lm_head, (0, n_chunks * vc - V))
@@ -382,7 +483,7 @@ def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
         gold = gold + torch.where(
             inb, lg.gather(-1, idx[..., None])[..., 0], 0.0)
         m = m_new
-    return (m + torch.log(s) - gold).mean()
+    return m, s, gold
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict,
@@ -398,7 +499,7 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict,
                        embeds=batch.get("embeds"),
                        frontend=batch.get("frontend"), use_kernel=use_kernel,
                        mesh=mesh)
-        ce = _chunked_ce(x, model.lm_head, labels, loss_chunks)
+        ce = _chunked_ce(x, model.lm_head, labels, loss_chunks, model.tp)
     else:
         logits, aux = forward(model, cfg, tokens=batch.get("tokens"),
                               embeds=batch.get("embeds"),
@@ -416,15 +517,17 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict,
 
 def _block_cache(p: Block, cfg: ModelConfig, batch: int, max_len: int,
                  frontend, device) -> dict:
-    mixer = p.desc["mixer"]
+    """The block's cache: the rank's kv heads, channels or heads."""
+    mixer, m = p.desc["mixer"], p.tp.size
     if mixer == "attn":
-        return attention.init_cache(cfg, batch, max_len, device=device)
+        return attention.init_cache(cfg, batch, max_len, device=device,
+                                    kv_heads=p.mixer.heads[1])
     if mixer == "cross":
         return attention.init_cross_cache(p.mixer, cfg, frontend)
     if mixer == "mamba":
-        return mamba.init_cache(cfg, batch, device=device)
+        return mamba.init_cache(cfg, batch, device=device, m=m)
     if mixer == "mlstm":
-        return xlstm.init_mlstm_cache(cfg, batch, device=device)
+        return xlstm.init_mlstm_cache(cfg, batch, device=device, m=m)
     return xlstm.init_slstm_cache(cfg, batch, device=device)
 
 
@@ -435,7 +538,8 @@ def init_cache(model: Transformer, cfg: ModelConfig, batch: int,
     ``{"ck", "cv"}`` for a cross layer (``frontend`` (B, T, d)),
     ``{"conv", "ssm"}`` for a Mamba one, ``{"C", "n", "m"}`` for an mLSTM
     and ``{"c", "n", "m"}`` for an sLSTM (the reference stacks the
-    repeating group's caches for its scan)."""
+    repeating group's caches for its scan); on a "model" axis, the rank's
+    kv heads, channels and heads."""
     dev = model.device
     frontend = as_frontend(frontend, dev)
     return {"layers": [_block_cache(blk, cfg, batch, max_len, frontend, dev)
@@ -446,8 +550,9 @@ def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                   mesh=None):
     h = rms_norm(x, p.norm1)
     mixer = p.desc["mixer"]
+    par = cfg.parallel_block and p.desc["ffn"] == "dense"
     if mixer == "attn":
-        mo, cache = attention.decode(p.mixer, cfg, h, cache)
+        mo, cache = attention.decode(p.mixer, cfg, h, cache, reduce=not par)
     elif mixer == "cross":
         mo, cache = attention.decode_cross(p.mixer, cfg, h, cache)
     elif mixer == "mamba":
@@ -456,17 +561,16 @@ def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
         mo, cache = xlstm.decode_mlstm(p.mixer, cfg, h, cache)
     else:
         mo, cache = xlstm.decode_slstm(p.mixer, cfg, h, cache)
+    if par:
+        return _parallel(p, x, h, mo), cache
     if p.desc["ffn"] == "none":
         return x + mo, cache
-    if cfg.parallel_block:
-        fo = swiglu(h, p.ffn.wi, p.ffn.wo)
-        return x + mo + fo, cache
     x = x + mo
     h2 = rms_norm(x, p.norm2)
     if p.desc["ffn"] == "moe":      # routing over the B tokens of the step
         fo, _ = moe.apply(p.ffn, cfg, h2, mesh=mesh)
     else:
-        fo = swiglu(h2, p.ffn.wi, p.ffn.wo)
+        fo = mlp(p.ffn, h2)
     return x + fo, cache
 
 
@@ -485,4 +589,4 @@ def decode_step(model: Transformer, cfg: ModelConfig, tokens, cache: dict,
         x, cache["layers"][li] = _block_decode(blk, cfg, x,
                                                cache["layers"][li], mesh)
     x = rms_norm(x, model.final_norm)
-    return x @ model.lm_head, cache
+    return _logits(model, x), cache

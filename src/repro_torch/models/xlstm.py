@@ -25,6 +25,16 @@ which jnp does not treat as weakly typed, so a bfloat16 query comes out
 float32 (every use casts it to float32 anyway); here it is divided in
 float32 too.  No Pallas kernel runs here in the reference, and none runs
 here.  Parameters are named as the reference's keys.
+
+Tensor parallelism (``tp``, the "model" axis of M ranks): an mLSTM rank
+holds its heads r·H/M … — the columns of ``wq`` / ``wk`` / ``wv`` /
+``wz`` and the rows of ``wo`` — and ``wi`` / ``wf`` / ``norm`` whole, of
+which it uses its heads' part through ``copy_to``; the norm over d sums
+its squares over the ranks in both directions, and ``wo``'s partial sums
+are added.  The sLSTM recurrence runs whole on every rank; its ``up``
+holds the rank's block of each half (g | u) and it multiplies by its rows
+of ``down`` (held whole, used through ``copy_to``), the partial sums
+added.
 """
 from __future__ import annotations
 
@@ -34,8 +44,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.sharding import P
-from .layers import ModelConfig, _param, dense_init, emb_axis, rms_norm
+from repro_torch.core.sharding import SOLO, Group, P
+from .layers import (ModelConfig, _param, build, emb_axis, rms_norm,
+                     rms_norm_parts)
 
 #: the start of the stabiliser m (the reference's)
 M_START = -1e30
@@ -46,15 +57,13 @@ def _dims(cfg: ModelConfig):
     return H, cfg.d_model // H
 
 
-def _weights(module: nn.Module, shapes: dict, cfg: ModelConfig,
-             gen: torch.Generator | None, device) -> None:
+def _weights(module: nn.Module, shapes: dict, specs: dict,
+             cfg: ModelConfig, gen: torch.Generator | None, device,
+             tp: Group) -> None:
     """Each weight drawn from ``gen`` (the reference's scheme) in the
-    reference's key order, or left uninitialised for a weight carry; then
-    ``norm``, ones."""
-    for name, shape in shapes.items():
-        w = (dense_init(gen, shape, cfg.dtype, device) if gen is not None
-             else torch.empty(shape, dtype=cfg.dtype, device=device))
-        setattr(module, name, _param(w))
+    reference's key order, or left uninitialised for a weight carry, the
+    rank's part on ``tp``; then ``norm``, ones."""
+    build(module, shapes, specs, cfg.dtype, gen, device, tp)
     module.norm = _param(torch.ones(cfg.d_model, dtype=cfg.dtype,
                                     device=device))
 
@@ -68,13 +77,13 @@ class MLSTM(nn.Module):
     the input and forget gates' logits; ``norm`` (d,)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None):
+                 device=None, tp: Group = SOLO):
         super().__init__()
         d = cfg.d_model
         H, _ = _dims(cfg)
         _weights(self, {"wq": (d, d), "wk": (d, d), "wv": (d, d),
                         "wi": (d, H), "wf": (d, H), "wz": (d, d),
-                        "wo": (d, d)}, cfg, gen, device)
+                        "wo": (d, d)}, mlstm_specs(cfg), cfg, gen, device, tp)
 
 
 def mlstm_specs(cfg: ModelConfig) -> dict:
@@ -86,24 +95,30 @@ def mlstm_specs(cfg: ModelConfig) -> dict:
 
 
 def _mlstm_heads(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
-    """q (float32, scaled), k, v (B, H, S, hd); i, f (B, H, S) float32."""
+    """q (float32, scaled), k, v (B, H, S, hd); i, f (B, H, S) float32 —
+    the rank's H / M heads of the replicated ``x`` (which enters through
+    ``copy_to``)."""
     B, S, _ = x.shape
     H, hd = _dims(cfg)
+    tp = p.tp
 
     def heads(w):
-        return (x @ w).reshape(B, S, H, hd).transpose(1, 2)
+        return (x @ w).reshape(B, S, H // tp.size, hd).transpose(1, 2)
 
     q = heads(p.wq).to(torch.float32) / math.sqrt(hd)
-    i = (x @ p.wi).to(torch.float32).transpose(1, 2)
-    f = (x @ p.wf).to(torch.float32).transpose(1, 2)
+    i = (x @ tp.part(p.wi, 1)).to(torch.float32).transpose(1, 2)
+    f = (x @ tp.part(p.wf, 1)).to(torch.float32).transpose(1, 2)
     return q, heads(p.wk), heads(p.wv), i, f
 
 
 def _out(p, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The output gate and projection: y (B, S, d) float32."""
+    """The output gate and projection: y (B, S, d / M) float32, the rank's
+    heads; the ranks' partial sums added."""
+    tp = p.tp
     y = y.to(x.dtype)
     z = F.silu((x @ p.wz).to(torch.float32)).to(x.dtype)
-    return rms_norm(y * z, p.norm) @ p.wo
+    o = rms_norm_parts(y * z, tp.part(p.norm, 0), x.shape[-1], tp) @ p.wo
+    return tp.reduce_from(o)
 
 
 def _causal(n: int, device) -> torch.Tensor:
@@ -113,6 +128,7 @@ def _causal(n: int, device) -> torch.Tensor:
 def apply_mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The parallel form, O(S²). x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
+    x = p.tp.copy_to(x)
     q, k, v, i, f = _mlstm_heads(p, cfg, x)
     F_ = torch.cumsum(F.logsigmoid(f), dim=-1)                  # (B, H, S)
     dmat = F_[..., :, None] - F_[..., None, :] + i[..., None, :]
@@ -122,7 +138,7 @@ def apply_mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = (q @ k.to(torch.float32).transpose(-1, -2)) * dexp
     norm = torch.maximum(w.sum(-1, keepdim=True).abs(), torch.exp(-m))
     y = (w / norm) @ v.to(torch.float32)
-    return _out(p, x, y.transpose(1, 2).reshape(B, S, d))
+    return _out(p, x, y.transpose(1, 2).reshape(B, S, -1))
 
 
 def _combine(a, b):
@@ -144,9 +160,11 @@ def apply_mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     the chunks before it."""
     B, S, d = x.shape
     H, hd = _dims(cfg)
+    H //= p.tp.size
     L = min(chunk, S)
     assert S % L == 0, f"chunk {L} must divide the sequence {S}"
     nc = S // L
+    x = p.tp.copy_to(x)
     q, k, v, i, f = _mlstm_heads(p, cfg, x)
     qf, kf, vf = (t.to(torch.float32).reshape(B, H, nc, L, hd)
                   for t in (q, k, v))
@@ -191,11 +209,15 @@ def apply_mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     num = wgt @ vf + carry_s[..., None] * (qf @ c_in)
     den = wgt.sum(-1) + carry_s * torch.einsum("bhcld,bhcd->bhcl", qf, n_in)
     h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
-    return _out(p, x, h.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, d))
+    return _out(p, x, h.reshape(B, H, S, hd).transpose(1, 2)
+                .reshape(B, S, H * hd))
 
 
-def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None,
+                     m: int = 1) -> dict:
+    """(C, n, m) of the rank's H / ``m`` heads."""
     H, hd = _dims(cfg)
+    H //= m
     return {"C": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
                              device=device),
             "n": torch.zeros((batch, H, hd), dtype=torch.float32,
@@ -207,6 +229,7 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 def decode_mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     """One token. x: (B, 1, d); returns (y, new cache)."""
     B = x.shape[0]
+    x = p.tp.copy_to(x)
     q, k, v, i, f = _mlstm_heads(p, cfg, x)                      # S = 1
     q, k, v = (t[:, :, 0].to(torch.float32) for t in (q, k, v))
     i, f = i[..., 0], f[..., 0]                                  # (B, H)
@@ -219,7 +242,7 @@ def decode_mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     n = fg * cache["n"] + ig * k
     num = (q[..., None, :] @ C)[..., 0, :]
     den = torch.maximum((q * n).sum(-1).abs(), torch.exp(-m_new))[..., None]
-    y = (num / den).reshape(B, 1, cfg.d_model)
+    y = (num / den).reshape(B, 1, -1)
     return _out(p, x, y), {"C": C, "n": n, "m": m_new}
 
 
@@ -232,12 +255,13 @@ class SLSTM(nn.Module):
     ``up`` (d, 2d) fused gate|up and ``down`` (d, d); ``norm`` (d,)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None):
+                 device=None, tp: Group = SOLO):
         super().__init__()
         d = cfg.d_model
         _weights(self, {"wz": (d, d), "wi": (d, d), "wf": (d, d),
                         "wo_gate": (d, d), "up": (d, 2 * d),
-                        "down": (d, d)}, cfg, gen, device)
+                        "down": (d, d)}, slstm_specs(cfg), cfg, gen, device,
+                 tp)
 
 
 def slstm_specs(cfg: ModelConfig) -> dict:
@@ -269,9 +293,14 @@ def _slstm_gates(p: SLSTM, x: torch.Tensor):
 
 
 def _slstm_out(p: SLSTM, h: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, p.norm)
+    """The norm and the up / down FFN of the replicated ``h``: the rank's
+    block of each half of ``up``, its rows of ``down``, the partial sums
+    added."""
+    tp = p.tp
+    h = tp.copy_to(rms_norm(h, p.norm))
     g, u = (h @ p.up).chunk(2, dim=-1)
-    return (F.silu(g.to(torch.float32)).to(h.dtype) * u) @ p.down
+    y = (F.silu(g.to(torch.float32)).to(h.dtype) * u) @ tp.part(p.down, 0)
+    return tp.reduce_from(y)
 
 
 def apply_slstm(p: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,9 @@ this update: it skips such parameters, decays before the step and has no
 global clip or schedule of this shape.
 
 On a mesh, the gradient norm is the whole model's: the squares of the
-leaves a rank holds a shard of (the experts under ``moe_ep``) are summed
-over their group before the root (``apply(..., sharded=, group=)``).
+leaves a rank holds a part of (tensor parallelism's dense leaves and the
+experts under ``moe_ep``, ``transformer.sharded_leaves``) are summed over
+their group before the root (``apply(..., sharded=, group=)``).
 ``psum_compressed`` over a process group is the reference's int8
 all-reduce of the data axis.
 """

@@ -21,7 +21,15 @@ the cap back.  Pure Python, copied from the reference.
      ``reshard(tree, mesh, specs)`` places each leaf with
      ``distribute_tensor``.  Every rank holds the whole leaf (seeded, or
      restored from a checkpoint), so a ``Shard`` is sliced locally and
-     nothing is scattered (gloo scatters no CUDA tensor).
+     nothing is scattered (gloo scatters no CUDA tensor).  These are the
+     reference's contiguous blocks, for any tree of leaves; a model's
+     parameters are not placed here.  Only ``models.layers.layout`` places
+     them (``transformer.init(mesh=)`` when it draws them,
+     ``models.convert.params_from_reference(mesh=)`` when it loads whole
+     leaves, restores included): a fused leaf's rank holds its block of
+     each half, which no contiguous ``Shard`` gives.  A restore onto a mesh
+     of another "model" axis goes through the whole leaves of the
+     checkpoint.
   3. The data pipeline is stateless-seekable and the optimizer state lives
      in the checkpoint, so resume = carve + restore + continue at step k
      (``launch.train.fit``).
@@ -142,7 +150,9 @@ def placements(mesh, spec) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: per mesh dimension,
     ``Shard(dim)`` for the tensor dimension whose entry names it, else
     ``Replicate()``.  A tuple entry shards over its axes with the first
-    major, as the mesh's order does; another order raises."""
+    major, as the mesh's order does; another order raises.  These are the
+    reference's contiguous blocks, not a model's parameters' (module
+    docstring, item 2)."""
     names = list(mesh_shape(mesh))
     spec = fold_spec(spec, set(names))
     out = []
@@ -176,7 +186,9 @@ def shardings_for(mesh, specs):
 
 def reshard(tree, mesh: DeviceMesh, specs):
     """Place every leaf (a tensor or an array, whole on every rank) with
-    its spec on the (new) mesh -> a tree of DTensors."""
+    its spec on the (new) mesh -> a tree of DTensors, in the reference's
+    contiguous blocks (not a model's parameters: module docstring,
+    item 2)."""
     def place(a, spec):
         t = torch.as_tensor(a).to(mesh.device_type)
         return distribute_tensor(t, mesh, placements(mesh, spec),

@@ -431,8 +431,10 @@ def test_restart_leg_fails_with_its_child(cs, monkeypatch):
 
 def smoke_dist_configs():
     """The dist phase's models at SMOKE size (DeepSeek SMOKE with
-    ``moe_ep``, 8 experts over 4 ranks; TinyLlama SMOKE at 2 layers), in
-    their FULL dtypes where the phase runs bfloat16, at short sequences."""
+    ``moe_ep``, 8 experts over 4 ranks; TinyLlama SMOKE at 2 layers;
+    StableLM SMOKE, 4 heads and 2 kv heads over 4 ranks; the Jamba SMOKE
+    cut to 2 layers with ``moe_ep``), in their FULL dtypes where the phase
+    runs bfloat16, at short sequences."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -440,7 +442,14 @@ def smoke_dist_configs():
                               moe_ep=True)
     lm = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
                              n_layers=2)
-    return {"moe_f32": dataclasses.replace(moe, n_layers=4),
+    tp = get_config("stablelm-12b", smoke=True)
+    return {"tp_f32": dataclasses.replace(tp, n_layers=4),
+            "tp_bf16": dataclasses.replace(tp, dtype=torch.bfloat16),
+            "hy_f32": dataclasses.replace(
+                get_config("jamba-1.5-large-398b", smoke=True), n_layers=2,
+                moe_ep=True),
+            "tp_seq": 32,
+            "moe_f32": dataclasses.replace(moe, n_layers=4),
             "moe_bf16": dataclasses.replace(moe, dtype=torch.bfloat16),
             "lm_f32": lm,
             "lm_bf16": dataclasses.replace(lm, dtype=torch.bfloat16),
@@ -452,24 +461,76 @@ def smoke_dist_configs():
 
 def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
     """The dist phase at SMOKE size in 4 gloo ranks on the CPU: leg A's
-    float32 EP forward against one process, leg B's greedy tokens equal on
+    float32 TP + EP forward against one process at every position (one
+    process's top-k sets replayed), leg B's greedy tokens equal on
     every rank, leg C's float32 gradients, the compressed step, the
     restart onto (2, 1) at 1e-5 and the EP steps on (2, 2) within
-    DIST_EP_TOL; no launch (CPU tensors run the plain versions), no
-    memory counter (the card's)."""
+    DIST_EP_TOL; leg D's tensor-parallel forward and greedy tokens on (1,
+    4) and each rank's parameter bytes against the reference's specs,
+    leg E's TP + EP Jamba cut, leg F's gradients on (2, 2) and its
+    restart onto (1, 2); no launch (CPU tensors run the plain versions),
+    no memory counter (the card's)."""
     import sys
 
     monkeypatch.syspath_prepend(str(ROOT))
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
     monkeypatch.setattr(cs, "dist_configs", smoke_dist_configs)
     counts = cs.dist_phase(torch.device("cpu"), "cpu rehearsal")
-    assert counts == {"flash_attention": 0, "moe_gmm": 0}
+    assert counts == {"ep": {"flash_attention": 0, "moe_gmm": 0},
+                      "tp": {"flash_attention": 0, "ssd_scan": 0}}
     out = capsys.readouterr().out
     assert "dist: 4 ranks on cpu rehearsal over gloo with cpu tensors" in out
     assert "experts [(0, 2), (2, 4), (4, 6), (6, 8)] of 8" in out
-    assert re.search(r"leg A f32, 4 layers: EP vs one process max \|diff\|",
-                     out)
+    assert re.search(r"leg A f32, 4 layers: TP \+ EP vs one process max "
+                     r"\|diff\| \S+ \(1e-3 relative\) over all 64 positions, "
+                     r"routed to one process's top-k sets; the ranks' own "
+                     r"sets differ at \d+ \(token, layer\) pairs", out)
     assert "equal to one process's on every rank" in out
     assert re.search(r"worst gradient leaf \S+ at \S+ of its largest", out)
     assert re.search(r"\(2, 1\) resumed \[.*\] \(1e-5\)", out)
     assert "moe_ep on {'data': 2, 'model': 2}" in out
+    assert re.search(r"leg D: StableLM 2 12B on \(data 1, model 4\): \S+ GB"
+                     r" of bfloat16 parameters a rank, equal to the byte", out)
+    assert re.search(r"leg D f32, 4 layers, prefill 1 x 32: TP vs one "
+                     r"process max \|diff\|", out)
+    assert re.search(r"leg E: .* vs one process max \|diff\| \S+ \(5e-3 "
+                     r"relative\) over all positions, routed to one "
+                     r"process's top-k sets", out)
+    assert re.search(r"\(1, 2\) resumed \[.*\] \(1e-5\)", out)
+
+
+def test_routing_tape_replays_top_k_sets(cs):
+    """``routing_tape``: a recorded tape replayed into the same model gives
+    the same logits bit for bit and no flipped set; a tape with every
+    token sent to other experts changes the logits, and each replayed
+    call counts all its tokens as flipped, by a positive margin; a tape
+    of the wrong length fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    model = transformer.init(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (1, 16),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        with cs.routing_tape() as tape:
+            want, _ = transformer.forward(model, cfg, toks)
+        assert len(tape) and all(t.shape == (16, cfg.moe_top_k)
+                                 for t in tape)
+        with cs.routing_tape(tape) as flips:
+            got, _ = transformer.forward(model, cfg, toks)
+        assert torch.equal(got, want) and cs.flipped(flips) == (0, 0.0)
+        # each token's K experts outside its recorded set
+        other = [torch.zeros(len(t), cfg.moe_experts).scatter(1, t, 1.0)
+                 .argsort(dim=-1, stable=True)[:, :cfg.moe_top_k]
+                 for t in tape]
+        assert all(not set(a.tolist()) & set(b.tolist())
+                   for t, o in zip(tape, other) for a, b in zip(t, o))
+        with cs.routing_tape(other) as flips:
+            got, _ = transformer.forward(model, cfg, toks)
+        assert not torch.allclose(got, want)
+        n, margin = cs.flipped(flips)
+        assert n == 16 * len(tape) and margin > 0
+        with pytest.raises(AssertionError):
+            with cs.routing_tape(tape + tape[:1]):
+                transformer.forward(model, cfg, toks)

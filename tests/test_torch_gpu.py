@@ -1066,6 +1066,92 @@ def test_expert_parallel_forward_over_nccl(dev):
     _ep_forward_against_one_process(dev, True, "nccl")
 
 
+# -- tensor parallelism over torch.distributed --------------------------------------
+
+#: (arch, ranks): StableLM (parallel_block, kv heads split), TinyLlama over
+#: 4 ranks (its 2 kv heads gathered), the Jamba cut (Mamba heads split,
+#: ssd_scan on the rank's heads)
+TP_CASES = [("stablelm-12b", 2), ("tinyllama-1.1b", 4),
+            ("jamba-1.5-large-398b", 2)]
+
+
+def _tp_cfg(arch: str):
+    import dataclasses
+
+    cfg = get_config(arch, smoke=True)
+    return dataclasses.replace(cfg, n_layers=2) if cfg.attn_every else cfg
+
+
+def _tp_forward_rank(rank: int, arch: str, toks, per_rank_card: bool):
+    """The SMOKE config on a (1, world) mesh, seeded as one process:
+    ``forward(use_kernel=True)`` and ``greedy_generate`` -> (logits,
+    tokens, launches of the forward)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+    from repro_torch.runtime import elastic
+
+    card = torch.device("cuda", rank if per_rank_card else 0)
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = elastic.carve_mesh(model_parallel=dist.get_world_size())
+    cfg = _tp_cfg(arch)
+    model = transformer.init(cfg, seed=0, device=card, mesh=mesh)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = transformer.forward(model, cfg, toks.to(card),
+                                        use_kernel=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    out = serve.greedy_generate(model, cfg, toks[:, :8], 6)
+    return logits.cpu(), out.cpu(), counts
+
+
+def _tp_forward_against_one_process(dev, arch: str, world: int,
+                                    per_rank_card: bool, backend: str):
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve
+
+    cfg = _tp_cfg(arch)
+    toks = torch.randint(0, cfg.vocab, (2, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(5))
+    got = lmesh.spawn(_tp_forward_rank, world, arch, toks, per_rank_card,
+                      backend=backend, timeout=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = transformer.init(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        want, _ = transformer.forward(one, cfg, toks.to(dev), use_kernel=True)
+    tokens = serve.greedy_generate(one, cfg, toks[:, :8], 6).cpu()
+    want = want.cpu()
+    descs = [b.desc["mixer"] for b in one.layers]
+    for logits, out, counts in got:
+        err = (logits - want).abs()
+        assert bool((err <= 1e-4 * (1 + want.abs())).all()), float(err.max())
+        assert torch.equal(out, tokens), (out, tokens)
+        assert counts["flash_attention"] == descs.count("attn"), counts
+        assert counts["ssd_scan"] == descs.count("mamba"), counts
+
+
+@pytest.mark.parametrize("arch, world", TP_CASES)
+def test_tensor_parallel_forward_on_one_card_over_gloo(dev, arch, world):
+    """``world`` ranks on cuda:0 over gloo (CUDA tensors through the host;
+    the kv heads' and the logits' gathers as all-reduces of a zero-filled
+    whole): each rank's logits equal the one-process forward's at 1e-4,
+    its greedy tokens the one process's, and the kernels launch on the
+    rank's heads."""
+    _tp_forward_against_one_process(dev, arch, world, False, "gloo")
+
+
+def test_tensor_parallel_forward_over_nccl(dev):
+    """StableLM over NCCL with a card a rank; NCCL refuses two ranks on
+    one card, so a machine with one card skips it (not verified on GPU)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"not verified on GPU: NCCL takes a card a rank and "
+                    f"this machine has {n}")
+    _tp_forward_against_one_process(dev, "stablelm-12b", 2, True, "nccl")
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--fault-loop"]:
     fault_loop(*map(int, sys.argv[2:5]))
 if __name__ == "__main__" and sys.argv[1:2] == ["--restart"]:
