@@ -74,7 +74,17 @@ shards its attention, dense layer 0 and shared experts too; its float32
 logits, and the Jamba cut's, are held to one process at every position,
 with one process's top-k sets replayed into the ranks' routing (the
 ranks' float32 sums run in another order and flip near-tied sets, which
-the phase counts beside their largest probability margin).
+the phase counts beside their largest probability margin).  Then the
+rest of the reference's placement: G, DeepSeek-MoE 16B FULL as published
+(``moe_ep`` off: its experts split over "model", 16 a rank through
+``moe_gmm``) on (1, 4), each rank's 8.20 GB equal to the reference's
+specs, as legs A and B; H, FSDP on (2, 2): DeepSeek with ``fsdp=True``
+(8.19 GB a rank; float32 at 4 layers against one process at every
+position; one timed bfloat16 prefill of 2 x 2,048 with the FSDP gathers'
+counts and no gathered leaf alive between layers) and the Jamba cut at
+its published placement (5.95 GB a rank); I, TinyLlama at 2 layers with
+``fsdp=True`` on (2, 2) (gradient parts, a quarter of the optimizer
+state a rank, greedy tokens, ``fit`` restored onto (2, 1)).
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -95,7 +105,8 @@ DeepSeek-MoE forward, for ssd_scan one forward of the Jamba cut; for
 flash_attention and moe_gmm ``dist_launches_per_rank``, one rank's
 expert-parallel prefill in the dist phase, for flash_attention and
 ssd_scan ``tp_launches_per_rank``, one rank's StableLM prefill and one
-rank's forward of the Jamba cut), its error against its plain version, and its times beside its bound: ``ms``
+rank's forward of the Jamba cut, and for moe_gmm one rank's prefill of
+DeepSeek as published on (1, 4)), its error against its plain version, and its times beside its bound: ``ms``
 (CUDA events around back-to-back calls of the wrapper) and ``device_ms``
 (the device operations those calls launched, from ``torch.profiler``), the
 same two for the library call, the CUDA launches of the port's kernels per
@@ -248,6 +259,15 @@ DIST_EP_SEQ, DIST_EP_TOL = 512, 2e-2
 # TP_F32_SEQ, against one process at the hybrid phase's 5e-3; F,
 # TinyLlama at DIST_TRAIN_LAYERS on (2, 2)
 TP_ARCH, TP_F32_LAYERS, TP_F32_SEQ = "stablelm-12b", 4, 512
+# its legs of the rest of the reference's placement: G, DeepSeek-MoE 16B
+# FULL as published (moe_ep off) on (1, DIST_WORLD), as legs A and B; H,
+# FSDP on (2, 2): DeepSeek with fsdp=True in float32 at MOE_F32_LAYERS, 2 x
+# DIST_FSDP_SEQ (a row a data rank), against one process at 1e-3, and in
+# bfloat16 at all 28 layers, 2 x PREFILL, one timed prefill (over gloo each
+# rank moves its model block of every leaf through the host); the Jamba
+# cut at its published placement (fsdp=True) in bfloat16, 2 x
+# DIST_FSDP_SEQ; I, TinyLlama at DIST_TRAIN_LAYERS with fsdp=True on (2, 2)
+DIST_FSDP_SEQ = 512
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
@@ -808,7 +828,9 @@ def gmm_case(E: int, C: int, d: int, f: int, g, dev,
 def gmm_rows(g, dev) -> dict:
     """moe_gmm at DeepSeek-MoE's prefill shapes (64 experts, capacity 240
     at 2,048 tokens: up (64, 240, 2048) x (64, 2048, 2816), down (64, 240,
-    1408) x (64, 1408, 2048)) and the Jamba cut's up and down projections
+    1408) x (64, 1408, 2048)), at one rank's 16 of them on a (1, 4) mesh
+    (``at_deepseek_tp4_rank``, the up and its ``down``) and the Jamba
+    cut's up and down projections
     (16 experts, capacity 320: (16, 320, 8192) x (16, 8192, 49152), 12.9 GB
     of bfloat16 weights, whose plain version makes a 25.8 GB float32 copy,
     and (16, 320, 24576) x (16, 24576, 8192); each built alone and
@@ -833,6 +855,12 @@ def gmm_rows(g, dev) -> dict:
     row = timed(gmm_case(64, 240, 2048, 2816, g, dev))
     row["at_deepseek_down"] = dict_of(timed(gmm_case(64, 240, 1408, 2048,
                                                      g, dev)))
+    # one rank's experts of DeepSeek on a (1, 4) mesh without moe_ep (leg
+    # G): 16 of the 64, the same capacity
+    row["at_deepseek_tp4_rank"] = dict_of(timed(gmm_case(16, 240, 2048, 2816,
+                                                         g, dev)))
+    row["at_deepseek_tp4_rank"]["down"] = dict_of(timed(gmm_case(
+        16, 240, 1408, 2048, g, dev)))
     torch.cuda.empty_cache()
     row["at_jamba_up"] = dict_of(timed(gmm_case(16, 320, 8192, 49152, g, dev,
                                                 iters=BIG_ITERS)))
@@ -2174,10 +2202,15 @@ def dist_configs() -> dict:
     bfloat16 (leg C); DeepSeek FULL cut to layer 0 and one MoE layer at
     capacity factor 8.0 with ``moe_ep`` (leg C's expert-parallel steps);
     StableLM 2 12B FULL in float32 at TP_F32_LAYERS and bfloat16 at all 40
-    (leg D); the Jamba cut with ``moe_ep`` in float32 (leg E)."""
+    (leg D); the Jamba cut with ``moe_ep`` in float32 (leg E); DeepSeek
+    FULL as published, ``moe_ep`` off, the same two ways (leg G) and with
+    ``fsdp=True`` (leg H), the Jamba cut as published (``fsdp=True``) in
+    bfloat16 (leg H), TinyLlama's float32 cut with ``fsdp=True`` (leg
+    I)."""
     from repro_torch.configs import get_config
 
-    moe = dataclasses.replace(get_config(MOE_ARCH), moe_ep=True)
+    published = get_config(MOE_ARCH)
+    moe = dataclasses.replace(published, moe_ep=True)
     lm = dataclasses.replace(get_config(LM_ARCH), n_layers=DIST_TRAIN_LAYERS)
     tp = get_config(TP_ARCH)
     return {"tp_f32": dataclasses.replace(tp, n_layers=TP_F32_LAYERS,
@@ -2194,6 +2227,16 @@ def dist_configs() -> dict:
             "lm_bf16": lm,
             "ep_train": dataclasses.replace(moe, n_layers=2,
                                             moe_capacity_factor=8.0),
+            "g_f32": dataclasses.replace(published, n_layers=MOE_F32_LAYERS,
+                                         dtype=torch.float32),
+            "g_bf16": published,
+            "h_f32": dataclasses.replace(published, n_layers=MOE_F32_LAYERS,
+                                         dtype=torch.float32, fsdp=True),
+            "h_bf16": dataclasses.replace(published, fsdp=True),
+            "h_jamba": dataclasses.replace(get_config(HYBRID_ARCH),
+                                           n_layers=HYBRID_LAYERS),
+            "i_lm": dataclasses.replace(lm, dtype=torch.float32, fsdp=True),
+            "fsdp_seq": DIST_FSDP_SEQ,
             "prefill": PREFILL, "prompt": DIST_PROMPT, "new": DIST_NEW,
             "f32_seq": DIST_F32_SEQ, "seq": TRAIN_SEQ, "steps": DIST_STEPS,
             "ep_seq": DIST_EP_SEQ, "world": DIST_WORLD}
@@ -2207,6 +2250,16 @@ def dist_tokens(c: dict, vocab: int):
                              .astype(np.int32)),
             torch.from_numpy(rng.integers(0, vocab, (2, c["prompt"]))
                              .astype(np.int32)))
+
+
+def fsdp_tokens(c: dict, vocab: int):
+    """Leg H's float32 prefill tokens (2, fsdp_seq), also the Jamba cut's,
+    and its bfloat16 prefill (2, prefill), the same in the parent and in
+    every rank (each data rank takes its row)."""
+    rng = np.random.default_rng(13)
+    return tuple(torch.from_numpy(rng.integers(0, vocab, shape)
+                                  .astype(np.int32))
+                 for shape in ((2, c["fsdp_seq"]), (2, c["prefill"])))
 
 
 def tp_tokens(c: dict, vocab: int):
@@ -2224,8 +2277,9 @@ def reference_bytes(cfg, dims: dict) -> int:
     """The bytes of parameters that the reference's specs
     (``transformer.param_specs``) put on one device of a mesh of ``dims``
     ({axis: size}): each leaf's bytes over the sizes of the axes its spec
-    names (``NamedSharding``'s shard of dimensions that divide, which
-    tests/test_torch_tp.py holds the port's layout to)."""
+    names, "model" (the experts' too, with or without ``moe_ep``) and
+    "data" (``fsdp``) alike (``NamedSharding``'s shard of dimensions that
+    divide, which tests/test_torch_tp.py holds the port's layout to)."""
     from repro_torch.core.sharding import axis_size
     from repro_torch.models import transformer
 
@@ -2270,7 +2324,13 @@ def dist_reference(c: dict, dev, d: str) -> dict:
         del logits
         ref["tokens"] = serve.greedy_generate(model, cfg, prompt,
                                               c["new"]).cpu()
-        del model
+        # leg H's float32 reference: the same model on 2 x fsdp_seq
+        with routing_tape() as tape:
+            logits, _ = transformer.forward(
+                model, cfg, fsdp_tokens(c, cfg.vocab)[0], use_kernel=True)
+        torch.save(logits.cpu(), os.path.join(d, "h_f32.pt"))
+        torch.save(tape, os.path.join(d, "h_f32_routing.pt"))
+        del logits, model
         cfg = dataclasses.replace(c["moe_bf16"], moe_ep=False)
         model = transformer.init(cfg, seed=0, device=dev)
         logits, _ = transformer.forward(model, cfg, toks, use_kernel=True)
@@ -2315,6 +2375,15 @@ def dist_reference(c: dict, dev, d: str) -> dict:
         torch.save(tape, os.path.join(d, "e_f32_routing.pt"))
         del logits, model
         empty_cache(dev)
+        # leg H's Jamba cut in bfloat16
+        cfg = c["h_jamba"]
+        model = transformer.init(cfg, seed=0, device=dev)
+        logits, _ = transformer.forward(model, cfg,
+                                        fsdp_tokens(c, cfg.vocab)[0],
+                                        use_kernel=True)
+        torch.save(logits.cpu(), os.path.join(d, "h_jamba.pt"))
+        del logits, model
+        empty_cache(dev)
 
     lm = c["lm_f32"]
     model, _ = train.init_state(0, lm, dev)
@@ -2322,7 +2391,11 @@ def dist_reference(c: dict, dev, d: str) -> dict:
     loss, g = train.make_grads(lm)(model, b)
     ref["f32_loss"] = float(loss)
     torch.save({k: v.cpu() for k, v in g.items()}, os.path.join(d, "c_grads.pt"))
-    del model, g
+    del g
+    model.requires_grad_(False)
+    ref["i_tokens"] = serve.greedy_generate(
+        model, lm, dist_tokens(c, lm.vocab)[1], c["new"]).cpu()
+    del model
     ref["f32_fit"] = dist_fit(lm, dev, None, c, c["steps"])
     for key, cfg, batch, seq in (("bf16", c["lm_bf16"], 4, c["seq"]),
                                  ("ep", dataclasses.replace(
@@ -2398,34 +2471,25 @@ def counted(fn, dev):
     return out, ops.launch_counts()
 
 
-def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
-    """One rank of the dist phase, on ``device_type`` device 0 (every rank
-    on the one card): legs A, B and C; asserts fail the rank and the
-    phase.  Returns what the parent prints."""
-    from repro_torch.checkpoint import Checkpointer
+def moe_leg(rank: int, f32, bf16, c: dict, d: str, dev, mesh) -> dict:
+    """DeepSeek-MoE 16B FULL on ``mesh`` (the (1, 4) one): legs A and B
+    with ``moe_ep``, leg G as published.  The float32 model at
+    MOE_F32_LAYERS (its prefill with one process's top-k sets replayed,
+    against one process's logits on rank 0; its greedy tokens), then the
+    bfloat16 one at every layer (its parameter bytes, a counted prefill,
+    the error and argmax agreement against one process's on rank 0, the
+    mean of 3 timed prefills with the collectives' counts, the peak)."""
     from repro_torch.core import sharding
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import serve
     from repro_torch.models import transformer
-    from repro_torch.runtime import elastic
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(device_type, 0)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    out: dict = {"rank": rank}
-    mesh = elastic.carve_mesh(model_parallel=c["world"], device_type=dev.type)
-    out["mesh_a"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
-
-    # leg A, float32, and leg B
-    cfg = c["moe_f32"]
-    toks, prompt = dist_tokens(c, cfg.vocab)
-    toks, prompt = toks.to(dev), prompt.to(dev)
+    out: dict = {}
+    toks, prompt = (t.to(dev) for t in dist_tokens(c, f32.vocab))
     with torch.no_grad():
-        model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+        model = transformer.init(f32, seed=0, device=dev, mesh=mesh)
         out["experts"] = (model.layers[1].ffn.experts.start,
                           model.layers[1].ffn.experts.stop)
-        fwd = lambda: transformer.forward(model, cfg, toks,  # noqa: E731
+        fwd = lambda: transformer.forward(model, f32, toks,  # noqa: E731
                                           use_kernel=True)[0]
         with routing_tape(torch.load(os.path.join(
                 d, "a_f32_routing.pt"))) as flips:
@@ -2434,21 +2498,22 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
         if rank == 0:
             want = torch.load(os.path.join(d, "a_f32.pt")).to(dev)
             out["f32_err"] = check(
-                "dist TP + EP f32 vs one process, its top-k sets", got, want,
+                f"dist {'TP + EP' if f32.moe_ep else 'TP, experts on model'}"
+                f" f32 vs one process, its top-k sets", got, want,
                 rel(want, 1e-3))
             del want
         del got
-        out["tokens"] = serve.greedy_generate(model, cfg, prompt,
+        out["tokens"] = serve.greedy_generate(model, f32, prompt,
                                               c["new"]).cpu()
         del model
         empty_cache(dev)
 
-        # leg A, bfloat16, every layer
-        cfg = c["moe_bf16"]
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
-        fwd = lambda: transformer.forward(model, cfg, toks,  # noqa: E731
+        model = transformer.init(bf16, seed=0, device=dev, mesh=mesh)
+        out["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in model.parameters())
+        fwd = lambda: transformer.forward(model, bf16, toks,  # noqa: E731
                                           use_kernel=True)[0]
         got, out["bf16_launches"] = counted(fwd, dev)
         if rank == 0:
@@ -2472,6 +2537,29 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
             out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         del model
         empty_cache(dev)
+    return out
+
+
+def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
+    """One rank of the dist phase, on ``device_type`` device 0 (every rank
+    on the one card): legs A, B and C, then D to F (``tp_legs``) and G to
+    I (``fsdp_legs``); asserts fail the rank and the phase.  Returns what
+    the parent prints."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import sharding
+    from repro_torch.launch import train
+    from repro_torch.runtime import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out: dict = {"rank": rank}
+    mesh = elastic.carve_mesh(model_parallel=c["world"], device_type=dev.type)
+    out["mesh_a"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    out.update(moe_leg(rank, c["moe_f32"], c["moe_bf16"], c, d, dev, mesh))
 
     # leg C: data parallelism on (4, 1)
     m41 = elastic.carve_mesh(model_parallel=1, device_type=dev.type)
@@ -2521,6 +2609,7 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
         out["ep_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     empty_cache(dev)
     tp_legs(rank, c, d, dev, mesh, m22, out)
+    fsdp_legs(rank, c, d, dev, mesh, m22, out)
     return out
 
 
@@ -2636,6 +2725,172 @@ def tp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
     empty_cache(dev)
 
 
+def layer_memory(dev):
+    """Record, on a CUDA device, the bytes allocated after each block of a
+    forward (``transformer._block_apply``): the gate that nothing a layer
+    gathered over "data" outlives it.  Yields the list."""
+    from repro_torch.models import transformer
+
+    own = transformer._block_apply
+    seen: list = []
+
+    def block(*args, **kw):
+        y = own(*args, **kw)
+        if dev.type == "cuda":
+            seen.append(torch.cuda.memory_allocated(dev))
+        return y
+
+    @contextlib.contextmanager
+    def patched():
+        transformer._block_apply = block
+        try:
+            yield seen
+        finally:
+            transformer._block_apply = own
+    return patched()
+
+
+def layer_gathered(model) -> list[int]:
+    """The bytes each layer of ``model`` gathers over "data": its FSDP
+    leaves whole over "data" (the rank's block over "model"), the
+    embedding and the head last, as a layer each."""
+    def whole(mods) -> int:
+        return sum(getattr(m, k).numel() * getattr(m, k).element_size()
+                   * m.fs.size for m in mods
+                   for k in getattr(m, "fsdp_dims", {}))
+    return [whole(blk.modules()) for blk in model.layers] + [
+        getattr(model, k).numel() * getattr(model, k).element_size()
+        * model.fs.size for k in ("embed", "lm_head")]
+
+
+def fsdp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
+    """Legs G, H and I of one rank (``dist_rank``'s meshes), into
+    ``out``: G, DeepSeek-MoE 16B FULL as published (``moe_ep`` off: the
+    experts split over "model" and multiplied through ``moe_gmm``) on (1,
+    4), through ``moe_leg``; H, FSDP on (2, 2): DeepSeek with ``fsdp`` in
+    float32 at MOE_F32_LAYERS (each rank's row of 2 x fsdp_seq, one
+    process's top-k sets replayed) and in bfloat16 at every layer (one
+    prefill of 2 x prefill counted, timed, with the FSDP gathers' counts,
+    the bytes held between layers and the peak), then the Jamba cut at its
+    published placement in bfloat16 (2 x fsdp_seq); I, TinyLlama at
+    DIST_TRAIN_LAYERS with ``fsdp`` on (2, 2): gradient parts, optimizer
+    state bytes, greedy tokens, ``fit`` restored onto (2, 1)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import sharding
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.runtime import elastic
+
+    out["g"] = moe_leg(rank, c["g_f32"], c["g_bf16"], c, d, dev, mesh)
+
+    # leg H: FSDP on (2, 2), DeepSeek in float32, then bfloat16
+    cfg = c["h_f32"]
+    short, long = (t.to(dev) for t in fsdp_tokens(c, cfg.vocab))
+    r = train.rows(2, m22)
+    S = short.shape[1]
+    with torch.no_grad():
+        model = transformer.init(cfg, seed=0, device=dev, mesh=m22)
+        tape = [t[r.start * S:r.stop * S] for t in torch.load(
+            os.path.join(d, "h_f32_routing.pt"))]
+        with routing_tape(tape) as flips:
+            got, out["h_f32_launches"] = counted(
+                lambda: transformer.forward(model, cfg, short[r],
+                                            use_kernel=True)[0], dev)
+        out["h_f32_flips"] = flipped(flips)
+        want = torch.load(os.path.join(d, "h_f32.pt"))[r].to(dev)
+        out["h_f32_err"] = check(
+            f"dist FSDP f32 vs one process, its top-k sets (rank {rank})",
+            got, want, rel(want, 1e-3))
+        del got, want, model
+        empty_cache(dev)
+
+        cfg = c["h_bf16"]
+        model = transformer.init(cfg, seed=0, device=dev, mesh=m22)
+        out["h_param_bytes"] = sum(p.numel() * p.element_size()
+                                   for p in model.parameters())
+        out["h_gathered"] = layer_gathered(model)
+        empty_cache(dev)
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        sharding.reset_stats()
+        sync(dev)
+        t0 = time.perf_counter()
+        with layer_memory(dev) as between:
+            got, out["h_bf16_launches"] = counted(
+                lambda: transformer.forward(model, cfg, long[r],
+                                            use_kernel=True)[0], dev)
+        out["h_ms"] = (time.perf_counter() - t0) * 1e3
+        out["h_stats"] = dict(sharding.STATS)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        out["h_between"] = max(between, default=held) - held
+        out["h_held"] = held
+        out["h_out_bytes"] = got.numel() * got.element_size()
+        if dev.type == "cuda":
+            out["h_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del got, model
+        empty_cache(dev)
+
+        # the Jamba cut at its published placement (fsdp=True, moe_ep off)
+        cfg = c["h_jamba"]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = transformer.init(cfg, seed=0, device=dev, mesh=m22)
+        out["hj_param_bytes"] = sum(p.numel() * p.element_size()
+                                    for p in model.parameters())
+        toks = fsdp_tokens(c, cfg.vocab)[0].to(dev)[r]
+        got, out["hj_launches"] = counted(
+            lambda: transformer.forward(model, cfg, toks,
+                                        use_kernel=True)[0], dev)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        want = torch.load(os.path.join(d, "h_jamba.pt"))[r].to(dev)
+        out["hj_agree"] = float((got.argmax(-1) == want.argmax(-1))
+                                .float().mean())
+        if dev.type == "cuda":
+            out["hj_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del got, want, model
+        empty_cache(dev)
+
+    # leg I: TinyLlama with FSDP on (2, 2), float32
+    lm = c["i_lm"]
+    model, opt = train.init_state(0, lm, dev, m22)
+    out["i_opt_bytes"] = sum(t.numel() * t.element_size()
+                             for k in ("master", "mu", "nu")
+                             for t in opt[k].values())
+    out["i_axes"] = sorted({a for lay in transformer.sharded_leaves(
+        model).values() for a in lay.axes})
+    b = train.shard_batch(dist_batch(lm, 4, c["f32_seq"], 0), lm, m22, dev)
+    loss, g = train.make_grads(lm, m22)(model, b)
+    out["i_loss"] = float(loss)
+    want = torch.load(os.path.join(d, "c_grads.pt"))
+    parts = transformer.leaf_parts(model)
+    gaps = {}
+    for k, w in want.items():
+        part = w if k not in parts else parts[k][0].take(w, parts[k][1])
+        gaps[k] = float((g[k].cpu() - part).abs().max() / w.abs().max())
+    worst = max(gaps, key=gaps.get)
+    out["i_grad_worst"] = (worst, gaps[worst])
+    assert gaps[worst] <= GRAD_TOL, (rank, worst, gaps[worst])
+    del g, want, opt
+    model.requires_grad_(False)
+    prompt = dist_tokens(c, lm.vocab)[1].to(dev)
+    out["i_tokens"] = serve.greedy_generate(model, lm, prompt,
+                                            c["new"]).cpu()
+    out["i_token_rows"] = train.rows(2, m22)
+    del model
+    empty_cache(dev)
+    out["i_fit"] = dist_fit(lm, dev, m22, c, c["steps"])
+    ck = os.path.join(d, "ck_fsdp")
+    out["i_first"] = dist_fit(lm, dev, m22, c, c["steps"] // 2,
+                              Checkpointer(ck, keep=2), c["steps"] // 2)
+    m21 = elastic.simulate_failure(m22, n_lost=2, model_parallel=1)
+    out["i_mesh_restart"] = dict(zip(m21.mesh_dim_names, m21.shape))
+    if sharding.member(m21):
+        out["i_resumed"] = dist_fit(lm, dev, m21, c, c["steps"],
+                                    Checkpointer(ck))
+    empty_cache(dev)
+
+
 def dist_phase(dev, card: str) -> dict[str, int]:
     """Expert and data parallelism over ``torch.distributed``: DIST_WORLD
     ranks, processes from ``launch.mesh.spawn``, every one on the one
@@ -2657,9 +2912,10 @@ def dist_phase(dev, card: str) -> dict[str, int]:
     4 x TRAIN_SEQ printed beside one process's; DeepSeek cut to 2 layers
     with ``moe_ep`` on (2, 2) at capacity factor 8.0, 2 steps, the loss
     against one process at DIST_EP_TOL (1 + |loss|).  Legs D, E and F:
-    tensor parallelism (``tp_legs``, ``tp_report``).  Returns the
-    launches per rank of leg A's bfloat16 prefill ("ep") and of legs D
-    and E ("tp")."""
+    tensor parallelism (``tp_legs``, ``tp_report``).  Legs G, H and I:
+    the experts on "model" without ``moe_ep`` and FSDP's "data" entries
+    (``fsdp_legs``, ``fsdp_report``).  Returns the launches per rank of
+    leg A's bfloat16 prefill ("ep") and of legs D, E and G ("tp")."""
     import tempfile
 
     from repro_torch.launch import mesh as lmesh
@@ -2766,6 +3022,7 @@ def dist_phase(dev, card: str) -> dict[str, int]:
           f"{ref['ep']}; peak memory per rank "
           f"{[round(r.get('ep_peak_gb', 0.0), 2) for r in ranks]} GB")
     tp = tp_report(c, ranks, ref, dev, card)
+    tp["moe_gmm"] = fsdp_report(c, ranks, ref, dev, card)["moe_gmm"]
     return {"ep": want_launches(moe.n_layers), "tp": tp}
 
 
@@ -2847,6 +3104,148 @@ def tp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
           f"{half} + a checkpoint, 2 ranks lost, (1, 2) resumed "
           f"{r0['f_resumed']} (1e-5)")
     return {"flash_attention": tp.n_layers * cuda, "ssd_scan": cuda}
+
+
+def fsdp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
+    """Legs G, H and I's gates and lines (``fsdp_legs``) -> the launches a
+    rank of leg G's bfloat16 prefill."""
+    from repro_torch.models import transformer
+
+    r0, cuda = ranks[0], int(dev.type == "cuda")
+    m = c["world"]
+    g32, g16, h16, hj = c["g_f32"], c["g_bf16"], c["h_bf16"], c["h_jamba"]
+
+    def launches(cfg) -> dict:
+        descs = [transformer._desc(cfg, li) for li in range(cfg.n_layers)]
+        return {"flash_attention": cuda * sum(
+                    x["mixer"] == "attn" for x in descs),
+                "moe_gmm": 2 * cuda * sum(x["ffn"] == "moe" for x in descs)}
+    g_bytes = reference_bytes(g16, {"data": 1, "model": m})
+    for r in ranks:
+        g = r["g"]
+        assert g["param_bytes"] == g_bytes, (r["rank"], g["param_bytes"],
+                                             g_bytes)
+        for key, cfg in (("f32_launches", g32), ("bf16_launches", g16)):
+            want = launches(cfg)
+            assert {k: g[key][k] for k in want} == want, (key, g[key])
+            assert sum(g[key].values()) == sum(want.values()), g[key]
+        assert torch.equal(g["tokens"], ref["tokens"]), (g["tokens"],
+                                                         ref["tokens"])
+    g = r0["g"]
+    ar = g["allreduce"]
+    print(f"  leg G: DeepSeek-MoE 16B as published (moe_ep off) on (data 1, "
+          f"model {m}): {g['param_bytes'] / 1e9:.3f} GB of bfloat16 "
+          f"parameters a rank, equal to the byte to the reference's specs "
+          f"on one device of (1, {m}) ({g_bytes} B; one process "
+          f"{reference_bytes(g16, {}) / 1e9:.3f} GB); experts "
+          f"{[r['g']['experts'] for r in ranks]}; launches a rank f32 "
+          f"{launches(g32)}, bf16 {launches(g16)}")
+    print(f"  leg G f32, {g32.n_layers} layers: vs one process max |diff| "
+          f"{g['f32_err']:.3e} (1e-3 relative) over all {c['prefill']} "
+          f"positions, routed to one process's top-k sets; the ranks' own "
+          f"sets differ at {g['f32_flips'][0]} (token, layer) pairs, by a "
+          f"probability margin of at most {g['f32_flips'][1]:.3e}; greedy "
+          f"2 x ({c['prompt']} + {c['new']}) tokens equal to one process's "
+          f"on every rank")
+    print(f"  leg G bf16, {g16.n_layers} layers, prefill 1 x {c['prefill']}:"
+          f" {[round(r['g']['prefill_ms'], 2) for r in ranks]} ms per rank "
+          f"(mean of 3; one process {ref.get('prefill_ms', float('nan')):.2f}"
+          f" ms); collectives per prefill on rank 0: {ar['calls']:.0f} "
+          f"calls, {ar['bytes'] / 1e6:.1f} MB, {ar['seconds'] * 1e3:.2f} ms "
+          f"of host time; peak memory per rank "
+          f"{[round(r['g'].get('peak_gb', 0.0), 2) for r in ranks]} GB; vs "
+          f"one process max |diff| {g['bf16_err']:.3e}, argmax agrees at "
+          f"{g['bf16_agree']:.4f}; on {card}")
+
+    dims = {"data": 2, "model": 2}
+    h_bytes = reference_bytes(h16, dims)
+    hj_bytes = reference_bytes(hj, dims)
+    h32 = c["h_f32"]
+    for r in ranks:
+        assert r["h_param_bytes"] == h_bytes, (r["rank"], r["h_param_bytes"],
+                                               h_bytes)
+        assert r["hj_param_bytes"] == hj_bytes, (r["rank"],
+                                                 r["hj_param_bytes"], hj_bytes)
+        for key, cfg in (("h_f32_launches", h32), ("h_bf16_launches", h16)):
+            want = launches(cfg)
+            assert {k: r[key][k] for k in want} == want, (key, r[key])
+            assert sum(r[key].values()) == sum(want.values()), r[key]
+        assert {k: r["hj_launches"][k] for k in ("flash_attention",
+                                                  "ssd_scan")} == {
+            "flash_attention": cuda, "ssd_scan": cuda}, r["hj_launches"]
+        # nothing gathered outlives its layer: at no layer boundary does
+        # a rank hold, beyond what it held before the prefill, as much as
+        # the least any layer gathers
+        assert r["h_between"] < min(r["h_gathered"]), (
+            r["rank"], r["h_between"], min(r["h_gathered"]))
+    st = r0["h_stats"]
+    flips = sum(r["h_f32_flips"][0] for r in ranks)
+    margin = max(r["h_f32_flips"][1] for r in ranks)
+    print(f"  leg H: DeepSeek-MoE 16B with fsdp on (data 2, model 2): "
+          f"{r0['h_param_bytes'] / 1e9:.3f} GB of bfloat16 parameters a rank,"
+          f" equal to the byte to the reference's specs ({h_bytes} B); f32, "
+          f"{h32.n_layers} layers, 2 x {c['fsdp_seq']} (a row a data rank): "
+          f"vs one process max |diff| "
+          f"{max(r['h_f32_err'] for r in ranks):.3e} (1e-3 relative) at "
+          f"every position of every rank, routed to one process's top-k "
+          f"sets (the ranks' own differ at {flips} (token, layer) pairs, "
+          f"margin at most {margin:.3e})")
+    print(f"  leg H bf16, {h16.n_layers} layers, prefill 2 x {c['prefill']} "
+          f"(one timed): {[round(r['h_ms'], 2) for r in ranks]} ms per rank;"
+          f" FSDP gathers on rank 0: {st['fsdp_calls']} calls, "
+          f"{st['fsdp_bytes'] / 1e6:.1f} MB, {st['fsdp_seconds'] * 1e3:.2f} "
+          f"ms of host time (all collectives {st['calls']} calls, "
+          f"{st['bytes'] / 1e6:.1f} MB, {st['seconds'] * 1e3:.2f} ms); "
+          f"launches a rank {launches(h16)}; memory a rank: held "
+          f"{r0['h_held'] / 1e9:.3f} GB before the prefill, at most "
+          f"{max(r['h_between'] for r in ranks) / 1e6:.1f} MB more between "
+          f"layers (gate: below the least a layer gathers, "
+          f"{min(r0['h_gathered']) / 1e6:.1f} MB: no gathered leaf "
+          f"outlives its layer); a layer gathers at most "
+          f"{max(r0['h_gathered']) / 1e9:.3f} GB; logits "
+          f"{r0['h_out_bytes'] / 1e6:.1f} MB; peak "
+          f"{[round(r.get('h_peak_gb', 0.0), 2) for r in ranks]} GB; on "
+          f"{card}")
+    print(f"  leg H Jamba cut ({hj.n_layers} layers at full width, fsdp, "
+          f"moe_ep off) bf16, 2 x {c['fsdp_seq']}: "
+          f"{r0['hj_param_bytes'] / 1e9:.3f} GB of parameters a rank, equal "
+          f"to the byte to the reference's specs ({hj_bytes} B; one process "
+          f"{reference_bytes(hj, {}) / 1e9:.3f} GB); launches a rank "
+          f"{ {k: v for k, v in r0['hj_launches'].items() if v} }; peak "
+          f"{[round(r.get('hj_peak_gb', 0.0), 2) for r in ranks]} GB; argmax "
+          f"agrees with one process at "
+          f"{[round(r['hj_agree'], 4) for r in ranks]}")
+
+    lm = c["i_lm"]
+    opt_bytes = 3 * reference_bytes(lm, dims)
+    one = 3 * reference_bytes(lm, {})
+    assert abs(r0["i_loss"] - ref["f32_loss"]) <= 1e-4, (r0["i_loss"],
+                                                         ref["f32_loss"])
+    for r in ranks:
+        assert r["i_axes"] == ["data", "model"], r["i_axes"]
+        assert r["i_opt_bytes"] == opt_bytes, (r["i_opt_bytes"], opt_bytes)
+        assert torch.equal(r["i_tokens"], ref["i_tokens"][r["i_token_rows"]])
+    whole = r0["i_fit"]
+    np.testing.assert_allclose(whole, ref["f32_fit"], rtol=1e-4, atol=1e-4)
+    for r in ranks:
+        assert r["i_fit"] == whole and r["i_first"] == whole[:len(
+            r["i_first"])]
+        assert r["i_mesh_restart"] == {"data": 2, "model": 1}
+    half = len(r0["i_first"])
+    for r in ranks[:2]:
+        np.testing.assert_allclose(r["i_resumed"], whole[half:],
+                                   rtol=1e-5, atol=1e-5)
+    assert all("i_resumed" not in r for r in ranks[2:])
+    worst = max((r["i_grad_worst"] for r in ranks), key=lambda t: t[1])
+    print(f"  leg I f32, TinyLlama {lm.n_layers} layers with fsdp, 4 x "
+          f"{c['f32_seq']} on (2, 2): loss {r0['i_loss']:.6f} vs one process "
+          f"{ref['f32_loss']:.6f}; worst gradient part {worst[0]} at "
+          f"{worst[1]:.3e} of its largest |g|; optimizer state "
+          f"{r0['i_opt_bytes'] / 1e6:.1f} MB a rank, {r0['i_opt_bytes'] / one:.4f}"
+          f" of one process's; greedy tokens equal to one process's rows; "
+          f"{len(whole)} steps {whole}; {half} + a checkpoint, 2 ranks lost, "
+          f"(2, 1) resumed {r0['i_resumed']} (1e-5)")
+    return launches(g16)
 
 
 def main() -> int:
@@ -2983,7 +3382,7 @@ def main() -> int:
         for name in ("flash_attention", "moe_gmm"):
             if name in row:
                 row[name]["dist_launches_per_rank"] = counts["ep"][name]
-        for name in ("flash_attention", "ssd_scan"):
+        for name in ("flash_attention", "ssd_scan", "moe_gmm"):
             if name in row:
                 row[name]["tp_launches_per_rank"] = counts["tp"][name]
         print(f"dist: {time.perf_counter() - t0:.2f} s")

@@ -21,7 +21,10 @@ operand.  The autograd functions carry tensor and expert parallelism
 passes the gradient through; ``copy_to`` passes the value through and
 sums the gradient; ``reduce_both`` sums both ways (a sum that each rank
 then uses for its own part); ``gather`` concatenates the ranks' blocks
-and gives each rank its block of the gradient.  ``Group`` holds one mesh
+and gives each rank its block of the gradient; ``fsdp_gather`` (ZeRO-3's
+gather of a leaf FSDP splits over "data") concatenates the blocks and
+reduce-scatters the gradient: the whole gradient summed over the axis,
+each rank keeping its block.  ``Group`` holds one mesh
 axis as a rank sees it (its size, the rank's index, those collectives),
 and ``SOLO`` is the group of one, whose collectives return their input.
 """
@@ -112,12 +115,26 @@ def member(mesh) -> bool:
     return mesh.get_coordinate() is not None
 
 
-#: calls, host seconds and bytes of the collectives since ``reset_stats``
-STATS = {"calls": 0, "seconds": 0.0, "bytes": 0}
+#: calls, host seconds and bytes of the collectives since ``reset_stats``;
+#: the ``fsdp_`` keys count the FSDP gathers and their reduce-scatters
+#: alone (``fsdp_gather``), which the first three count too
+STATS = {"calls": 0, "seconds": 0.0, "bytes": 0,
+         "fsdp_calls": 0, "fsdp_seconds": 0.0, "fsdp_bytes": 0}
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, seconds=0.0, bytes=0)
+    for k in STATS:
+        STATS[k] = 0.0 if k.endswith("seconds") else 0
+
+
+def _nccl(group) -> bool:
+    return dist.get_backend(group) == "nccl"
+
+
+def _count(t0: float, nbytes: int) -> None:
+    STATS["calls"] += 1
+    STATS["seconds"] += time.perf_counter() - t0
+    STATS["bytes"] += nbytes
 
 
 def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
@@ -128,9 +145,7 @@ def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
         if shape.get(a, 1) > 1:
             t0 = time.perf_counter()
             dist.all_reduce(t, op=op, group=mesh.get_group(a))
-            STATS["calls"] += 1
-            STATS["seconds"] += time.perf_counter() - t0
-            STATS["bytes"] += t.numel() * t.element_size()
+            _count(t0, t.numel() * t.element_size())
     return t
 
 
@@ -224,8 +239,8 @@ def reduce_both(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """The blocks of ``x`` along ``axis`` concatenated on ``dim``, on
     ``x``'s device.  Over gloo a CUDA tensor is gathered as the all-reduce
-    of a zero-filled whole (gloo gathers no CUDA tensor); otherwise by
-    ``all_gather``."""
+    of a zero-filled whole (gloo gathers no CUDA tensor); over NCCL by
+    ``all_gather_into_tensor``; otherwise by ``all_gather``."""
     n, i = axis_size(mesh, axis), axis_index(mesh, axis)
     group = mesh.get_group(axis)
     x = x.contiguous()
@@ -236,12 +251,72 @@ def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
         whole.narrow(dim, i * k, k).copy_(x)
         return all_reduce(whole, mesh, axis)
     t0 = time.perf_counter()
+    if _nccl(group):
+        src = x.movedim(dim, 0).contiguous()
+        out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+        _count(t0, out.numel() * out.element_size())
+        return out.movedim(0, dim)
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    STATS["calls"] += 1
-    STATS["seconds"] += time.perf_counter() - t0
-    STATS["bytes"] += x.numel() * x.element_size() * n
+    _count(t0, x.numel() * x.element_size() * n)
     return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(g: torch.Tensor, mesh, axis: str, dim: int):
+    """The sum over ``axis`` of each rank's whole ``g``, this rank's block
+    of ``dim``: ``reduce_scatter_tensor`` over NCCL, an all-reduce and a
+    narrow otherwise (gloo has no reduce-scatter)."""
+    n, i = axis_size(mesh, axis), axis_index(mesh, axis)
+    group = mesh.get_group(axis)
+    k = g.shape[dim] // n
+    if _nccl(group):
+        t0 = time.perf_counter()
+        src = g.movedim(dim, 0).contiguous()
+        out = torch.empty((k, *src.shape[1:]), dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, src, group=group)
+        _count(t0, src.numel() * src.element_size())
+        return out.movedim(0, dim)
+    whole = all_reduce(g.clone(memory_format=torch.contiguous_format), mesh,
+                       axis)
+    return whole.narrow(dim, i * k, k)
+
+
+def _fsdp_counted(fn):
+    """``fn()``, its collectives counted in the ``fsdp_`` keys of STATS
+    too."""
+    before = (STATS["calls"], STATS["seconds"], STATS["bytes"])
+    out = fn()
+    STATS["fsdp_calls"] += STATS["calls"] - before[0]
+    STATS["fsdp_seconds"] += STATS["seconds"] - before[1]
+    STATS["fsdp_bytes"] += STATS["bytes"] - before[2]
+    return out
+
+
+class _FsdpGather(torch.autograd.Function):
+    """Gather forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _fsdp_counted(lambda: _gather(x, mesh, axis, dim))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fsdp_counted(lambda: _reduce_scatter(
+            g, ctx.mesh, ctx.axis, ctx.dim)), None, None, None
+
+
+def fsdp_gather(x: torch.Tensor, mesh, axis: str = "data",
+                dim: int = 0) -> torch.Tensor:
+    """ZeRO-3's gather of a leaf that FSDP splits over ``axis``: the
+    ranks' blocks of ``x`` concatenated on ``dim``, on ``x``'s device.
+    Each rank uses the whole on its own rows, so each block's gradient is
+    the sum over the axis of the ranks' gradients of the whole, of which
+    the rank keeps its block (a reduce-scatter; ``gather``'s backward only
+    narrows).  Counted in STATS's ``fsdp_`` keys."""
+    return _FsdpGather.apply(x, mesh, axis, dim % x.dim())
 
 
 class _Gather(torch.autograd.Function):
@@ -295,6 +370,10 @@ class Group:
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return x if self.size == 1 else gather(x, self.mesh, self.axis, dim)
+
+    def fsdp_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return x if self.size == 1 else fsdp_gather(x, self.mesh, self.axis,
+                                                    dim)
 
     def part(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """The rank's block of dimension ``dim`` of the replicated ``w``,

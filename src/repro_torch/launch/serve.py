@@ -17,9 +17,12 @@ batch that does not divide is replicated, as the reference replicates its
 inputs: every rank decodes it whole.  Over the "model" axis the model is
 tensor parallel whatever the batch: each rank's cache holds its kv heads
 (or the kv heads its query heads use), Mamba channels and mLSTM heads —
-the specs' "model" shard of heads / state.  The specs' "data" shard of
-the sequence (the long-context batch-1 cache) is realized as
-replication, the same function in more memory.
+the specs' "model" shard of heads / state.  Under FSDP each decode step
+gathers each layer's leaves over "data" just before the layer and frees
+them after it, whether the batch is split or replicated (the model's own
+"data" group).  The specs' "data" shard of the sequence (the
+long-context batch-1 cache) is realized as replication, the same
+function in more memory.
 """
 from __future__ import annotations
 

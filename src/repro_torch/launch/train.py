@@ -7,12 +7,14 @@ in place, with:
   * the batch split over the data axes ("pod", "data") of ``mesh``: each
     data rank takes its rows of the global batch (``shard_batch``, the
     reference's ``P(data_axes, None)``); the loss is the global mean, and
-    each gradient the mean of the data ranks' (a leaf a rank holds a part
-    of — tensor parallelism's dense leaves, the experts under ``moe_ep``
-    — has the gradient of its part, the rank's own; a replicated leaf has
-    the same whole gradient on every rank of the "model" axis, so nothing
-    is summed over "model"); the gradient norm sums the sharded leaves'
-    squares over "model";
+    each gradient the mean of the data ranks' (a leaf split over "model"
+    — tensor parallelism's dense leaves, the experts — has the gradient
+    of its part, the rank's own; a replicated leaf has the same whole
+    gradient on every rank of the "model" axis, so nothing is summed
+    over "model"; an FSDP leaf's gradient arrives summed over "data" by
+    its gather's backward, a reduce-scatter, and is only divided, and
+    summed over "pod" where the mesh has one); the gradient norm sums
+    each split leaf's squares over the axes it is split over;
   * gradient-accumulation microbatching (``microbatches`` > 1): each
     microbatch's gradients from ``torch.autograd.grad``, summed into
     float32 and divided, as the reference's scan sums into float32 zeros
@@ -22,12 +24,16 @@ in place, with:
     ranks' gradients divided by their count and summed by
     ``optim.psum_compressed`` over each data axis in turn (pure
     data-parallel meshes only: a "model" axis larger than 1 raises, as the
-    reference's does); with ``mesh=None``, over a one-device group.
+    reference's does); an FSDP leaf enters whole, its mean gradient on
+    every rank, as the reference's ``_compressed_dp_grads`` takes the
+    whole gradient tree (``in_specs=P()``), and the rank keeps its block;
+    with ``mesh=None``, over a one-device group.
 
 Parameters follow the reference's spec tree (``transformer.param_specs``):
-every "model" entry is a shard (tensor parallelism, and the experts under
-``moe_ep``); the FSDP "data" entries are realized as replication, the
-same function in more memory.
+every entry is a shard — "model" (tensor parallelism and the experts)
+and "data" (FSDP, ZeRO-3: each layer's leaves gathered just before use,
+with remat gathered again in the backward's recompute, every rank in the
+same order) — and the optimizer state of a rank is its parts'.
 No kernel lies on the gradient path: the reference has no backward for
 its Pallas kernels and trains with ``use_kernel=False``, and
 ``use_kernel=True`` raises here (the CUDA wrappers refuse autograd
@@ -36,8 +42,9 @@ inputs, ``kernels/cuda_lib.require_cuda``).
 The driver loop (``fit``) wires in the substrate: checkpointing (atomic +
 async, the reference's tree layout through ``models.convert``, written
 by rank 0 with the sharded leaves gathered whole, so a checkpoint of
-either package resumes in the other, on a mesh of any "model" axis), straggler monitoring, deterministic seekable data,
-and elastic restart (restore onto whatever mesh is alive).
+either package resumes in the other, on a mesh of any shape), straggler
+monitoring, deterministic seekable data, and elastic restart (restore
+onto whatever mesh is alive, through the whole checkpoint).
 """
 from __future__ import annotations
 
@@ -131,15 +138,25 @@ def _split(batch: dict, n: int) -> list[dict]:
             for i in range(n)]
 
 
+def _fsdp(model) -> dict:
+    """The model's FSDP leaves: name -> their ``Split`` over "data"."""
+    return {k: lay.split("data")
+            for k, lay in transformer.sharded_leaves(model).items()
+            if lay.split("data")}
+
+
 def make_grads(cfg: ModelConfig, mesh=None, *, microbatches: int = 1,
                loss_chunks: int = 0):
     """``grads(model, batch)`` -> (loss, {name: grad or None}): the loss of
     the global batch and each parameter's gradient of it, averaged over
     the data ranks of ``mesh`` (the rank's own for the leaves it holds a
     part of; identical on every model rank otherwise), before any
-    compression."""
+    compression.  An FSDP leaf's gradient is its block, summed over
+    "data" by the gather's backward: it is divided by the data ranks'
+    count and summed over the other data axes alone."""
     dp = _dp(mesh) if mesh is not None else ()
     D = axis_size(mesh, dp) if dp else 1
+    rest = tuple(a for a in dp if a != "data")
 
     def local(model, params: dict, batch: dict):
         """(loss, {name: grad or None}) of this rank's rows."""
@@ -166,13 +183,15 @@ def make_grads(cfg: ModelConfig, mesh=None, *, microbatches: int = 1,
 
     def grads(model, batch: dict, mean: bool = True):
         """``mean=False`` leaves each rank's own gradients (the compressed
-        reduction sums them)."""
+        reduction sums them; an FSDP leaf's block is already summed over
+        "data")."""
         loss, g = local(model, dict(model.named_parameters()), batch)
         if D > 1:
             loss = sharding.all_reduce(loss.clone(), mesh, dp) / D
             if mean:
-                g = {k: None if v is None
-                     else sharding.all_reduce(v, mesh, dp).div_(D)
+                fsdp = _fsdp(model)
+                g = {k: None if v is None else sharding.all_reduce(
+                         v, mesh, rest if k in fsdp else dp).div_(D)
                      for k, v in g.items()}
         return loss, g
 
@@ -202,17 +221,31 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, mesh=None, *,
         params = dict(model.named_parameters())
         loss, grads = grads_of(model, batch, mean=not compress_grads)
         if compress_grads:
-            grads = {k: None if g is None else g / D for k, g in grads.items()}
+            fsdp = _fsdp(model) if D > 1 else {}
+            grads = {k: None if g is None else
+                     (_whole_mean(g, fsdp[k], mesh, dp, D) if k in fsdp
+                      else g) / D for k, g in grads.items()}
             for a in dp if D > 1 else (None,):
                 grads = optim.psum_compressed(
                     grads, a and mesh.get_group(a))
-        sharded = transformer.sharded_leaves(model)
-        kw = {"sharded": set(sharded), "group": mesh.get_group("model")} \
-            if sharded else {}
+            grads = {k: g if k not in fsdp else fsdp[k].take(
+                         g, sharding.axis_index(mesh, "data"))
+                     for k, g in grads.items()}
+        sharded = {k: lay.axes for k, lay in
+                   transformer.sharded_leaves(model).items()}
+        kw = {"sharded": sharded, "mesh": mesh} if sharded else {}
         _, opt_state, om = optim.apply(ocfg, grads, opt_state, params, **kw)
         return model, opt_state, {"loss": loss, **om}
 
     return step
+
+
+def _whole_mean(g: torch.Tensor, split, mesh, dp, D: int) -> torch.Tensor:
+    """An FSDP leaf's mean gradient whole, the same on every rank: its
+    block (summed over "data") summed over the other data axes, gathered
+    over "data" and divided by the data ranks' count."""
+    g = sharding.all_reduce(g, mesh, tuple(a for a in dp if a != "data"))
+    return sharding.gather(g, mesh, "data", split.dim) / D
 
 
 def _checkpoint_tree(model, opt_state: dict, cfg: ModelConfig) -> dict:

@@ -2,12 +2,12 @@
 (``transformer`` over ``attention`` — self and cross — ``moe``, ``mamba``
 and ``xlstm``) with its training loss (``transformer.loss_fn``), the
 reference-weight carry both ways (``convert``) and the bridge to the
-decode engine (``pim_bridge``), on one GPU or on a mesh of ranks: tensor
-parallelism (every "model" entry of the reference's parameter specs,
-``transformer.param_specs``, a shard by ``layers.layout``) and expert
-parallelism (``moe.apply_ep``).  Still missing: FSDP's "data" entries as
-shards and the sequence-sharded batch-1 decode cache (ROADMAP queue 1,
-item 9.7) and the dry-run (item 9.8)."""
+decode engine (``pim_bridge``), on one GPU or on a mesh of ranks: every
+entry of the reference's parameter specs (``transformer.param_specs``)
+a shard by ``layers.layout`` — tensor parallelism and the experts over
+"model", FSDP over "data" — and expert parallelism (``moe.apply_ep``).
+Still missing: the sequence-sharded batch-1 decode cache (ROADMAP queue
+1, item 9.7) and the dry-run (item 9.8)."""
 from . import attention, moe, transformer
 from .layers import ModelConfig
 

@@ -22,7 +22,10 @@ columns of ``wk`` / ``wv`` (``bk`` / ``bv``).  Where the kv heads divide
 computes its block of the keys and values, gathers them over "model" and
 keeps the kv heads its query heads use.  The layer's input enters through
 ``copy_to`` and its output is the ranks' partial sums added
-(``reduce_from``); the caches hold the kv heads the rank uses.
+(``reduce_from``); the caches hold the kv heads the rank uses.  Under
+FSDP (``fs``, the "data" axis) the rank holds its block of the d rows of
+``wq`` / ``wk`` / ``wv`` and of the d columns of ``wo``, and each call
+gathers them (``layers.gathered``).
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
 from repro_torch.core.sharding import SOLO, Group, P
-from .layers import ModelConfig, _param, build, emb_axis, layout, rope
+from .layers import (ModelConfig, _param, build, emb_axis, gathered,
+                     layout, rope)
 
 
 def kv_heads(cfg: ModelConfig, m: int, r: int) -> slice:
@@ -57,14 +61,14 @@ class Attention(nn.Module):
     it keeps, of the gathered whole when ``gathered``."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None, tp: Group = SOLO):
+                 device=None, tp: Group = SOLO, fs: Group = SOLO):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
         H, KVH = cfg.n_heads, cfg.n_kv_heads
         shapes = {"wq": (d, H * hd), "wk": (d, KVH * hd),
                   "wv": (d, KVH * hd), "wo": (H * hd, d)}
         sp = specs(cfg)
-        build(self, shapes, sp, cfg.dtype, gen, device, tp)
+        build(self, shapes, sp, cfg.dtype, gen, device, tp, fs)
         if cfg.qkv_bias:
             for name, n in (("bq", H * hd), ("bk", KVH * hd), ("bv", KVH * hd)):
                 lay = layout(name, sp[name], (n,), tp.size)
@@ -137,6 +141,7 @@ def apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    p = gathered(p)
     q, k, v = _project(p, cfg, p.tp.copy_to(x), positions)
     attn = ops.attention if use_kernel else kref.attention
     o = attn(q, k, v, causal=True, window=cfg.window)
@@ -174,6 +179,7 @@ def attend_cached(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 def decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict,
            reduce: bool = True):
     """Single-token decode. x: (B, 1, d); returns (y, cache)."""
+    p = gathered(p)
     positions = cache["len"][:, None]
     q, k, v = _project(p, cfg, p.tp.copy_to(x), positions)
     o, cache = attend_cached(cfg, q, k, v, cache)
@@ -183,10 +189,10 @@ def decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict,
 # -- cross attention (VLM image layers) --------------------------------------
 
 def init_cross(gen: torch.Generator, cfg: ModelConfig, device=None,
-               tp: Group = SOLO) -> Attention:
+               tp: Group = SOLO, fs: Group = SOLO) -> Attention:
     """A cross-attention layer's weights: the keys of a self-attention
     layer, as the reference's ``init_cross``."""
-    return Attention(cfg, gen=gen, device=device, tp=tp)
+    return Attention(cfg, gen=gen, device=device, tp=tp, fs=fs)
 
 
 def promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -204,6 +210,7 @@ def cross_kv(p: Attention, cfg: ModelConfig, kv_tokens: torch.Tensor):
     """The frontend's keys and values, (B, kv heads, T, hd) each (the kv
     heads the rank keeps), in the promoted dtype of the frontend and the
     weights."""
+    p = gathered(p)
     k = _kv(p, cfg, promoted_matmul(kv_tokens, p.wk))
     v = _kv(p, cfg, promoted_matmul(kv_tokens, p.wv))
     return k.transpose(1, 2), v.transpose(1, 2)
@@ -217,6 +224,7 @@ def apply_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError("a cross-attention layer needs the frontend's "
                          "tokens: pass frontend=")
     B, S, _ = x.shape
+    p = gathered(p)
     q = (p.tp.copy_to(x) @ p.wq).reshape(B, S, p.heads[0], cfg.hd)
     k, v = cross_kv(p, cfg, kv_tokens)
     o = kref.attention(q.transpose(1, 2), k, v, causal=False)
@@ -239,6 +247,7 @@ def decode_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     """One token's cross attention over the cached frontend keys and
     values (all T of them valid). x: (B, 1, d); returns (y, cache)."""
     B = x.shape[0]
+    p = gathered(p)
     q = (p.tp.copy_to(x) @ p.wq).reshape(B, 1, p.heads[0], cfg.hd)
     T = cache["ck"].shape[2]
     lens = torch.full((B,), T, dtype=torch.int32, device=x.device)

@@ -14,14 +14,16 @@ Both packages store weights as ``(d_in, d_out)``, so every leaf is a copy,
 never a transpose.  A caller holding the reference's jax arrays passes
 ``jax.tree.map(np.asarray, params)``; this module imports no JAX.
 
-On a mesh a rank holds its part of each leaf that the model shards over
-"model" (``transformer.sharded_leaves``: the dense leaves of tensor
-parallelism by ``layers.layout``, the experts under ``moe_ep``): a carry
-from the reference keeps that part of the leaf (and of the optimizer's),
-and a carry back gathers the parts over "model" and puts each where the
-whole leaf holds it (``Layout.assemble``, which undoes the fused leaves'
-placement), so the reference's tree is whole and a checkpoint resumes in
-either package on any mesh, whatever its "model" axis.
+On a mesh a rank holds its part of each leaf that the model shards
+(``transformer.sharded_leaves``, by ``layers.layout``: over "model" the
+dense leaves of tensor parallelism and the experts, over "data" FSDP's
+leaves, a block on each of two dimensions where a leaf has both): a
+carry from the reference keeps that part of the leaf (and of the
+optimizer's, so a rank's optimizer state is its part too, ZeRO-3's
+saving), and a carry back gathers the parts over "model" and "data" and
+puts each where the whole leaf holds it (``Split.assemble``, which
+undoes the fused leaves' placement), so the reference's tree is whole
+and a checkpoint resumes in either package on any mesh.
 """
 from __future__ import annotations
 
@@ -88,8 +90,9 @@ def _nested(flat: dict) -> dict:
 
 
 def _part(t: torch.Tensor, name: str, parts: dict):
-    """``t``, the whole leaf ``name``, or the rank's part of it where
-    ``parts`` (``transformer.leaf_parts``) has it."""
+    """``t``, the whole leaf ``name``, or the rank's part of it (a block
+    of one or two dimensions) where ``parts`` (``transformer.leaf_parts``)
+    has it."""
     if name not in parts:
         return t
     lay, index = parts[name]
@@ -119,7 +122,8 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None,
                           mesh=None) -> Transformer:
     """The port's model on ``device`` (default ``cuda:0``) holding the
     reference's weights ``tree`` (numpy leaves, or tensors) for ``cfg``,
-    built on ``mesh`` (the rank keeps its part of each sharded leaf)."""
+    built on ``mesh`` (the rank keeps its part of each sharded leaf, over
+    "model" and "data")."""
     model = Transformer(cfg, device=device, mesh=mesh)
     pro, period, _ = layer_plan(cfg)
     parts = leaf_parts(model)
@@ -201,26 +205,28 @@ def _map(fn, tree):
 
 def whole(named: dict, model: Transformer) -> dict:
     """``named`` (the model's parameters, or the optimizer's master, mu or
-    nu) with every leaf the rank holds a part of gathered over the model's
-    "model" axis onto the CPU and put in its place
-    (``Layout.assemble``): the leaves of the one-process model.  Off a
-    mesh, ``named`` itself."""
+    nu) with every leaf the rank holds a part of gathered onto the CPU
+    over each axis that splits it, "model" then "data", and put in its
+    place (``Split.assemble``): the leaves of the one-process model.  Off
+    a mesh, ``named`` itself."""
     parts = sharded_leaves(model)
     out = {}
     for k, v in named.items():
         lay = parts.get(k)
-        if lay is None:
-            out[k] = v
-            continue
-        blocks = sharding.all_gather(v, model.mesh, "model", dim=lay.dim)
-        out[k] = lay.assemble(blocks.chunk(lay.m, dim=lay.dim))
+        if lay is not None:
+            dev = v.device
+            for s in reversed(lay.splits):
+                blocks = sharding.all_gather(v.to(dev), model.mesh, s.axis,
+                                             dim=s.dim)
+                v = s.assemble(blocks.chunk(s.n, dim=s.dim))
+        out[k] = v
     return out
 
 
 def params_to_reference(model: Transformer, cfg: ModelConfig) -> dict:
     """The model's weights as the reference's tree of numpy arrays, the
     inverse of ``params_from_reference``; on a mesh the sharded leaves
-    are gathered (every rank of a model group calls it)."""
+    are gathered (every rank of the mesh calls it)."""
     return _map(_numpy, reference_tree(
         whole(dict(model.named_parameters()), model), cfg))
 
@@ -241,7 +247,9 @@ def opt_state_from_reference(tree: dict, cfg: ModelConfig, device=None,
                              model: Transformer | None = None) -> dict:
     """The reference's optimizer state (numpy arrays or tensors) as the
     port's, on ``device`` (default ``cuda:0``); with ``model`` on a mesh,
-    the part of each leaf that the model holds."""
+    the part of each leaf that the model holds (over "model" and "data":
+    a rank keeps the optimizer state of its parts alone, ZeRO-3's
+    saving)."""
     dev = _device(device)
     parts = {} if model is None else leaf_parts(model)
     state = {k: {name: _part(_tensor(v), name, parts)

@@ -2,21 +2,27 @@
 ``repro.models.layers``: the config, the parameter count, the pure
 functions every block shares (``rms_norm``, ``rope``, ``swiglu``), the
 dense SwiGLU FFN module (``MLP``: a block's dense FFN and the MoE layer's
-shared experts) and the layout rule of tensor parallelism (``layout``).
+shared experts) and the placement rule of a mesh (``layout``).
 
 Weights are stored as ``(d_in, d_out)`` and applied as ``x @ w``, as in the
 reference, so a reference weight carries across as a copy
 (``models/convert.py``).  Each function keeps the reference's casts: the
 same float32 islands inside a bfloat16 model, and the same cast back.
 
-Tensor parallelism: on a mesh whose "model" axis has M > 1 ranks, a leaf
-whose spec names "model" is held as the rank's block of that dimension
-(``layout``).  A fused leaf — two halves side by side on its last
-dimension, gate | up or x | z — is held as the rank's block of each half,
-so that the rank's own gate and up columns meet without communication;
-the reference's contiguous block of such a leaf is another placement of
-the same bytes.  Each rank draws every leaf as one process draws it, a
-slab of rows at a time (``leaf``), and keeps its part.
+Placement: on a mesh, a leaf whose spec names "model" is held, over a
+"model" axis of M > 1 ranks, as the rank's block of that dimension
+(tensor parallelism, and the experts' leading dimension); a fused leaf —
+two halves side by side on its last dimension, gate | up or x | z — as
+the rank's block of each half, so that the rank's own gate and up columns
+meet without communication (the reference's contiguous block of such a
+leaf is another placement of the same bytes).  A leaf whose spec names
+"data" (``fsdp=True``) is held, over a "data" axis of D > 1 ranks, as
+the rank's one contiguous block of that dimension, the reference's, and
+gathered over "data" just before a layer uses it (``gathered``, ZeRO-3;
+its gradient is reduce-scattered, ``sharding.fsdp_gather``).  A leaf
+with both entries is a block on each of two dimensions (``Layout``).
+Each rank draws every leaf as one process draws it, a slab of rows at a
+time (``leaf``), and keeps its part.
 """
 from __future__ import annotations
 
@@ -42,14 +48,15 @@ class ModelConfig:
     ``remat`` recomputes each repeat of the layer group in the backward
     pass (``transformer.trunk``): ``remat_policy="full"`` saves only the
     group's input, any other policy also the plain matmuls' outputs (the
-    reference's ``dots_with_no_batch_dims_saveable``).  ``fsdp`` and
-    ``moe_dispatch_sharded`` shard parameters and activations across the
-    reference's mesh; the port realizes ``fsdp``'s "data" entries as
-    replication (``transformer.param_specs`` gives them; the "model"
-    entries are shards, ``layout``) and ``moe_dispatch_sharded`` changes
-    nothing.  ``moe_ep`` runs the experts sharded over a mesh's "model"
-    axis (``moe.apply_ep``); a model with it needs a mesh when it is
-    built.  ``scan_layers`` picks ``lax.scan`` or an unrolled loop in the
+    reference's ``dots_with_no_batch_dims_saveable``).  ``fsdp`` puts
+    "data" on the embedding dimension of the parameters' specs
+    (``transformer.param_specs``): on a mesh each such leaf is the rank's
+    block, gathered over "data" where a layer uses it (``layout``,
+    ``gathered``).  ``moe_dispatch_sharded`` only adds sharding
+    constraints in the reference and changes nothing here.  ``moe_ep``
+    picks ``moe.apply_ep``'s per-shard function for the MoE layers (the
+    experts are split over a "model" axis with or without it); a model
+    with it needs a mesh with a "model" axis when it is built.  ``scan_layers`` picks ``lax.scan`` or an unrolled loop in the
     reference; the port always runs its layers in a Python loop, which
     gives the same numbers either way."""
     name: str = "model"
@@ -86,7 +93,7 @@ class ModelConfig:
     n_frontend_tokens: int = 0  # precomputed patch/frame embeddings
     # numerics / distribution
     dtype: Any = torch.bfloat16
-    fsdp: bool = False          # its "data" entries realized as replication
+    fsdp: bool = False          # shard the params' embed dim over "data"
     remat: bool = True          # recompute each layer group in backward
     remat_policy: str = "full"  # "full" | anything else: save the matmuls
     fast_decode: bool = False   # grouped-GQA decode attention
@@ -149,7 +156,7 @@ DRAW_ELEMS = 1 << 28
 
 
 def leaf(gen: torch.Generator | None, shape, dtype, device=None, lay=None,
-         index: int = 0, in_axis: int = 0) -> torch.Tensor:
+         index=None, in_axis: int = 0) -> torch.Tensor:
     """A weight of the whole ``shape``, Normal(0, 1/fan_in) drawn from
     ``gen`` in float32 (the reference's scheme, not its random bits) in
     slabs of whole rows of its first dimension, as many as DRAW_ELEMS
@@ -169,6 +176,10 @@ def leaf(gen: torch.Generator | None, shape, dtype, device=None, lay=None,
     scale = 1.0 / math.sqrt(shape[in_axis])
     step = max(1, DRAW_ELEMS // max(math.prod(shape[1:]), 1))
     dev = device or gen.device
+    # the rank's rows of the first dimension, and the splits of the others
+    first = next((s for s in lay.splits if s.dim == 0), None) if lay else None
+    rows = first.parts(index[first.axis]) if first else [slice(0, shape[0])]
+    rest = Layout(tuple(s for s in lay.splits if s.dim)) if lay else None
     out = None
     for a in range(0, shape[0], step):
         b = min(a + step, shape[0])
@@ -178,17 +189,14 @@ def leaf(gen: torch.Generator | None, shape, dtype, device=None, lay=None,
             return w.to(dtype)          # one slab: the whole leaf
         if out is None:
             out = torch.empty(local, dtype=dtype, device=dev)
-        if lay is None:
-            out[a:b] = w
-        elif lay.dim == 0:
-            at = 0                      # the part's first row in ``out``
-            for s in lay.parts(index):
-                lo, hi = max(s.start, a), min(s.stop, b)
-                if lo < hi:
-                    out[at + lo - s.start:at + hi - s.start] = w[lo - a:hi - a]
-                at += s.stop - s.start
-        else:
-            out[a:b] = lay.take(w, index)
+        at = 0                          # the range's first row in ``out``
+        for s in rows:
+            lo, hi = max(s.start, a), min(s.stop, b)
+            if lo < hi:
+                piece = w[lo - a:hi - a]
+                out[at + lo - s.start:at + hi - s.start] = (
+                    rest.take(piece, index) if rest else piece)
+            at += s.stop - s.start
         del w
     return out
 
@@ -250,7 +258,7 @@ def mlp_specs(cfg: ModelConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# tensor parallelism: the layout rule
+# placement on a mesh: the layout rule
 # ---------------------------------------------------------------------------
 
 #: the last name of a leaf whose last dimension is two halves side by side
@@ -260,38 +268,33 @@ FUSED = ("wi", "in_proj", "up")
 
 
 @dataclasses.dataclass(frozen=True)
-class Layout:
-    """How the ranks of an axis of ``m`` hold a leaf: dimension ``dim``
-    (of whole ``size``) in blocks, rank r's block r — or, ``fused``, rank
-    r's block r of each half, side by side."""
+class Split:
+    """How the ``n`` ranks of the mesh axis ``axis`` hold dimension
+    ``dim`` (of whole ``size``) of a leaf: rank r's block r — or,
+    ``fused``, rank r's block r of each half, side by side."""
+    axis: str
     dim: int
     size: int
-    m: int
+    n: int
     fused: bool = False
 
     def parts(self, r: int) -> list[slice]:
         """Rank ``r``'s ranges of the whole dimension, in its order."""
         halves = 2 if self.fused else 1
         h = self.size // halves
-        k = h // self.m
+        k = h // self.n
         return [slice(j * h + r * k, j * h + (r + 1) * k)
                 for j in range(halves)]
 
-    def local(self, shape) -> tuple:
-        """The rank's shape of a leaf of the whole ``shape``."""
-        out = list(shape)
-        out[self.dim] = self.size // self.m
-        return tuple(out)
-
     def take(self, t: torch.Tensor, r: int) -> torch.Tensor:
-        """Rank ``r``'s part of the whole ``t`` (a new tensor)."""
+        """Rank ``r``'s part of ``t``, whole on ``dim`` (a new tensor)."""
         return torch.cat([t.narrow(self.dim, s.start, s.stop - s.start)
                           for s in self.parts(r)], dim=self.dim)
 
     def assemble(self, blocks) -> torch.Tensor:
-        """The whole leaf from every rank's part (``blocks`` in rank
+        """``dim`` whole from every rank's part (``blocks`` in rank
         order): the inverse of ``take``."""
-        k = self.size // self.m // (2 if self.fused else 1)
+        k = self.size // self.n // (2 if self.fused else 1)
         pieces = {}
         for r, b in enumerate(blocks):
             for j, s in enumerate(self.parts(r)):
@@ -299,47 +302,114 @@ class Layout:
         return torch.cat([pieces[a] for a in sorted(pieces)], dim=self.dim)
 
 
-def layout(name: str, spec, shape, m: int, moe_ep: bool = False):
-    """The ``Layout`` on a "model" axis of ``m`` ranks of the leaf ``name``
-    (a dotted parameter name, or its last part) of ``spec`` and whole
-    ``shape``, or None where every rank holds it whole: no "model" entry,
-    ``m`` of 1, or the experts' leading dimension without ``moe_ep``.
-    The fused leaves (``FUSED``, sharded on their last dimension) hold the
-    rank's block of each half.  A dimension that does not divide raises."""
-    dims = [i for i, p in enumerate(spec)
-            if p == "model" or (isinstance(p, tuple) and "model" in p)]
-    if not dims or m == 1:
-        return None
-    dim = dims[0]
-    if len(shape) == 3 and dim == 0 and not moe_ep:
-        return None                 # the experts: replicated without moe_ep
-    fused = dim == len(shape) - 1 and name.rsplit(".", 1)[-1] in FUSED
-    if shape[dim] % (2 * m if fused else m):
-        raise ValueError(f"{name}: dimension {dim} of {tuple(shape)} does "
-                         f"not split over {m} model ranks"
-                         + (" in each half" if fused else ""))
-    return Layout(dim, shape[dim], m, fused)
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How the ranks of a mesh hold a leaf: one ``Split`` for each axis
+    that shards it ("data" first, then "model"), each on its own
+    dimension.  A rank's ``index`` is ``{axis: its index along it}``: its
+    part is its block of each split's dimension."""
+    splits: tuple[Split, ...]
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return tuple(s.axis for s in self.splits)
+
+    def split(self, axis: str) -> Split | None:
+        return next((s for s in self.splits if s.axis == axis), None)
+
+    def local(self, shape) -> tuple:
+        """The rank's shape of a leaf of the whole ``shape``."""
+        out = list(shape)
+        for s in self.splits:
+            out[s.dim] = s.size // s.n
+        return tuple(out)
+
+    def take(self, t: torch.Tensor, index) -> torch.Tensor:
+        """The part of the rank of ``index`` of the whole ``t`` (a new
+        tensor)."""
+        for s in self.splits:
+            t = s.take(t, index[s.axis])
+        return t
+
+
+def layout(name: str, spec, shape, m: int, d: int = 1) -> Layout | None:
+    """The ``Layout`` of the leaf ``name`` (a dotted parameter name, or
+    its last part) of ``spec`` and whole ``shape`` on a mesh of ``d``
+    "data" and ``m`` "model" ranks, or None where every rank holds it
+    whole (no entry of an axis larger than 1).  "model": the rank's
+    block, of each half for the fused leaves (``FUSED``, sharded on their
+    last dimension); "data": one contiguous block.  A dimension that does
+    not divide raises a ``ValueError`` naming the leaf and the axis."""
+    splits = []
+    for axis, n in (("data", d), ("model", m)):
+        dims = [i for i, p in enumerate(spec)
+                if p == axis or (isinstance(p, tuple) and axis in p)]
+        if not dims or n == 1:
+            continue
+        dim = dims[0]
+        fused = (axis == "model" and dim == len(shape) - 1
+                 and name.rsplit(".", 1)[-1] in FUSED)
+        if shape[dim] % (2 * n if fused else n):
+            raise ValueError(f"{name}: dimension {dim} of {tuple(shape)} does "
+                             f"not split over {n} {axis} ranks"
+                             + (" in each half" if fused else ""))
+        splits.append(Split(axis, dim, shape[dim], n, fused))
+    return Layout(tuple(splits)) if splits else None
 
 
 def build(module: nn.Module, shapes: dict, specs: dict, dtype, gen, device,
-          tp: Group = SOLO, moe_ep: bool = False) -> None:
+          tp: Group = SOLO, fs: Group = SOLO) -> None:
     """Each weight of ``shapes`` (name -> shape, or (shape, dtype,
     in_axis)), in order: drawn from ``gen`` (``leaf``) or left
-    uninitialised, the rank's part under its ``layout`` on ``tp``.  Sets
-    ``module.tp``, ``module.layouts`` (name -> ``Layout`` of each leaf
-    the rank holds a part of) and ``module.part_index`` (the rank's index
-    in those layouts)."""
-    module.tp = tp
+    uninitialised, the rank's part under its ``layout`` on ``tp`` (the
+    "model" axis) and ``fs`` (the "data" axis).  Sets ``module.tp``,
+    ``module.fs``, ``module.layouts`` (name -> ``Layout`` of each leaf the
+    rank holds a part of), ``module.part_index`` (the rank's index in
+    those layouts) and ``module.fsdp_dims`` (name -> the dimension
+    ``gathered`` gathers over "data")."""
+    module.tp, module.fs = tp, fs
     module.layouts = {}
-    module.part_index = tp.index
+    module.part_index = {"data": fs.index, "model": tp.index}
+    module.fsdp_dims = {}
     for name, shape in shapes.items():
         shape, dt, in_axis = (shape if isinstance(shape[0], tuple)
                               else (shape, dtype, 0))
-        lay = layout(name, specs[name], shape, tp.size, moe_ep)
+        lay = layout(name, specs[name], shape, tp.size, fs.size)
         setattr(module, name, _param(leaf(gen, shape, dt, device, lay,
-                                          tp.index, in_axis)))
+                                          module.part_index, in_axis)))
         if lay is not None:
             module.layouts[name] = lay
+            if lay.split("data"):
+                module.fsdp_dims[name] = lay.split("data").dim
+
+
+class _Gathered:
+    """A module as a layer uses it: each leaf that FSDP splits over
+    "data" gathered whole (``Group.fsdp_gather``) at its first use and
+    held by this view alone, so it goes with the view at the end of the
+    layer's call (under grad, autograd keeps what the backward needs);
+    every other attribute is the module's own."""
+
+    def __init__(self, module: nn.Module):
+        self._module = module
+
+    def __getattr__(self, name: str):
+        module = self.__dict__["_module"]
+        value = getattr(module, name)
+        dim = module.fsdp_dims.get(name)
+        if dim is not None:
+            value = module.fs.fsdp_gather(value, dim)
+            setattr(self, name, value)
+        return value
+
+
+def gathered(module: nn.Module):
+    """``module`` with its FSDP leaves gathered over "data" on use (a
+    ``_Gathered`` view), or the module itself where it has none (or the
+    view itself)."""
+    if isinstance(module, _Gathered) or not getattr(module, "fsdp_dims", None):
+        return module
+    return _Gathered(module)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -353,20 +423,23 @@ class MLP(nn.Module):
     """The dense SwiGLU FFN: ``wi`` (d, 2f) fused gate|up, ``wo`` (f, d),
     drawn from ``gen`` when it is given and left uninitialised otherwise
     (for a weight carry); on ``tp`` the rank's columns of each half of
-    ``wi`` and rows of ``wo``."""
+    ``wi`` and rows of ``wo``, on ``fs`` (FSDP) its block of the d
+    rows of ``wi`` and columns of ``wo``."""
 
     def __init__(self, cfg: ModelConfig, ff: int, *,
                  gen: torch.Generator | None = None, device=None,
-                 tp: Group = SOLO):
+                 tp: Group = SOLO, fs: Group = SOLO):
         super().__init__()
         d = cfg.d_model
         build(self, {"wi": (d, 2 * ff), "wo": (ff, d)}, mlp_specs(cfg),
-              cfg.dtype, gen, device, tp)
+              cfg.dtype, gen, device, tp, fs)
 
 
 def mlp(p: MLP, x: torch.Tensor, reduce: bool = True) -> torch.Tensor:
     """The FFN of ``p`` on the replicated ``x``: column-parallel ``wi``,
     row-parallel ``wo``, the ranks' partial sums added over the model axis
-    (``reduce=False``: the rank's partial sum, for the caller to add)."""
+    (``reduce=False``: the rank's partial sum, for the caller to add);
+    its FSDP leaves gathered over "data" first."""
+    p = gathered(p)
     y = swiglu(p.tp.copy_to(x), p.wi, p.wo)
     return p.tp.reduce_from(y) if reduce else y

@@ -18,6 +18,9 @@ heads' part through ``copy_to``.  ``bc_proj`` / ``dt_proj``'s products,
 and the gated norm's sum of squares over di, are summed over the ranks in
 both directions (each rank uses the sum for its own heads); ``out_proj``'s
 partial sums are added.  The cache holds the rank's channels and heads.
+Under FSDP (``fs``, the "data" axis) the rank holds its block of the d
+rows of ``in_proj`` and of the d columns of ``out_proj``, which each
+call gathers (``layers.gathered``).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
 from repro_torch.core.sharding import SOLO, Group, P
-from .layers import (ModelConfig, _param, build, emb_axis, layout,
+from .layers import (ModelConfig, _param, build, emb_axis, gathered, layout,
                      rms_norm_parts)
 
 
@@ -44,14 +47,14 @@ class Mamba(nn.Module):
     rank's part (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None, tp: Group = SOLO):
+                 device=None, tp: Group = SOLO, fs: Group = SOLO):
         super().__init__()
         d = cfg.d_model
         di, H, _, N = _dims(cfg)
         shapes = {"in_proj": (d, 2 * di), "conv": (cfg.ssm_conv, di),
                   "bc_proj": (di, 2 * N), "dt_proj": (di, H),
                   "out_proj": (di, d)}
-        build(self, shapes, specs(cfg), cfg.dtype, gen, device, tp)
+        build(self, shapes, specs(cfg), cfg.dtype, gen, device, tp, fs)
         self.dt_bias = _param(torch.zeros(H, dtype=torch.float32, device=device))
         self.a_log = _param(torch.zeros(H, dtype=torch.float32, device=device))
         lay = layout("norm", specs(cfg)["norm"], (di,), tp.size)
@@ -114,6 +117,7 @@ def apply(p: Mamba, cfg: ModelConfig, x: torch.Tensor, *,
           use_kernel: bool = False) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
+    p = gathered(p)
     xi, z = (p.tp.copy_to(x) @ p.in_proj).chunk(2, dim=-1)
     xc = _conv_causal(xi, p.conv)
     u, a, b, c, _ = _ssm_inputs(p, cfg, xc)
@@ -138,6 +142,7 @@ def init_cache(cfg: ModelConfig, batch: int, dtype=None, device=None,
 def decode(p: Mamba, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     """x: (B, 1, d); one step of the recurrence.  Returns (y, new cache)."""
     B = x.shape[0]
+    p = gathered(p)
     xi, z = (p.tp.copy_to(x) @ p.in_proj).chunk(2, dim=-1)  # (B, 1, di / M)
     window = torch.cat([cache["conv"], xi], dim=1)          # (B, K, di)
     w = p.conv

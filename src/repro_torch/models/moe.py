@@ -11,33 +11,47 @@ with the router weights.  Parameters are named as the reference's keys
 carry matches them by name.
 
 On a mesh (``core.sharding``), the tokens ``x`` are this rank's rows of a
-batch split over the data axes, replicated over "model":
+batch split over the data axes, replicated over "model", and the experts
+are split over a "model" axis of M > 1 ranks whatever ``moe_ep`` says
+(the reference's ``P("model", e, None)``, which ``jax.jit`` places so):
+the module holds the experts [j·E/M, (j+1)·E/M) of model rank j
+(``ep_slice``).  Each rank computes its experts' (token, expert) pairs of
+the replicated routing, so no token crosses the wire, and the combine is
+one all-reduce over "model".  ``moe_ep`` only picks the per-shard
+function:
 
 - ``apply_ep`` is the reference's expert parallelism (``moe_ep``): the
-  module holds the experts [j·E/m, (j+1)·E/m) of model rank j, the router
-  is replicated, each rank computes its own (token, expert) pairs and the
-  combine is one all-reduce over "model".  The capacity, the ranks in an
-  expert and the aux loss are each data shard's own, the aux then averaged
-  over the data axes, as the reference's ``shard_map`` computes them.  The
-  experts run as ``torch.bmm`` whatever ``use_kernel`` says, as the
-  reference's einsums do (``moe.py:175-179``).
+  capacity, the ranks in an expert and the aux loss are each data shard's
+  own, the aux then averaged over the data axes, as the reference's
+  ``shard_map`` computes them.  The experts run as ``torch.bmm`` whatever
+  ``use_kernel`` says, as the reference's einsums do
+  (``moe.py:175-179``).
 - ``apply(mesh=...)`` is ``apply``'s function of the whole batch (the
   reference's ``apply`` under ``jit`` sees the global batch, and its decode
   routes the global decode batch): the capacity from the global token
   count, each pair ranked after the pairs of the lower data ranks, the aux
-  over the whole batch; experts sharded under ``moe_ep`` are combined over
-  "model" as above.
+  over the whole batch; the rank's experts through ``moe_gmm`` with
+  ``use_kernel=True``.
 
-Under tensor parallelism (the model's "model" axis of M > 1 ranks) the
-shared experts hold the dense FFN's layout (``layers.MLP``): their
-partial sums join the experts' combine in one all-reduce where the
-experts are split, and are added by their own otherwise.
+Under FSDP (``fsdp=True`` on a "data" axis of D > 1 ranks) the router
+and the rank's experts hold the rank's block of their d dimension and
+are gathered over "data" just before use, in ``apply`` and ``apply_ep``
+alike (the reference's ``apply_ep`` gathers them by hand,
+``moe.py:151-154``): the experts a block of them at a time, as many as
+EXPERT_GATHER_BYTES hold gathered, each block multiplied and freed before
+the next (each expert needs only its own weights, so the function is the
+same).
+
+Under tensor parallelism the shared experts hold the dense FFN's layout
+(``layers.MLP``): their partial sums join the experts' combine in one
+all-reduce.
 
 The gradients follow the function: the combine sums forward and passes
 the gradient through, the router's probabilities and the tokens enter
 each rank's pairs replicated and their gradients are summed over "model"
 (``sharding.reduce_from`` / ``copy_to``); the aux is computed from the
-whole probabilities on every rank and its gradient counts once.
+whole probabilities on every rank and its gradient counts once; a
+gathered leaf's gradient is reduce-scattered over "data".
 ``moe_dispatch_sharded`` only adds sharding constraints in the reference
 and changes nothing here.
 """
@@ -49,25 +63,39 @@ from torch import nn
 from repro_torch.core import sharding
 from repro_torch.core.sharding import SOLO, Group, P
 from repro_torch.kernels import ops
-from .layers import MLP, ModelConfig, build, emb_axis, mlp, swiglu
+from .layers import MLP, ModelConfig, build, emb_axis, gathered, mlp, swiglu
+
+#: bytes of gathered expert weights (``wi`` and ``wo``) a rank holds at
+#: once under FSDP: the experts are gathered and multiplied a block at a
+#: time (one expert at least)
+EXPERT_GATHER_BYTES = 2 << 30
 
 
-def ep_slice(cfg: ModelConfig, mesh, model_axis: str = "model") -> slice:
-    """The experts this rank holds: all of them, or under ``moe_ep`` on a
-    mesh its model rank's block; ``moe_ep`` without a mesh that has
-    ``model_axis`` raises."""
+def expert_ranks(cfg: ModelConfig, mesh, model_axis: str = "model") -> int:
+    """The ranks of ``model_axis`` of ``mesh`` (a DeviceMesh or ``{axis:
+    size}``) the experts split over, 1 where there is no such axis.
+    ``moe_ep`` without a mesh that has ``model_axis`` raises, and so do
+    experts that do not divide over it."""
     E = cfg.moe_experts
-    if not cfg.moe_ep:
-        return slice(0, E)
-    if mesh is None or model_axis not in sharding.mesh_shape(mesh):
+    has = mesh is not None and model_axis in sharding.mesh_shape(mesh)
+    if cfg.moe_ep and not has:
         raise ValueError(f"{cfg.name}: moe_ep=True (expert parallelism) needs"
                          f" a mesh with a {model_axis!r} axis to shard the "
                          f"{E} experts over")
-    m = sharding.axis_size(mesh, model_axis)
+    m = sharding.axis_size(mesh, model_axis) if has else 1
     if E % m:
-        raise ValueError(f"{cfg.name}: expert parallelism over {m} model "
-                         f"ranks needs the {E} experts to divide")
-    return sharding.block(E, mesh, model_axis)
+        raise ValueError(f"{cfg.name}: the {E} experts do not split over {m} "
+                         f"{model_axis!r} ranks")
+    return m
+
+
+def ep_slice(cfg: ModelConfig, mesh, model_axis: str = "model") -> slice:
+    """The experts this rank holds: its model rank's block on a mesh whose
+    ``model_axis`` has more than one rank, all of them otherwise
+    (``expert_ranks`` raises first)."""
+    if expert_ranks(cfg, mesh, model_axis) == 1:
+        return slice(0, cfg.moe_experts)
+    return sharding.block(cfg.moe_experts, mesh, model_axis)
 
 
 class MoE(nn.Module):
@@ -76,30 +104,29 @@ class MoE(nn.Module):
     ``shared``, one SwiGLU ``MLP`` of width f · n_shared.  Drawn from
     ``gen`` when it is given (the reference's scheme: fan-in of d for
     ``wi``, of f for ``wo``), uninitialised otherwise (for a weight
-    carry).  Under ``moe_ep`` on ``mesh``, ``wi`` and ``wo`` hold the
-    rank's experts only (``self.experts``): each is drawn as one process
-    draws it (``layers.leaf``) and the rank keeps its experts, so its rows
-    equal the same rows of the one-process model of the same seed.  On
-    ``tp`` the shared experts hold the rank's part."""
+    carry).  On ``mesh``, ``wi`` and ``wo`` hold the rank's experts only
+    (``self.experts``, ``ep_slice``) and, under FSDP, the rank's block of
+    their d dimension, as the router does: each leaf is drawn as one
+    process draws it (``layers.leaf``) and the rank keeps its part, equal
+    to that part of the one-process model of the same seed.  On ``tp``
+    the shared experts hold the rank's part."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
                  device=None, mesh=None, tp: Group = SOLO):
         super().__init__()
         d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
         self.experts = ep_slice(cfg, mesh)
-        n = self.experts.stop - self.experts.start
+        fs = sharding.group(mesh, "data")
         shapes = {"router": ((d, E), torch.float32, 0),
                   "wi": ((E, d, 2 * f), cfg.dtype, 1),
                   "wo": ((E, f, d), cfg.dtype, 1)}
-        # the experts' group (its index their block), then the layer's
-        # tensor-parallel one
+        # the experts' "model" group, then the layer's tensor-parallel one
         build(self, shapes, specs(cfg), cfg.dtype, gen, device,
-              Group(mesh, "model", E // n, self.experts.start // n)
-              if n < E else SOLO, moe_ep=True)
+              sharding.group(mesh, "model"), fs)
         self.tp = tp
         if cfg.moe_shared_experts:
             self.shared = MLP(cfg, f * cfg.moe_shared_experts, gen=gen,
-                              device=device, tp=tp)
+                              device=device, tp=tp, fs=fs)
 
 
 def specs(cfg: ModelConfig) -> dict:
@@ -145,6 +172,28 @@ def _rank_in_expert(ef: torch.Tensor, E: int):
     return rank, counts
 
 
+def _expert_blocks(p: MoE) -> list[tuple[int, int]]:
+    """The ranges of the rank's experts multiplied at once: all of them,
+    or under FSDP as many as EXPERT_GATHER_BYTES hold gathered (at least
+    one)."""
+    n = p.wi.shape[0]
+    if "wi" not in p.fsdp_dims:
+        return [(0, n)]
+    whole = (p.wi[0].numel() + p.wo[0].numel()) * p.wi.element_size() \
+        * p.fs.size
+    k = max(1, min(n, EXPERT_GATHER_BYTES // whole))
+    return [(a, min(a + k, n)) for a in range(0, n, k)]
+
+
+def _expert_weights(p: MoE, a: int, b: int):
+    """``wi`` and ``wo`` of the rank's experts [a, b), gathered over
+    "data" under FSDP."""
+    if "wi" not in p.fsdp_dims:
+        return p.wi, p.wo
+    return (p.fs.fsdp_gather(p.wi[a:b], p.fsdp_dims["wi"]),
+            p.fs.fsdp_gather(p.wo[a:b], p.fsdp_dims["wo"]))
+
+
 def _experts(p: MoE, xt, ef, rank, kept, gate, C: int, cnt, use_kernel: bool):
     """The (T, d) sum over each token's kept pairs with the rank's experts
     of gate × expert output.  A pair's slot is ``(e - lo) * C + rank``;
@@ -159,16 +208,22 @@ def _experts(p: MoE, xt, ef, rank, kept, gate, C: int, cnt, use_kernel: bool):
     buf[slot] = xt[tok]
     xg = buf[:n * C].view(n, C, d)
 
-    # the experts: (n, C, ·) @ (n, ·, ·), the kernel masking rows past
-    # each expert's count (zero rows here, as the buffer left them)
+    # the experts, a block at a time: (k, C, ·) @ (k, ·, ·), the kernel
+    # masking rows past each expert's count (zero rows here, as the
+    # buffer left them)
     if use_kernel:
         cnt = cnt.to(torch.int32)
-        experts = lambda a, w: ops.moe_gmm(a, w, cnt)    # noqa: E731
+        experts = ops.moe_gmm
     else:
-        experts = torch.bmm
-    g, u = experts(xg, p.wi).chunk(2, dim=-1)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(xt.dtype) * u
-    yg = experts(h, p.wo)
+        experts = lambda a, w, c: torch.bmm(a, w)       # noqa: E731
+    ys = []
+    for a, b in _expert_blocks(p):
+        wi, wo = _expert_weights(p, a, b)
+        g, u = experts(xg[a:b], wi, cnt[a:b]).chunk(2, dim=-1)
+        h = torch.nn.functional.silu(g.to(torch.float32)).to(xt.dtype) * u
+        ys.append(experts(h, wo, cnt[a:b]))
+        del wi, wo
+    yg = ys[0] if len(ys) == 1 else torch.cat(ys)
 
     # combine: each pair's expert output, weighted; a token's K pairs are
     # adjacent (tok = repeat(arange(T), K)), so the segment sum is a sum
@@ -208,7 +263,7 @@ def _moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, use_kernel: bool, mesh,
     D = sharding.axis_size(mesh, dp) if dp else 1
     split = p.wi.shape[0] < E                   # experts over model_axis
 
-    probs = torch.softmax(xt.to(torch.float32) @ p.router, dim=-1)
+    probs = torch.softmax(xt.to(torch.float32) @ gathered(p).router, dim=-1)
     # each rank's pairs use the replicated probabilities and tokens: their
     # gradients are summed over model_axis (the aux below uses probs as
     # they are, so its gradient counts once)
@@ -242,7 +297,8 @@ def _moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, use_kernel: bool, mesh,
 
     joined = cfg.moe_shared_experts and split and p.tp.size > 1
     if joined:      # the shared experts' partial sums join the combine
-        y = y + swiglu(xin, p.shared.wi, p.shared.wo)
+        sh = gathered(p.shared)
+        y = y + swiglu(xin, sh.wi, sh.wo)
     if split:
         y = sharding.reduce_from(y, mesh, model_axis)        # the combine
     if cfg.moe_shared_experts and not joined:

@@ -16,22 +16,27 @@ audio family's ``embeds=`` input.
 
 On a mesh (``core.sharding``) the model is built with ``mesh=`` and
 ``x`` is the rank's rows of a batch split over the data axes.  Every
-"model" entry of ``param_specs`` is a shard on a "model" axis of M > 1
-ranks (``layers.layout``): tensor parallelism, Megatron's column- and
+entry of ``param_specs`` is a shard (``layers.layout``).  "model", on a
+"model" axis of M > 1 ranks: tensor parallelism, Megatron's column- and
 row-parallel matmuls — each layer's input enters its rank's heads or
 columns through ``copy_to`` and its output is the ranks' partial sums
 added (``reduce_from``; one all-reduce for a ``parallel_block`` layer's
 attention and FFN), the embedding a masked lookup of the rank's vocab
 rows, the logits the rank's vocab columns gathered (``loss_fn``'s
-streamed CE combines the ranks' log-sum-exp instead).  The experts shard
-over "model" under ``moe_ep`` (each MoE layer runs ``moe.apply_ep``, as
-the reference's block does; ``moe_ep`` without a mesh that has a "model"
-axis raises a ``ValueError`` when the model is built) and are replicated
-otherwise; a MoE layer without ``moe_ep``, and every MoE layer in decode
-(the reference's decode block calls ``moe.apply``), gives
-``moe.apply``'s result over the whole batch.  The FSDP "data" entries are
-realized as replication.  A config whose "model" dimensions or heads do
-not split over M raises (``check_ported``).
+streamed CE combines the ranks' log-sum-exp instead) — and the experts,
+the rank's block of them whatever ``moe_ep`` says (each MoE layer runs
+``moe.apply_ep`` under ``moe_ep``, as the reference's block does, and
+``moe.apply``'s result over the whole batch otherwise and in decode,
+whose reference block calls ``moe.apply``; ``moe_ep`` without a mesh
+that has a "model" axis raises a ``ValueError`` when the model is
+built).  "data", FSDP's entry on the embedding dimension (``fsdp=True``)
+on a "data" axis of D > 1 ranks: each rank holds its block and gathers a
+layer's leaves over "data" just before the layer uses them
+(``layers.gathered``; ZeRO-3), the embedding in ``_embed`` and the head
+in ``_logits`` and the streamed CE; the gradient of a gathered leaf is
+reduce-scattered over "data".  A config whose "model" or "data"
+dimensions, heads or experts do not split over the mesh raises
+(``check_ported``).
 The training loss is ``loss_fn`` (next-token CE in float32, through the
 whole logits or streamed over vocab chunks by ``_chunked_ce``, plus the
 MoE aux); with ``cfg.remat`` and grad on, ``trunk`` recomputes each repeat
@@ -53,8 +58,8 @@ from repro_torch.core import sharding
 from repro_torch.core.banked import _device
 from repro_torch.core.sharding import P
 from . import attention, mamba, moe, xlstm
-from .layers import (MLP, ModelConfig, _param, build, emb_axis, layout,
-                     mlp, mlp_specs, rms_norm, swiglu)
+from .layers import (MLP, ModelConfig, _param, build, emb_axis, gathered,
+                     layout, mlp, mlp_specs, rms_norm, swiglu)
 
 #: each mixer's module
 _MIXERS = {"attn": attention.Attention, "cross": attention.Attention,
@@ -104,43 +109,51 @@ def layer_plan(cfg: ModelConfig):
 
 def check_ported(cfg: ModelConfig, mesh=None) -> None:
     """Raise ``ValueError`` when ``cfg`` cannot be built on ``mesh``:
-    expert parallelism (``moe_ep``) needs a mesh with a "model" axis over
-    which the experts divide; tensor parallelism over a "model" axis of M
-    > 1 ranks needs every "model" dimension of ``param_specs`` to divide
-    by M (``jax.jit`` refuses such a spec), each fused leaf's halves too,
-    the query heads (and Mamba's heads) to divide by M (the reference
-    would split a head), each rank's query heads to group evenly over
-    the kv heads, and a ``parallel_block`` config's dense layers to mix by
-    self-attention (the one mixer whose partial sum joins the FFN's)."""
+    ``moe_ep`` needs a mesh with a "model" axis, and the experts must
+    divide over a "model" axis of M > 1 ranks; tensor parallelism over
+    such an axis needs every "model" dimension of ``param_specs`` to
+    divide by M (``jax.jit`` refuses such a spec), each fused leaf's
+    halves too, the query heads (and Mamba's heads) to divide by M (the
+    reference would split a head), each rank's query heads to group
+    evenly over the kv heads, and a ``parallel_block`` config's dense
+    layers to mix by self-attention (the one mixer whose partial sum
+    joins the FFN's); FSDP over a "data" axis of D > 1 ranks needs every
+    "data" dimension to divide by D.  Each message names the config and
+    the axis."""
     if any(_desc(cfg, li)["ffn"] == "moe" for li in range(cfg.n_layers)):
-        moe.ep_slice(cfg, mesh)
-    m = sharding.mesh_shape(mesh).get("model", 1) if mesh is not None else 1
-    if m == 1:
+        moe.expert_ranks(cfg, mesh)
+    dims = sharding.mesh_shape(mesh) if mesh is not None else {}
+    m, d = dims.get("model", 1), dims.get("data", 1)
+    if m == 1 and d == 1:
         return
     why = f"{cfg.name}: tensor parallelism over {m} model ranks"
     mixers = {_desc(cfg, li)["mixer"] for li in range(cfg.n_layers)}
-    if cfg.parallel_block and {
-            _desc(cfg, li)["mixer"] for li in range(cfg.n_layers)
-            if _desc(cfg, li)["ffn"] == "dense"} - {"attn"}:
-        raise ValueError(f"{why} joins only a self-attention mixer's partial "
-                         f"sum to a parallel_block layer's FFN")
-    if mixers & {"attn", "cross", "mlstm"}:
-        if cfg.n_heads % m:
-            raise ValueError(f"{why} needs the {cfg.n_heads} heads to divide")
-        try:
-            attention.kv_heads(cfg, m, 0)
-        except ValueError as e:
-            raise ValueError(f"{why}: {e}") from None
-    if "mamba" in mixers and mamba._dims(cfg)[1] % m:
-        raise ValueError(f"{why} needs the {mamba._dims(cfg)[1]} Mamba heads "
-                         f"to divide")
+    if m > 1:
+        if cfg.parallel_block and {
+                _desc(cfg, li)["mixer"] for li in range(cfg.n_layers)
+                if _desc(cfg, li)["ffn"] == "dense"} - {"attn"}:
+            raise ValueError(f"{why} joins only a self-attention mixer's "
+                             f"partial sum to a parallel_block layer's FFN")
+        if mixers & {"attn", "cross", "mlstm"}:
+            if cfg.n_heads % m:
+                raise ValueError(f"{why} needs the {cfg.n_heads} heads to "
+                                 f"divide")
+            try:
+                attention.kv_heads(cfg, m, 0)
+            except ValueError as e:
+                raise ValueError(f"{why}: {e}") from None
+        if "mamba" in mixers and mamba._dims(cfg)[1] % m:
+            raise ValueError(f"{why} needs the {mamba._dims(cfg)[1]} Mamba "
+                             f"heads to divide")
     whole = Transformer(dataclasses.replace(cfg, moe_ep=False), device="meta")
     shapes = {k: tuple(v.shape) for k, v in whole.named_parameters()}
+    fsdp = f"{cfg.name}: FSDP over {d} data ranks"
     for name, spec in param_specs(cfg).items():
-        try:
-            layout(name, spec, shapes[name], m, cfg.moe_ep)
-        except ValueError as e:
-            raise ValueError(f"{why}: {e}") from None
+        for how, sizes in ((why, (m, 1)), (fsdp, (1, d))):
+            try:
+                layout(name, spec, shapes[name], *sizes)
+            except ValueError as e:
+                raise ValueError(f"{how}: {e}") from None
 
 
 #: each mixer's specs
@@ -179,17 +192,18 @@ def _named(tree: dict, prefix: str):
 
 def leaf_parts(model: nn.Module) -> dict:
     """The dotted name of every parameter under ``model`` (a model or any
-    of its modules) that this rank holds a part of — the dense leaves of
-    tensor parallelism and the experts under ``moe_ep``, on a mesh of
-    several model ranks — and (its ``layers.Layout``, the rank's index in
-    it)."""
+    of its modules) that this rank holds a part of — on a mesh, each leaf
+    split over "model" (tensor parallelism, the experts) or over "data"
+    (FSDP), or both — and (its ``layers.Layout``, the rank's index in it,
+    ``{axis: index}``)."""
     return {f"{name}.{leaf}".lstrip("."): (lay, mod.part_index)
             for name, mod in model.named_modules()
             for leaf, lay in getattr(mod, "layouts", {}).items()}
 
 
 def sharded_leaves(model: nn.Module) -> dict:
-    """``leaf_parts``' names and layouts."""
+    """``leaf_parts``' names and layouts (``Layout.axes``: the axes each
+    is split over)."""
     return {k: lay for k, (lay, _) in leaf_parts(model).items()}
 
 
@@ -204,19 +218,20 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, desc: dict, *,
                  gen: torch.Generator | None = None, device=None, mesh=None,
-                 tp=sharding.SOLO):
+                 tp=sharding.SOLO, fs=sharding.SOLO):
         super().__init__()
         d = cfg.d_model
         self.desc = desc
         self.tp = tp
         self.norm1 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
-        self.mixer = _MIXERS[desc["mixer"]](cfg, gen=gen, device=device, tp=tp)
+        self.mixer = _MIXERS[desc["mixer"]](cfg, gen=gen, device=device, tp=tp,
+                                            fs=fs)
         if desc["ffn"] != "none":
             self.norm2 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
             self.ffn = (moe.MoE(cfg, gen=gen, device=device, mesh=mesh, tp=tp)
                         if desc["ffn"] == "moe"
                         else MLP(cfg, desc["ff"], gen=gen, device=device,
-                                 tp=tp))
+                                 tp=tp, fs=fs))
 
 
 class Transformer(nn.Module):
@@ -226,8 +241,9 @@ class Transformer(nn.Module):
     uninitialised otherwise (``models/convert.py`` fills them).  ``mesh``:
     the mesh the model runs on (``self.mesh``, the default of ``forward``,
     ``loss_fn`` and ``decode_step``), whose "model" axis (``self.tp``)
-    shards the dense leaves and, under ``moe_ep``, the experts: the rank
-    draws each leaf as one process draws it and keeps its part."""
+    shards the dense leaves and the experts and whose "data" axis
+    (``self.fs``) the FSDP leaves: the rank draws each leaf as one
+    process draws it and keeps its part."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
                  device=None, mesh=None):
@@ -237,14 +253,16 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         tp = sharding.group(mesh, "model")
+        fs = sharding.group(mesh, "data")
         d, V = cfg.d_model, cfg.vocab
         e = emb_axis(cfg.fsdp)
         build(self, {"embed": (V, d), "lm_head": (d, V)},
               {"embed": P("model", e), "lm_head": P(e, "model")}, cfg.dtype,
-              gen, dev, tp)
+              gen, dev, tp, fs)
         self.final_norm = _param(torch.ones(d, dtype=cfg.dtype, device=dev))
         self.layers = nn.ModuleList(
-            Block(cfg, _desc(cfg, li), gen=gen, device=dev, mesh=mesh, tp=tp)
+            Block(cfg, _desc(cfg, li), gen=gen, device=dev, mesh=mesh, tp=tp,
+                  fs=fs)
             for li in range(cfg.n_layers))
 
     @property
@@ -258,9 +276,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     with variance 1 / fan-in, ones for the norms, zeros for the biases),
     drawn on ``device`` from ``torch.Generator(device).manual_seed(seed)``.
     The bits differ from the reference's ``jax.random`` ones; the parity
-    tests carry the reference's weights across instead.  On ``mesh`` under
-    ``moe_ep`` every rank draws what one process draws, one tensor at a
-    time, and keeps its experts (``moe.MoE``)."""
+    tests carry the reference's weights across instead.  On ``mesh`` every
+    rank draws what one process draws, a slab at a time, and keeps its
+    part of each leaf (``layers.leaf``)."""
     dev = _device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return Transformer(cfg, gen=gen, device=dev, mesh=mesh)
@@ -323,7 +341,8 @@ def _parallel(p: Block, x: torch.Tensor, h: torch.Tensor,
     ``mo`` and the FFN's, the ranks' partial sums of both added in one
     all-reduce."""
     if p.tp.size == 1:
-        return x + mo + swiglu(h, p.ffn.wi, p.ffn.wo)
+        f = gathered(p.ffn)
+        return x + mo + swiglu(h, f.wi, f.wo)
     return x + p.tp.reduce_from(mo + mlp(p.ffn, h, reduce=False))
 
 
@@ -355,16 +374,16 @@ def as_frontend(frontend, device) -> torch.Tensor | None:
 def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
     """The token embeddings; on a "model" axis each rank looks up the
     tokens of its vocab rows (zeros for the others) and the ranks' rows
-    are added."""
+    are added; under FSDP the rank's rows gathered over "data" first."""
     if embeds is not None:
         return embeds.to(cfg.dtype)
     ids = as_tokens(tokens, model.device)
-    tp = model.tp
+    tp, embed = model.tp, gathered(model).embed
     if tp.size == 1:
-        return model.embed[ids]
+        return embed[ids]
     rows = tp.block(cfg.vocab)
     mine = (ids >= rows.start) & (ids < rows.stop)
-    e = model.embed[torch.where(mine, ids - rows.start, 0)]
+    e = embed[torch.where(mine, ids - rows.start, 0)]
     return tp.reduce_from(torch.where(mine[..., None], e, 0))
 
 
@@ -433,9 +452,9 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
 
 def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     """``x @ lm_head``; on a "model" axis the ranks' vocab columns
-    gathered."""
+    gathered; under FSDP the head gathered over "data" first."""
     tp = model.tp
-    return tp.gather(tp.copy_to(x) @ model.lm_head, dim=-1)
+    return tp.gather(tp.copy_to(x) @ gathered(model).lm_head, dim=-1)
 
 
 def _chunked_ce(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
@@ -499,7 +518,8 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict,
                        embeds=batch.get("embeds"),
                        frontend=batch.get("frontend"), use_kernel=use_kernel,
                        mesh=mesh)
-        ce = _chunked_ce(x, model.lm_head, labels, loss_chunks, model.tp)
+        ce = _chunked_ce(x, gathered(model).lm_head, labels, loss_chunks,
+                         model.tp)
     else:
         logits, aux = forward(model, cfg, tokens=batch.get("tokens"),
                               embeds=batch.get("embeds"),

@@ -34,7 +34,10 @@ its squares over the ranks in both directions, and ``wo``'s partial sums
 are added.  The sLSTM recurrence runs whole on every rank; its ``up``
 holds the rank's block of each half (g | u) and it multiplies by its rows
 of ``down`` (held whole, used through ``copy_to``), the partial sums
-added.
+added.  Under FSDP (``fs``, the "data" axis) the rank holds its block
+of the d rows of every mLSTM weight but ``wo`` (its d columns) and of
+every sLSTM weight but ``down`` (its d columns), which each call gathers
+(``layers.gathered``).
 """
 from __future__ import annotations
 
@@ -45,8 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.sharding import SOLO, Group, P
-from .layers import (ModelConfig, _param, build, emb_axis, rms_norm,
-                     rms_norm_parts)
+from .layers import (ModelConfig, _param, build, emb_axis, gathered,
+                     rms_norm, rms_norm_parts)
 
 #: the start of the stabiliser m (the reference's)
 M_START = -1e30
@@ -59,11 +62,11 @@ def _dims(cfg: ModelConfig):
 
 def _weights(module: nn.Module, shapes: dict, specs: dict,
              cfg: ModelConfig, gen: torch.Generator | None, device,
-             tp: Group) -> None:
+             tp: Group, fs: Group) -> None:
     """Each weight drawn from ``gen`` (the reference's scheme) in the
     reference's key order, or left uninitialised for a weight carry, the
-    rank's part on ``tp``; then ``norm``, ones."""
-    build(module, shapes, specs, cfg.dtype, gen, device, tp)
+    rank's part on ``tp`` and ``fs``; then ``norm``, ones."""
+    build(module, shapes, specs, cfg.dtype, gen, device, tp, fs)
     module.norm = _param(torch.ones(cfg.d_model, dtype=cfg.dtype,
                                     device=device))
 
@@ -77,13 +80,14 @@ class MLSTM(nn.Module):
     the input and forget gates' logits; ``norm`` (d,)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None, tp: Group = SOLO):
+                 device=None, tp: Group = SOLO, fs: Group = SOLO):
         super().__init__()
         d = cfg.d_model
         H, _ = _dims(cfg)
         _weights(self, {"wq": (d, d), "wk": (d, d), "wv": (d, d),
                         "wi": (d, H), "wf": (d, H), "wz": (d, d),
-                        "wo": (d, d)}, mlstm_specs(cfg), cfg, gen, device, tp)
+                        "wo": (d, d)}, mlstm_specs(cfg), cfg, gen, device, tp,
+                 fs)
 
 
 def mlstm_specs(cfg: ModelConfig) -> dict:
@@ -128,6 +132,7 @@ def _causal(n: int, device) -> torch.Tensor:
 def apply_mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The parallel form, O(S²). x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
+    p = gathered(p)
     x = p.tp.copy_to(x)
     q, k, v, i, f = _mlstm_heads(p, cfg, x)
     F_ = torch.cumsum(F.logsigmoid(f), dim=-1)                  # (B, H, S)
@@ -164,6 +169,7 @@ def apply_mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     L = min(chunk, S)
     assert S % L == 0, f"chunk {L} must divide the sequence {S}"
     nc = S // L
+    p = gathered(p)
     x = p.tp.copy_to(x)
     q, k, v, i, f = _mlstm_heads(p, cfg, x)
     qf, kf, vf = (t.to(torch.float32).reshape(B, H, nc, L, hd)
@@ -229,6 +235,7 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None,
 def decode_mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     """One token. x: (B, 1, d); returns (y, new cache)."""
     B = x.shape[0]
+    p = gathered(p)
     x = p.tp.copy_to(x)
     q, k, v, i, f = _mlstm_heads(p, cfg, x)                      # S = 1
     q, k, v = (t[:, :, 0].to(torch.float32) for t in (q, k, v))
@@ -255,13 +262,13 @@ class SLSTM(nn.Module):
     ``up`` (d, 2d) fused gate|up and ``down`` (d, d); ``norm`` (d,)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None, tp: Group = SOLO):
+                 device=None, tp: Group = SOLO, fs: Group = SOLO):
         super().__init__()
         d = cfg.d_model
         _weights(self, {"wz": (d, d), "wi": (d, d), "wf": (d, d),
                         "wo_gate": (d, d), "up": (d, 2 * d),
                         "down": (d, d)}, slstm_specs(cfg), cfg, gen, device,
-                 tp)
+                 tp, fs)
 
 
 def slstm_specs(cfg: ModelConfig) -> dict:
@@ -306,6 +313,7 @@ def _slstm_out(p: SLSTM, h: torch.Tensor) -> torch.Tensor:
 def apply_slstm(p: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d), one recurrence step a position."""
     B, S, d = x.shape
+    p = gathered(p)
     gates = _slstm_gates(p, x)
     carry = tuple(init_slstm_cache(cfg, B, device=x.device).values())
     hs = []
@@ -325,6 +333,7 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 def decode_slstm(p: SLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     """One token. x: (B, 1, d); returns (y, new cache)."""
+    p = gathered(p)
     gates = _slstm_gates(p, x[:, 0])
     (c, n, m), h = _slstm_step((cache["c"], cache["n"], cache["m"]), gates)
     return _slstm_out(p, h[:, None, :].to(x.dtype)), {"c": c, "n": n, "m": m}

@@ -12,10 +12,12 @@ weight decay still moves its parameter.  ``torch.optim.AdamW`` is not
 this update: it skips such parameters, decays before the step and has no
 global clip or schedule of this shape.
 
-On a mesh, the gradient norm is the whole model's: the squares of the
-leaves a rank holds a part of (tensor parallelism's dense leaves and the
-experts under ``moe_ep``, ``transformer.sharded_leaves``) are summed over
-their group before the root (``apply(..., sharded=, group=)``).
+On a mesh, the gradient norm is the whole model's: the squares of each
+leaf a rank holds a part of (``transformer.sharded_leaves``: tensor
+parallelism's dense leaves and the experts over "model", FSDP's over
+"data", some over both) are summed over every axis it is split over,
+and over no other, before the root (``apply(..., sharded=, mesh=)``), so
+each element counts once.
 ``psum_compressed`` over a process group is the reference's int8
 all-reduce of the data axis.
 """
@@ -26,6 +28,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,29 +77,32 @@ def init(params: dict) -> dict:
     }
 
 
-def global_norm(grads: dict, sharded=(), group=None) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in float32; the
-    squares of the ``sharded`` leaves summed over ``group`` first."""
-    sq = [torch.sum(g.to(torch.float32) ** 2) for k, g in grads.items()
-          if g is not None and k not in sharded]
-    part = [torch.sum(g.to(torch.float32) ** 2) for k, g in grads.items()
-            if g is not None and k in sharded]
-    if part:
-        part = torch.stack(part).sum()
-        dist.all_reduce(part, group=group)
-        sq.append(part)
+def global_norm(grads: dict, sharded=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in float32.
+    ``sharded`` maps the name of each leaf a rank holds a part of to the
+    axes of ``mesh`` it is split over: its squares are summed over those
+    axes first (the leaves of one set of axes together, in the order of
+    ``grads``)."""
+    sums: dict = {}
+    for k, g in grads.items():
+        if g is not None:
+            axes = tuple((sharded or {}).get(k, ()))
+            sums.setdefault(axes, []).append(torch.sum(g.to(torch.float32)
+                                                       ** 2))
+    sq = [sharding.all_reduce(torch.stack(v).sum(), mesh, axes) if axes
+          else torch.stack(v).sum() for axes, v in sums.items()]
     return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
 
 
 @torch.no_grad()
 def apply(cfg: AdamWConfig, grads: dict, state: dict, params: dict, *,
-          sharded=(), group=None):
+          sharded=None, mesh=None):
     """One AdamW step, in place: ``state``'s master, mu and nu and the
     ``params`` (re-cast from the master) are updated, and ``state["step"]``
-    is the next step.  ``sharded`` / ``group``: ``global_norm``'s.
+    is the next step.  ``sharded`` / ``mesh``: ``global_norm``'s.
     Returns (params, state, {"grad_norm", "lr"})."""
     step = state["step"] + 1
-    gnorm = global_norm(grads, sharded, group)
+    gnorm = global_norm(grads, sharded, mesh)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1c = 1 - torch.pow(cfg.b1, step.to(torch.float32))

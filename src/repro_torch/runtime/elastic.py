@@ -27,9 +27,9 @@ the cap back.  Pure Python, copied from the reference.
      them (``transformer.init(mesh=)`` when it draws them,
      ``models.convert.params_from_reference(mesh=)`` when it loads whole
      leaves, restores included): a fused leaf's rank holds its block of
-     each half, which no contiguous ``Shard`` gives.  A restore onto a mesh
-     of another "model" axis goes through the whole leaves of the
-     checkpoint.
+     each half, which no contiguous ``Shard`` gives (an FSDP leaf also
+     its block over "data").  A restore onto a mesh of another shape goes
+     through the whole leaves of the checkpoint.
   3. The data pipeline is stateless-seekable and the optimizer state lives
      in the checkpoint, so resume = carve + restore + continue at step k
      (``launch.train.fit``).

@@ -431,17 +431,20 @@ def test_restart_leg_fails_with_its_child(cs, monkeypatch):
 
 def smoke_dist_configs():
     """The dist phase's models at SMOKE size (DeepSeek SMOKE with
-    ``moe_ep``, 8 experts over 4 ranks; TinyLlama SMOKE at 2 layers;
-    StableLM SMOKE, 4 heads and 2 kv heads over 4 ranks; the Jamba SMOKE
-    cut to 2 layers with ``moe_ep``), in their FULL dtypes where the phase
-    runs bfloat16, at short sequences."""
+    ``moe_ep``, 8 experts over 4 ranks, and as published, with and
+    without ``fsdp``; TinyLlama SMOKE at 2 layers, with and without
+    ``fsdp``; StableLM SMOKE, 4 heads and 2 kv heads over 4 ranks; the
+    Jamba SMOKE cut to 2 layers with ``moe_ep``, and with ``fsdp`` as its
+    FULL config is published), in their FULL dtypes where the phase runs
+    bfloat16, at short sequences."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    moe = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
-                              moe_ep=True)
+    published = get_config("deepseek-moe-16b", smoke=True)
+    moe = dataclasses.replace(published, moe_ep=True)
     lm = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
                              n_layers=2)
+    bf16 = dataclasses.replace(published, dtype=torch.bfloat16)
     tp = get_config("stablelm-12b", smoke=True)
     return {"tp_f32": dataclasses.replace(tp, n_layers=4),
             "tp_bf16": dataclasses.replace(tp, dtype=torch.bfloat16),
@@ -455,6 +458,14 @@ def smoke_dist_configs():
             "lm_bf16": dataclasses.replace(lm, dtype=torch.bfloat16),
             "ep_train": dataclasses.replace(moe, n_layers=2,
                                             dtype=torch.bfloat16),
+            "g_f32": dataclasses.replace(published, n_layers=4),
+            "g_bf16": bf16,
+            "h_f32": dataclasses.replace(published, n_layers=4, fsdp=True),
+            "h_bf16": dataclasses.replace(bf16, fsdp=True),
+            "h_jamba": dataclasses.replace(
+                get_config("jamba-1.5-large-398b", smoke=True), n_layers=2,
+                dtype=torch.bfloat16, fsdp=True),
+            "i_lm": dataclasses.replace(lm, fsdp=True), "fsdp_seq": 32,
             "prefill": 64, "prompt": 8, "new": 4, "f32_seq": 16, "seq": 32,
             "steps": 4, "ep_seq": 16, "world": 4}
 
@@ -477,7 +488,8 @@ def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
     monkeypatch.setattr(cs, "dist_configs", smoke_dist_configs)
     counts = cs.dist_phase(torch.device("cpu"), "cpu rehearsal")
     assert counts == {"ep": {"flash_attention": 0, "moe_gmm": 0},
-                      "tp": {"flash_attention": 0, "ssd_scan": 0}}
+                      "tp": {"flash_attention": 0, "ssd_scan": 0,
+                             "moe_gmm": 0}}
     out = capsys.readouterr().out
     assert "dist: 4 ranks on cpu rehearsal over gloo with cpu tensors" in out
     assert "experts [(0, 2), (2, 4), (4, 6), (6, 8)] of 8" in out
@@ -497,6 +509,27 @@ def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
                      r"relative\) over all positions, routed to one "
                      r"process's top-k sets", out)
     assert re.search(r"\(1, 2\) resumed \[.*\] \(1e-5\)", out)
+    assert re.search(r"leg G: DeepSeek-MoE 16B as published \(moe_ep off\) "
+                     r"on \(data 1, model 4\): \S+ GB of bfloat16 parameters"
+                     r" a rank, equal to the byte", out)
+    assert "experts [(0, 2), (2, 4), (4, 6), (6, 8)]; launches a rank" in out
+    assert re.search(r"leg G f32, 4 layers: vs one process max \|diff\| \S+ "
+                     r"\(1e-3 relative\) over all 64 positions, routed to "
+                     r"one process's top-k sets.*greedy .* tokens equal", out)
+    assert re.search(r"leg H: DeepSeek-MoE 16B with fsdp on \(data 2, model "
+                     r"2\): \S+ GB of bfloat16 parameters a rank, equal to "
+                     r"the byte .* vs one process max \|diff\| \S+ \(1e-3 "
+                     r"relative\) at every position of every rank", out)
+    assert re.search(r"leg H bf16, 3 layers, prefill 2 x 64 \(one timed\):"
+                     r" .* FSDP gathers on rank 0: [1-9]\d* calls", out)
+    assert re.search(r"no gathered leaf outlives its layer", out)
+    assert re.search(r"leg H Jamba cut \(2 layers at full width, fsdp, "
+                     r"moe_ep off\) bf16, 2 x 32: \S+ GB of parameters a "
+                     r"rank, equal to the byte", out)
+    assert re.search(r"leg I f32, TinyLlama 2 layers with fsdp, 4 x 16 on "
+                     r"\(2, 2\): .* optimizer state \S+ MB a rank, 0\.2\d+ "
+                     r"of one process's; greedy tokens equal .* \(2, 1\) "
+                     r"resumed \[.*\] \(1e-5\)", out)
 
 
 def test_routing_tape_replays_top_k_sets(cs):

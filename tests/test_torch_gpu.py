@@ -1152,6 +1152,95 @@ def test_tensor_parallel_forward_over_nccl(dev):
     _tp_forward_against_one_process(dev, "stablelm-12b", 2, True, "nccl")
 
 
+# -- the rest of the placement: the experts on "model", FSDP's "data" ------------------
+
+#: (arch, fsdp, model ranks) on 2 ranks: DeepSeek SMOKE as published on
+#: (1, 2) (its experts split without moe_ep, ``moe_gmm`` on the rank's 4),
+#: TinyLlama SMOKE with ``fsdp`` on (2, 1) (each layer gathered over
+#: "data", a row a rank)
+PLACEMENT_CASES = [("deepseek-moe-16b", False, 2), ("tinyllama-1.1b", True, 1)]
+
+
+def _placement_rank(rank: int, arch: str, fsdp: bool, mp: int, toks,
+                    per_rank_card: bool):
+    """The SMOKE config on a (2 / mp, mp) mesh, seeded as one process:
+    ``forward(use_kernel=True)`` of the rank's rows and ``greedy_generate``
+    -> (rows, logits, greedy rows, tokens, launches of the forward)."""
+    import dataclasses
+
+    from repro_torch.launch import serve, train
+    from repro_torch.runtime import elastic
+
+    card = torch.device("cuda", rank if per_rank_card else 0)
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = elastic.carve_mesh(model_parallel=mp)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), fsdp=fsdp)
+    model = transformer.init(cfg, seed=0, device=card, mesh=mesh)
+    rows = train.rows(toks.shape[0], mesh)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = transformer.forward(model, cfg, toks[rows].to(card),
+                                        use_kernel=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    out = serve.greedy_generate(model, cfg, toks[:, :8], 6)
+    bm = serve.batch_mesh(mesh, toks.shape[0])
+    greedy = (train.rows(toks.shape[0], bm)
+              if bm and "data" in bm.mesh_dim_names else slice(None))
+    return rows, logits.cpu(), greedy, out.cpu(), counts
+
+
+def _placement_against_one_process(dev, arch: str, fsdp: bool, mp: int,
+                                   per_rank_card: bool, backend: str):
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve
+
+    cfg = get_config(arch, smoke=True)
+    toks = torch.randint(0, cfg.vocab, (2, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(7))
+    got = lmesh.spawn(_placement_rank, 2, arch, fsdp, mp, toks,
+                      per_rank_card, backend=backend, timeout=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = transformer.init(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        want, _ = transformer.forward(one, cfg, toks.to(dev), use_kernel=True)
+    tokens = serve.greedy_generate(one, cfg, toks[:, :8], 6).cpu()
+    want = want.cpu()
+    descs = [b.desc for b in one.layers]
+    for rows, logits, greedy, out, counts in got:
+        err = (logits - want[rows]).abs()
+        assert bool((err <= 1e-4 * (1 + want[rows].abs())).all()), \
+            float(err.max())
+        assert torch.equal(out, tokens[greedy]), (out, tokens)
+        assert counts["flash_attention"] == sum(
+            d["mixer"] == "attn" for d in descs), counts
+        assert counts["moe_gmm"] == 2 * sum(
+            d["ffn"] == "moe" for d in descs), counts
+
+
+@pytest.mark.parametrize("arch, fsdp, mp", PLACEMENT_CASES)
+def test_placement_forward_on_one_card_over_gloo(dev, arch, fsdp, mp):
+    """Two ranks on cuda:0 over gloo (CUDA tensors through the host; the
+    FSDP gathers as all-reduces of a zero-filled whole): each rank's
+    logits of its rows equal the one-process forward's at 1e-4, its
+    greedy tokens the one process's, and the kernels launch on the
+    rank's experts (``moe_gmm`` twice a MoE layer)."""
+    _placement_against_one_process(dev, arch, fsdp, mp, False, "gloo")
+
+
+def test_placement_forward_over_nccl(dev):
+    """DeepSeek's experts on "model" over NCCL with a card a rank (the
+    gathers by ``all_gather_into_tensor``); NCCL refuses two ranks on one
+    card, so a machine with one card skips it (not verified on GPU)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"not verified on GPU: NCCL takes a card a rank and "
+                    f"this machine has {n}")
+    _placement_against_one_process(dev, "deepseek-moe-16b", False, 2, True,
+                                   "nccl")
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--fault-loop"]:
     fault_loop(*map(int, sys.argv[2:5]))
 if __name__ == "__main__" and sys.argv[1:2] == ["--restart"]:

@@ -35,8 +35,9 @@ as its parameters and every rank carries in
   and the restart on (1, 2) at the uninterrupted losses (1e-5), those at
   the one-process fit's (1e-5), and the checkpoint restored whole by the
   reference's ``Checkpointer``.
-- Per-leaf shard shapes of every FULL config on (1, 4) and (2, 2)
-  against ``NamedSharding(mesh, spec).shard_shape``; the fused leaves'
+- Per-leaf shard shapes of every FULL config, as published and with
+  ``moe_ep``, on (1, 4) and (2, 2) against ``NamedSharding(mesh,
+  spec).shard_shape`` of the reference's whole spec; the fused leaves'
   permutation stated.
 - ``check_ported`` refusing a split the reference would make of a head.
 
@@ -120,9 +121,6 @@ def flat(tree, prefix=""):
             out[f"{prefix}{k}"] = v
     return out
 
-def no_data(spec):
-    return P(*(None if p == "data" else p for p in spec))
-
 out = {}
 for arch in ARCHS:
     cfg = get_config(arch)
@@ -135,8 +133,7 @@ for arch in ARCHS:
     for dims in ((1, 4), (2, 2)):
         mesh = jax.make_mesh(dims, ("data", "model"))
         out[f"{arch}/{dims}"] = {k: [list(s.shape),
-            list(NamedSharding(mesh, specs[k]).shard_shape(s.shape)),
-            list(NamedSharding(mesh, no_data(specs[k])).shard_shape(s.shape))]
+            list(NamedSharding(mesh, specs[k]).shard_shape(s.shape))]
             for k, s in shapes.items()}
 json.dump(out, open(sys.argv[2], "w"))
 """
@@ -375,7 +372,7 @@ def test_forward_matches_reference(run, case):
                                      device="meta").named_parameters()}
     specs = transformer.param_specs(cfg)
     for k, shape in outs[0]["shapes"].items():
-        lay = layers.layout(k, specs[k], whole[k], m, cfg.moe_ep)
+        lay = layers.layout(k, specs[k], whole[k], m)
         assert shape == (lay.local(whole[k]) if lay else whole[k]), k
     assert outs[0]["shapes"]["embed"][0] == cfg.vocab // m
 
@@ -528,36 +525,35 @@ def _flat(tree, prefix=""):
 
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dims", [(1, 4), (2, 2)])
-def test_shard_shapes_match_named_sharding(run, arch, dims):
-    """Every leaf of the FULL config: the rank's shape under the layout
-    rule equals ``NamedSharding(mesh, spec).shard_shape`` on a (data,
-    model) mesh of ``dims`` (a group leaf with its repeat axis).  The MoE
-    configs are taken with ``moe_ep`` (without it the port replicates the
-    experts, ROADMAP item 9.7), and on (2, 2) the FSDP configs' "data"
-    entries are dropped from the reference's spec (the port replicates
-    them, the open half of item 9.7)."""
+@pytest.mark.parametrize("ep", [False, True], ids=["published", "moe_ep"])
+def test_shard_shapes_match_named_sharding(run, arch, dims, ep):
+    """Every leaf of the FULL config, as published and with ``moe_ep``:
+    the rank's shape under the layout rule equals ``NamedSharding(mesh,
+    spec).shard_shape`` of the reference's whole spec on a (data, model)
+    mesh of ``dims`` (a group leaf with its repeat axis), the experts'
+    "model" entry and the FSDP configs' "data" entries included: no leaf
+    is excepted."""
     _, want, _, _ = run
     ref = want["shards"][f"{arch}/{dims}"]
-    cfg = get_config(arch)
-    cfg = dataclasses.replace(cfg, moe_ep=cfg.moe_experts > 0)
-    m = dims[1]
+    cfg = dataclasses.replace(get_config(arch), moe_ep=ep)
+    d, m = dims
     whole = {k: tuple(v.shape) for k, v in transformer.Transformer(
         dataclasses.replace(cfg, moe_ep=False),
         device="meta").named_parameters()}
     specs = transformer.param_specs(cfg)
-    local = {}
+    local, ranks = {}, {}
     for k, shape in whole.items():
-        lay = layers.layout(k, specs[k], shape, m, cfg.moe_ep)
+        lay = layers.layout(k, specs[k], shape, m, d)
         local[k] = lay.local(shape) if lay else shape
+        ranks[k] = math.prod(s.n for s in lay.splits) if lay else 1
     got = _flat(convert.reference_tree(
         local, cfg, stack=lambda ss: (len(ss), *ss[0])))
+    ranks = _flat(convert.reference_tree(ranks, cfg, stack=lambda ss: ss[0]))
     assert set(got) == set(ref)
     for k, shape in got.items():
-        full, shard, shard_model = ref[k]
-        want_shape = shard_model if cfg.fsdp else shard
-        assert tuple(shape) == tuple(want_shape), (k, shape, want_shape)
-        if tuple(shape) != tuple(full):
-            assert math.prod(full) == m * math.prod(shape), k
+        full, shard = ref[k]
+        assert tuple(shape) == tuple(shard), (k, shape, shard)
+        assert math.prod(full) == ranks[k] * math.prod(shape), k
 
 
 def test_fused_leaves_hold_a_block_of_each_half():
@@ -567,26 +563,27 @@ def test_fused_leaves_hold_a_block_of_each_half():
     and up columns [f + r·f/M, f + (r+1)·f/M) — the same number of
     bytes — and ``assemble`` of the ranks' parts is the whole, bit for
     bit.  The same for Mamba's ``in_proj`` (x | z) and the sLSTM's
-    ``up`` (g | u); ``wq`` is contiguous."""
+    ``up`` (g | u); ``wq`` is contiguous, and so are the experts' leading
+    dimension, with or without ``moe_ep``."""
     f, m = 12, 4
     w = torch.randn(5, 2 * f, generator=torch.Generator().manual_seed(0))
     for name in ("layers.0.ffn.wi", "layers.1.ffn.shared.wi",
                  "layers.2.mixer.in_proj", "layers.3.mixer.up"):
         lay = layers.layout(name, P(None, "model"), w.shape, m)
-        assert lay.fused
+        split = lay.split("model")
+        assert split.fused and lay.axes == ("model",)
         for r in range(m):
-            assert lay.parts(r) == [slice(r * f // m, (r + 1) * f // m),
-                                    slice(f + r * f // m,
-                                          f + (r + 1) * f // m)]
-        parts = [lay.take(w, r) for r in range(m)]
+            assert split.parts(r) == [slice(r * f // m, (r + 1) * f // m),
+                                      slice(f + r * f // m,
+                                            f + (r + 1) * f // m)]
+        parts = [lay.take(w, {"model": r}) for r in range(m)]
         assert all(p.shape == (5, 2 * f // m) for p in parts)
-        assert torch.equal(lay.assemble(parts), w)
+        assert torch.equal(split.assemble(parts), w)
     lay = layers.layout("layers.0.mixer.wq", P(None, "model"), w.shape, m)
-    assert not lay.fused and lay.parts(1) == [slice(6, 12)]
+    assert not lay.split("model").fused
+    assert lay.split("model").parts(1) == [slice(6, 12)]
     assert layers.layout("layers.0.ffn.wi", P("model", None, None),
-                         (8, 5, 2 * f), m) is None       # experts, no moe_ep
-    assert layers.layout("layers.0.ffn.wi", P("model", None, None),
-                         (8, 5, 2 * f), m, moe_ep=True).parts(3) == \
+                         (8, 5, 2 * f), m).split("model").parts(3) == \
         [slice(6, 8)]
     with pytest.raises(ValueError, match="does not split"):
         layers.layout("layers.0.ffn.wi", P(None, "model"), (5, 2 * 6), 4)
