@@ -84,7 +84,15 @@ position; one timed bfloat16 prefill of 2 x 2,048 with the FSDP gathers'
 counts and no gathered leaf alive between layers) and the Jamba cut at
 its published placement (5.95 GB a rank); I, TinyLlama at 2 layers with
 ``fsdp=True`` on (2, 2) (gradient parts, a quarter of the optimizer
-state a rank, greedy tokens, ``fit`` restored onto (2, 1)).
+state a rank, greedy tokens, ``fit`` restored onto (2, 1)).  Last leg J,
+the sequence-sharded batch-1 cache: H2O-Danube3 4B at its published
+width over a seeded cache of long_500k's 524,288 positions, each data
+rank holding its block (float32 at 2 layers on (4, 1) and (2, 2), every
+step of 16 greedy tokens against the one-process port on the whole cache
+and each rank's bytes of keys and values against the reference's cache
+specs; bfloat16 at 8 layers on (2, 2) timed, with the merges'
+collectives and the peak memory a rank), beside the one process's
+prefill of 1 x 8,192 through ``flash_attention``.
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -93,7 +101,8 @@ build prints each kernel's ``-Xptxas -v`` summary (registers, spills,
 static shared memory); ``--build`` stops there, the first and short call
 after a kernel changes.  ``--only kernels,hybrid`` runs those of PHASES
 alone, e.g. to time a parent commit's kernels in the same call
-(``--only tune`` makes the suite's arguments itself).  The last
+(``--only tune`` makes the suite's arguments itself).  After each phase
+a line gives the device memory still allocated.  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from ``nvidia-smi``, and the one before that a JSON
 ``{"kernels": [...]}`` with each kernel's launches in the tune phase
@@ -268,6 +277,18 @@ TP_ARCH, TP_F32_LAYERS, TP_F32_SEQ = "stablelm-12b", 4, 512
 # cut at its published placement (fsdp=True) in bfloat16, 2 x
 # DIST_FSDP_SEQ; I, TinyLlama at DIST_TRAIN_LAYERS with fsdp=True on (2, 2)
 DIST_FSDP_SEQ = 512
+# its leg of the sequence-sharded decode cache: J, H2O-Danube3 4B at its
+# published width, a batch-1 cache of long_500k's SEQ_MAX_LEN positions
+# seeded a slab of SEQ_SLAB positions at a time, SEQ_NEW greedy tokens
+# decoded from position SEQ_START (the window of 4,096 straddles a block
+# boundary on (4, 1) and on (2, 2)): float32 at SEQ_F32_LAYERS on (4, 1)
+# and (2, 2), every step's logits against the one-process port on the
+# whole cache at 1e-3; bfloat16 at SEQ_BF16_LAYERS on (2, 2), timed; the
+# one process also prefills 1 x SEQ_PREFILL through flash_attention
+SEQ_ARCH, SEQ_MAX_LEN, SEQ_START, SEQ_NEW = ("h2o-danube-3-4b", 524288,
+                                             263144, 16)
+SEQ_F32_LAYERS, SEQ_BF16_LAYERS, SEQ_SLAB, SEQ_PREFILL = 2, 8, 4096, 8192
+SEQ_SEED = 17
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
@@ -2206,7 +2227,8 @@ def dist_configs() -> dict:
     FULL as published, ``moe_ep`` off, the same two ways (leg G) and with
     ``fsdp=True`` (leg H), the Jamba cut as published (``fsdp=True``) in
     bfloat16 (leg H), TinyLlama's float32 cut with ``fsdp=True`` (leg
-    I)."""
+    I), H2O-Danube3 4B FULL cut to SEQ_F32_LAYERS in float32 and to
+    SEQ_BF16_LAYERS in bfloat16 with leg J's cache sizes."""
     from repro_torch.configs import get_config
 
     published = get_config(MOE_ARCH)
@@ -2236,6 +2258,13 @@ def dist_configs() -> dict:
             "h_jamba": dataclasses.replace(get_config(HYBRID_ARCH),
                                            n_layers=HYBRID_LAYERS),
             "i_lm": dataclasses.replace(lm, dtype=torch.float32, fsdp=True),
+            "j_f32": dataclasses.replace(get_config(SEQ_ARCH),
+                                         n_layers=SEQ_F32_LAYERS,
+                                         dtype=torch.float32),
+            "j_bf16": dataclasses.replace(get_config(SEQ_ARCH),
+                                          n_layers=SEQ_BF16_LAYERS),
+            "j_max_len": SEQ_MAX_LEN, "j_start": SEQ_START, "j_new": SEQ_NEW,
+            "j_slab": SEQ_SLAB, "j_prefill": SEQ_PREFILL,
             "fsdp_seq": DIST_FSDP_SEQ,
             "prefill": PREFILL, "prompt": DIST_PROMPT, "new": DIST_NEW,
             "f32_seq": DIST_F32_SEQ, "seq": TRAIN_SEQ, "steps": DIST_STEPS,
@@ -2291,6 +2320,30 @@ def reference_bytes(cfg, dims: dict) -> int:
         names = [a for e in specs[name] if e is not None
                  for a in ((e,) if isinstance(e, str) else e) if a in dims]
         total += p.numel() * p.element_size() // axis_size(dims, names)
+    return total
+
+
+def reference_cache_bytes(cfg, batch: int, max_len: int, dims: dict) -> int:
+    """The bytes of self-attention keys and values that the reference's
+    cache specs (``launch.serve.cache_specs`` of the whole cache's shapes,
+    the reference's pure function) put on one device of a mesh of ``dims``
+    ({axis: size}) for a decode cache of ``batch`` x ``max_len``."""
+    from repro_torch.core.sharding import axis_size
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    whole = transformer.init_cache(transformer.Transformer(cfg,
+                                                           device="meta"),
+                                   cfg, batch, max_len)
+    specs = serve.cache_specs(whole, dims)
+    total = 0
+    for lc, sp in zip(whole["layers"], specs["layers"]):
+        for k in ("k", "v"):
+            if k in lc:
+                names = [a for e in sp[k] if e is not None
+                         for a in ((e,) if isinstance(e, str) else e)]
+                total += (lc[k].numel() * lc[k].element_size()
+                          // axis_size(dims, names))
     return total
 
 
@@ -2404,6 +2457,134 @@ def dist_reference(c: dict, dev, d: str) -> dict:
         ref[key] = dist_steps(cfg, dev, None, batch, seq,
                               c["steps"] if key == "bf16" else 2)[0]
     empty_cache(dev)
+    ref.update(seq_reference(c, dev, d))
+    return ref
+
+
+def seq_slab_seed(layer: int, slab: int) -> int:
+    return int(np.random.SeedSequence([SEQ_SEED, layer, slab])
+               .generate_state(1)[0])
+
+
+def seq_fill(model, cfg, cache: dict, c: dict, seq) -> None:
+    """Leg J's seeded cache: each self-attention layer's keys and values
+    at the slabs of ``j_slab`` positions that hold positions below
+    ``j_start``, each slab drawn whole (every kv head, float32) from a
+    generator of its own seeded by (layer, slab), of which this cache
+    keeps its block of positions (``seq``) and its kv heads: one process
+    and every rank hold the same values at the same positions.  ``len``
+    is set to ``j_start`` (the reference has no prefill into a cache, and
+    nothing fills 524,288 positions a token at a time)."""
+    slab = c["j_slab"]
+    filled = -(-c["j_start"] // slab)
+    for li, (blk, lc) in enumerate(zip(model.layers, cache["layers"])):
+        if "k" not in lc:
+            continue
+        T = lc["k"].shape[2]
+        start = seq.index * T
+        assert T % slab == 0, (T, slab)
+        for s in range(start // slab, min(filled, (start + T) // slab)):
+            g = torch.Generator(device=lc["k"].device).manual_seed(
+                seq_slab_seed(li, s))
+            kv = torch.randn((2, cfg.n_kv_heads, slab, cfg.hd), generator=g,
+                             device=lc["k"].device)[:, blk.mixer.kv]
+            at = s * slab - start
+            lc["k"][0, :, at:at + slab] = kv[0]
+            lc["v"][0, :, at:at + slab] = kv[1]
+        lc["len"].fill_(c["j_start"])
+
+
+def seq_tokens(c: dict, vocab: int):
+    """Leg J's prefill tokens (1, j_prefill) and the decode's first token
+    (1, 1), the same in the parent and in every rank."""
+    rng = np.random.default_rng(14)
+    return tuple(torch.from_numpy(rng.integers(0, vocab, shape)
+                                  .astype(np.int32))
+                 for shape in ((1, c["j_prefill"]), (1, 1)))
+
+
+def seq_decode(model, cfg, c: dict, dev, forced=None):
+    """Leg J's decode on the model's mesh: ``serve.make_cache`` of 1 x
+    ``j_max_len`` (on a mesh whose data axes the batch does not divide,
+    the rank's block of positions, ``serve.seq_shard``), ``seq_fill``,
+    then ``j_new`` steps of ``serve.make_serve_step`` from the seeded
+    first token, each feeding its argmax (greedy) or, with ``forced`` (1,
+    j_new + 1), the next of those tokens -> (the first token and each
+    step's argmax (1, j_new + 1), each step's logits (j_new, V) float32
+    on the CPU, each step's host ms, the cache's bytes of keys and
+    values)."""
+    from repro_torch.launch import serve
+
+    L = c["j_max_len"]
+    cache = serve.make_cache(model, cfg, 1, L)
+    seq_fill(model, cfg, cache, c, serve.seq_shard(model.mesh, cfg, 1, L))
+    kv = sum(lc[k].numel() * lc[k].element_size() for lc in cache["layers"]
+             for k in ("k", "v") if k in lc)
+    step = serve.make_serve_step(cfg, batch=1, max_len=L)
+    tok = seq_tokens(c, cfg.vocab)[1].to(dev)
+    toks, logits, ms = [tok], [], []
+    for i in range(c["j_new"]):
+        sync(dev)
+        t0 = time.perf_counter()
+        lg, cache = step(model, cache, tok)
+        pick = lg[:, -1:].argmax(-1).to(torch.int32)
+        tok = pick if forced is None else forced[:, i + 1:i + 2].to(dev)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg[0, -1].float().cpu())
+        toks.append(pick)
+    del cache
+    return torch.cat(toks, 1).cpu(), torch.stack(logits), ms, kv
+
+
+def seq_reference(c: dict, dev, d: str) -> dict:
+    """Leg J in one process on the whole cache: the float32 cut's prefill
+    of 1 x j_prefill through ``flash_attention`` against the plain
+    forward at 1e-3, its decode (logits to ``d``); the bfloat16 cut's
+    prefill counted and timed, its decode timed (logits to ``d``) with
+    the peak memory above what was held before it."""
+    from repro_torch.models import transformer
+
+    ref = {}
+    with torch.no_grad():
+        cfg = c["j_f32"]
+        toks = seq_tokens(c, cfg.vocab)[0].to(dev)
+        model = transformer.init(cfg, seed=0, device=dev)
+        want, _ = transformer.forward(model, cfg, toks)
+        got, ref["j_f32_prefill_launches"] = counted(
+            lambda: transformer.forward(model, cfg, toks,
+                                        use_kernel=True)[0], dev)
+        ref["j_f32_prefill_err"] = check(
+            "leg J f32 prefill, kernel vs plain", got, want, rel(want, 1e-3))
+        del got, want
+        empty_cache(dev)
+        ref["j_tokens"], logits, ref["j_f32_ms"], ref["j_f32_kv"] = \
+            seq_decode(model, cfg, c, dev)
+        torch.save(logits, os.path.join(d, "j_f32.pt"))
+        del model
+        empty_cache(dev)
+
+        cfg = c["j_bf16"]
+        model = transformer.init(cfg, seed=0, device=dev)
+        fwd = lambda: transformer.forward(model, cfg, toks,  # noqa: E731
+                                          use_kernel=True)[0]
+        got, ref["j_prefill_launches"] = counted(fwd, dev)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        del got
+        if dev.type == "cuda":
+            ref["j_prefill_ms"] = host_ms(fwd)
+            empty_cache(dev)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        ref["j_bf16_tokens"], logits, ref["j_ms"], ref["j_bf16_kv"] = \
+            seq_decode(model, cfg, c, dev)
+        if dev.type == "cuda":
+            ref["j_peak_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                - held) / 1e9
+        torch.save((ref["j_bf16_tokens"], logits),
+                   os.path.join(d, "j_bf16.pt"))
+        del model
+        empty_cache(dev)
     return ref
 
 
@@ -2610,7 +2791,56 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
     empty_cache(dev)
     tp_legs(rank, c, d, dev, mesh, m22, out)
     fsdp_legs(rank, c, d, dev, mesh, m22, out)
+    seq_legs(rank, c, d, dev, m41, m22, out)
     return out
+
+
+def seq_legs(rank: int, c: dict, d: str, dev, m41, m22, out: dict) -> None:
+    """Leg J of one rank, into ``out``: H2O-Danube3's float32 cut on (4,
+    1) and (2, 2), each step's logits against one process's at 1e-3 (on
+    every rank: the batch is replicated), greedy tokens and the cache's
+    bytes of keys and values; the bfloat16 cut on (2, 2), each step's
+    host ms, the merges' collectives, the peak memory, and the argmax
+    agreement with one process and the largest |diff| of the logits, fed
+    the one process's greedy tokens (teacher-forced: every step compared
+    on the same inputs)."""
+    from repro_torch.core import sharding
+    from repro_torch.models import transformer
+
+    with torch.no_grad():
+        cfg = c["j_f32"]
+        want = torch.load(os.path.join(d, "j_f32.pt"))
+        for name, mesh in (("m41", m41), ("m22", m22)):
+            model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+            tokens, logits, _, out[f"j_{name}_kv"] = seq_decode(model, cfg,
+                                                                c, dev)
+            out[f"j_{name}_err"] = check(
+                f"leg J f32 on {name} vs one process (rank {rank})", logits,
+                want, rel(want, 1e-3))
+            out[f"j_{name}_tokens"] = tokens
+            del model, logits
+            empty_cache(dev)
+
+        cfg = c["j_bf16"]
+        model = transformer.init(cfg, seed=0, device=dev, mesh=m22)
+        empty_cache(dev)
+        if dev.type == "cuda":
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        forced, want = torch.load(os.path.join(d, "j_bf16.pt"))
+        sharding.reset_stats()
+        out["j_tokens"], logits, out["j_ms"], out["j_kv"] = seq_decode(
+            model, cfg, c, dev, forced)
+        out["j_stats"] = dict(sharding.STATS)
+        if dev.type == "cuda":
+            out["j_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            out["j_held_gb"] = held / 1e9
+        assert torch.isfinite(logits).all()
+        out["j_agree"] = float((logits.argmax(-1) == want.argmax(-1))
+                               .float().mean())
+        out["j_err"] = float((logits - want).abs().max())
+        del model
+        empty_cache(dev)
 
 
 def tp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
@@ -3023,7 +3253,76 @@ def dist_phase(dev, card: str) -> dict[str, int]:
           f"{[round(r.get('ep_peak_gb', 0.0), 2) for r in ranks]} GB")
     tp = tp_report(c, ranks, ref, dev, card)
     tp["moe_gmm"] = fsdp_report(c, ranks, ref, dev, card)["moe_gmm"]
-    return {"ep": want_launches(moe.n_layers), "tp": tp}
+    return {"ep": want_launches(moe.n_layers), "tp": tp,
+            "seq": seq_report(c, ranks, ref, dev, card)}
+
+
+def seq_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
+    """Leg J's gates and lines (``seq_reference``, ``seq_legs``) -> the
+    launches of the one process's bfloat16 prefill."""
+    cuda = int(dev.type == "cuda")
+    f32, bf16, L = c["j_f32"], c["j_bf16"], c["j_max_len"]
+    for key, cfg in (("j_f32_prefill_launches", f32),
+                     ("j_prefill_launches", bf16)):
+        want = {"flash_attention": cuda * cfg.n_layers}
+        assert {k: ref[key][k] for k in want} == want, (key, ref[key])
+        assert sum(ref[key].values()) == sum(want.values()), ref[key]
+    # each rank's keys and values: the reference's specs' shard of the
+    # whole cache, to the byte (on (4, 1) its block of L / 4 positions)
+    one = reference_cache_bytes(f32, 1, L, {"data": 1, "model": 1})
+    assert ref["j_f32_kv"] == one, (ref["j_f32_kv"], one)
+    meshes = {"m41": {"data": 4, "model": 1}, "m22": {"data": 2, "model": 2}}
+    want_kv = {m: reference_cache_bytes(f32, 1, L, dims)
+               for m, dims in meshes.items()}
+    assert want_kv["m41"] == (f32.n_layers * 2 * f32.n_kv_heads * (L // 4)
+                              * f32.hd * 4), want_kv
+    bf16_kv = reference_cache_bytes(bf16, 1, L, meshes["m22"])
+    for r in ranks:
+        for m in meshes:
+            assert r[f"j_{m}_kv"] == want_kv[m], (r["rank"], m,
+                                                  r[f"j_{m}_kv"], want_kv[m])
+            assert torch.equal(r[f"j_{m}_tokens"], ref["j_tokens"]), (
+                r["rank"], m, r[f"j_{m}_tokens"], ref["j_tokens"])
+        assert r["j_kv"] == bf16_kv, (r["rank"], r["j_kv"], bf16_kv)
+    r0 = ranks[0]
+    print(f"  leg J: H2O-Danube3 4B (d {f32.d_model}, {f32.n_heads} heads, "
+          f"{f32.n_kv_heads} kv heads of {f32.hd}, window {f32.window}), "
+          f"batch 1, a cache of {L} positions, {c['j_new']} greedy tokens "
+          f"from position {c['j_start']}; one process prefill 1 x "
+          f"{c['j_prefill']} f32 {f32.n_layers} layers kernel vs plain max "
+          f"|diff| {ref['j_f32_prefill_err']:.3e} (1e-3 relative), bf16 "
+          f"{bf16.n_layers} layers {ref.get('j_prefill_ms', float('nan')):.2f}"
+          f" ms, {ref['j_prefill_launches']['flash_attention']} flash_attention "
+          f"launches")
+    print(f"  leg J f32, {f32.n_layers} layers: keys and values a rank "
+          f"{want_kv['m41']} B on (4, 1) and {want_kv['m22']} B on (2, 2), "
+          f"equal to the byte to the reference's cache specs (one process "
+          f"{one} B); every step's logits vs one process max |diff| "
+          f"{max(r['j_m41_err'] for r in ranks):.3e} on (4, 1), "
+          f"{max(r['j_m22_err'] for r in ranks):.3e} on (2, 2) (1e-3 "
+          f"relative), on every rank; greedy tokens equal to one process's: "
+          f"{ref['j_tokens'].tolist()}")
+    st = r0["j_stats"]
+    n = c["j_new"]
+    print(f"  leg J bf16, {bf16.n_layers} layers on (data 2, model 2): "
+          f"{bf16_kv / 1e9:.3f} GB of keys and values a rank (the specs'; "
+          f"one process {ref['j_bf16_kv'] / 1e9:.3f} GB); ms a decode step "
+          f"(median of {n}) "
+          f"{[round(float(np.median(r['j_ms'])), 2) for r in ranks]} a rank,"
+          f" one process {float(np.median(ref['j_ms'])):.2f}; the merges on "
+          f"rank 0: {st['merge_calls'] / n:.0f} all-reduces, "
+          f"{st['merge_bytes'] / n / 1e6:.4f} MB, "
+          f"{st['merge_seconds'] / n * 1e3:.2f} ms of host time a step (all "
+          f"collectives {st['calls'] / n:.0f}, {st['bytes'] / n / 1e6:.4f} "
+          f"MB, {st['seconds'] / n * 1e3:.2f} ms); peak "
+          f"{[round(r.get('j_peak_gb', 0.0), 2) for r in ranks]} GB a rank "
+          f"(held before the decode "
+          f"{[round(r.get('j_held_gb', 0.0), 2) for r in ranks]}; one "
+          f"process {ref.get('j_peak_gb', 0.0):.2f} GB above what it held); "
+          f"fed one process's greedy tokens, the argmax agrees with its at "
+          f"{[round(r['j_agree'], 4) for r in ranks]} of the steps, logits "
+          f"max |diff| {max(r['j_err'] for r in ranks):.3e}; on {card}")
+    return {"flash_attention": ref["j_prefill_launches"]["flash_attention"]}
 
 
 def tp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
@@ -3248,6 +3547,14 @@ def fsdp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
     return launches(g16)
 
 
+def held_line(dev, after: str) -> None:
+    """The device memory still allocated after a phase (what the next
+    phases start from)."""
+    gc.collect()
+    print(f"memory: {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after {after}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3283,16 +3590,19 @@ def main() -> int:
         return 0
 
     dev = torch.device("cuda", 0)
+    held = lambda after: held_line(dev, after)  # noqa: E731
     rows: list[dict] = []
     if run("kernels"):
         print("kernels (2,048 banks; against the plain PyTorch version):")
         rows = kernel_phase(dev)
+        held("kernels")
     row = {r["name"]: r for r in rows}
     if run("suite"):
         args_2048: dict = {}
         t0 = time.perf_counter()
         counts, serialized = suite_phase(args_2048)
         print(f"suite: {time.perf_counter() - t0:.2f} s; launches {counts}")
+        held("suite")
         # every kernel has a row; each row's launches come from the path
         # that runs it: the suite's five kernels from the suite,
         # flash_attention from one TinyLlama prefill forward, moe_gmm from
@@ -3312,6 +3622,7 @@ def main() -> int:
             t0 = time.perf_counter()
             flat_session_phase(args_2048)
             print(f"flat session: {time.perf_counter() - t0:.2f} s")
+            held("session")
         del serialized
     else:
         args_2048 = {}
@@ -3320,6 +3631,7 @@ def main() -> int:
         tune_counts = tune_phase(args_2048)
         print(f"tune: {time.perf_counter() - t0:.2f} s; launches "
               f"{tune_counts}")
+        held("tune")
         for name, r in row.items():
             r["tune_launches"] = tune_counts[name]
     del args_2048
@@ -3343,6 +3655,7 @@ def main() -> int:
         print(f"decode: {time.perf_counter() - t0:.2f} s")
         del model
         torch.cuda.empty_cache()
+        held("lm")
     if run("moe"):
         t0 = time.perf_counter()
         counts = family_phase(MOE_ARCH, MOE_F32_LAYERS,
@@ -3350,6 +3663,7 @@ def main() -> int:
         if "moe_gmm" in row:
             row["moe_gmm"]["launches"] = counts["moe_gmm"]
         print(f"moe: {time.perf_counter() - t0:.2f} s")
+        held("moe")
     if run("hybrid"):
         t0 = time.perf_counter()
         counts = family_phase(HYBRID_ARCH, HYBRID_LAYERS, HYBRID_LAYERS, 5e-3,
@@ -3357,6 +3671,7 @@ def main() -> int:
         if "ssd_scan" in row:
             row["ssd_scan"]["launches"] = counts["ssd_scan"]
         print(f"hybrid: {time.perf_counter() - t0:.2f} s")
+        held("hybrid")
     if run("vlm"):
         t0 = time.perf_counter()
         counts = vlm_phase(dev)
@@ -3364,11 +3679,13 @@ def main() -> int:
             row["flash_attention"]["vision_launches"] = \
                 counts["flash_attention"]
         print(f"vlm: {time.perf_counter() - t0:.2f} s")
+        held("vlm")
     if run("xlstm"):
         t0 = time.perf_counter()
         counts = xlstm_phase(dev)
         assert not any(counts.values()), counts
         print(f"xlstm: {time.perf_counter() - t0:.2f} s")
+        held("xlstm")
     if run("train"):
         t0 = time.perf_counter()
         counts = train_phase(dev, smi)
@@ -3376,6 +3693,7 @@ def main() -> int:
             row["flash_attention"]["train_eval_launches"] = \
                 counts["flash_attention"]
         print(f"train: {time.perf_counter() - t0:.2f} s")
+        held("train")
     if run("dist"):
         t0 = time.perf_counter()
         counts = dist_phase(dev, smi)
@@ -3385,6 +3703,9 @@ def main() -> int:
         for name in ("flash_attention", "ssd_scan", "moe_gmm"):
             if name in row:
                 row[name]["tp_launches_per_rank"] = counts["tp"][name]
+        if "flash_attention" in row:
+            row["flash_attention"]["danube_prefill_launches"] = \
+                counts["seq"]["flash_attention"]
         print(f"dist: {time.perf_counter() - t0:.2f} s")
     for r in rows:
         print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "

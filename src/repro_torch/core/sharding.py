@@ -117,9 +117,12 @@ def member(mesh) -> bool:
 
 #: calls, host seconds and bytes of the collectives since ``reset_stats``;
 #: the ``fsdp_`` keys count the FSDP gathers and their reduce-scatters
-#: alone (``fsdp_gather``), which the first three count too
+#: alone (``fsdp_gather``), the ``merge_`` keys the decode's merges of a
+#: sequence-sharded cache's partial softmaxes (``counted_as``), which the
+#: first three count too
 STATS = {"calls": 0, "seconds": 0.0, "bytes": 0,
-         "fsdp_calls": 0, "fsdp_seconds": 0.0, "fsdp_bytes": 0}
+         "fsdp_calls": 0, "fsdp_seconds": 0.0, "fsdp_bytes": 0,
+         "merge_calls": 0, "merge_seconds": 0.0, "merge_bytes": 0}
 
 
 def reset_stats() -> None:
@@ -283,14 +286,13 @@ def _reduce_scatter(g: torch.Tensor, mesh, axis: str, dim: int):
     return whole.narrow(dim, i * k, k)
 
 
-def _fsdp_counted(fn):
-    """``fn()``, its collectives counted in the ``fsdp_`` keys of STATS
-    too."""
-    before = (STATS["calls"], STATS["seconds"], STATS["bytes"])
+def counted_as(prefix: str, fn):
+    """``fn()``, its collectives counted in the ``prefix`` keys of STATS
+    too (``"fsdp_"``, ``"merge_"``)."""
+    before = {k: STATS[k] for k in ("calls", "seconds", "bytes")}
     out = fn()
-    STATS["fsdp_calls"] += STATS["calls"] - before[0]
-    STATS["fsdp_seconds"] += STATS["seconds"] - before[1]
-    STATS["fsdp_bytes"] += STATS["bytes"] - before[2]
+    for k, v in before.items():
+        STATS[prefix + k] += STATS[k] - v
     return out
 
 
@@ -300,11 +302,11 @@ class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return _fsdp_counted(lambda: _gather(x, mesh, axis, dim))
+        return counted_as("fsdp_", lambda: _gather(x, mesh, axis, dim))
 
     @staticmethod
     def backward(ctx, g):
-        return _fsdp_counted(lambda: _reduce_scatter(
+        return counted_as("fsdp_", lambda: _reduce_scatter(
             g, ctx.mesh, ctx.axis, ctx.dim)), None, None, None
 
 
@@ -343,12 +345,12 @@ def gather(x: torch.Tensor, mesh, axis: str, dim: int = -1) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Group:
-    """One mesh axis as this rank sees it: its ``size``, the rank's
-    ``index`` along it and the collectives over it.  The default is the
-    group of one (``SOLO``), whose collectives return their input and
-    whose ``block`` is the whole."""
+    """One mesh axis as this rank sees it (or a tuple of axes, ``group``):
+    its ``size``, the rank's index along it and the collectives over it.
+    The default is the group of one (``SOLO``), whose collectives return
+    their input and whose ``block`` is the whole."""
     mesh: Any = None
-    axis: str = "model"
+    axis: Any = "model"
     size: int = 1
     index: int = 0
 
@@ -389,10 +391,15 @@ class Group:
 SOLO = Group()
 
 
-def group(mesh, axis: str = "model") -> Group:
+def group(mesh, axis="model") -> Group:
     """``axis`` of ``mesh`` as this rank sees it; ``SOLO`` without a mesh,
-    without that axis, or where it has one rank."""
-    if mesh is None or mesh_shape(mesh).get(axis, 1) == 1:
+    without that axis, or where it has one rank.  A tuple of axes is one
+    group of their product, the first major (``("pod", "data")``, as
+    ``axis_index`` orders it); its collectives are ``all_reduce``'s, over
+    one axis after another."""
+    shape = {} if mesh is None else mesh_shape(mesh)
+    if any(a not in shape for a in _names(axis)) or \
+            axis_size(shape, axis) == 1:
         return SOLO
     return Group(mesh, axis, axis_size(mesh, axis), axis_index(mesh, axis))
 

@@ -217,3 +217,22 @@ class _NoStreams:
 
 
 NO_STREAMS = _NoStreams()
+
+
+def release_cublas_workspaces() -> None:
+    """Free the cuBLAS workspaces PyTorch keeps: one for every (cuBLAS
+    handle, stream) pair that has run a matmul, 32 MiB each on Hopper,
+    held until the process ends.  The rank pipelines run their matmuls on
+    each rank's compute stream from a thread a rank, so a session of many
+    ranks leaves hundreds of pairs (9.19 GB on an H100 after
+    chip_smoke.py's session and tune phases, all of it these
+    workspaces).  A later matmul on a pair takes its workspace again.
+    Nothing without CUDA.
+
+    It frees the workspaces of every thread and handle of the process, not
+    only a caller's: call it only while no other thread is running cuBLAS,
+    since a matmul that has taken its workspace but not yet launched would
+    then use memory the allocator may hand to a new tensor."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None and torch.cuda.is_initialized():
+        clear()

@@ -58,8 +58,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         vr.to(torch.float32)).to(q.dtype)
 
 
-def _decode_valid(lengths: torch.Tensor, T: int, window: int | None):
-    pos = torch.arange(T, device=lengths.device)[None, None, None, :]
+def _decode_valid(lengths: torch.Tensor, T: int, window: int | None,
+                  start: int = 0):
+    """(B, 1, 1, T): which of T cache slots holding positions ``start`` …
+    ``start + T - 1`` a query at position ``lengths - 1`` attends to."""
+    pos = torch.arange(start, start + T,
+                       device=lengths.device)[None, None, None, :]
     lens = lengths[:, None, None, None]
     valid = pos < lens
     if window is not None:

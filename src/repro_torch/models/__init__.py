@@ -5,9 +5,11 @@ reference-weight carry both ways (``convert``) and the bridge to the
 decode engine (``pim_bridge``), on one GPU or on a mesh of ranks: every
 entry of the reference's parameter specs (``transformer.param_specs``)
 a shard by ``layers.layout`` — tensor parallelism and the experts over
-"model", FSDP over "data" — and expert parallelism (``moe.apply_ep``).
-Still missing: the sequence-sharded batch-1 decode cache (ROADMAP queue
-1, item 9.7) and the dry-run (item 9.8)."""
+"model", FSDP over "data" — expert parallelism (``moe.apply_ep``) and the decode cache of a
+replicated batch split along the sequence over "data"
+(``attention.merge_partials``).  Still missing: the splits inside a head
+that ``transformer.check_ported`` refuses (ROADMAP queue 1, item 9.7) and
+the dry-run (item 9.8)."""
 from . import attention, moe, transformer
 from .layers import ModelConfig
 

@@ -22,17 +22,25 @@ columns of ``wk`` / ``wv`` (``bk`` / ``bv``).  Where the kv heads divide
 computes its block of the keys and values, gathers them over "model" and
 keeps the kv heads its query heads use.  The layer's input enters through
 ``copy_to`` and its output is the ranks' partial sums added
-(``reduce_from``); the caches hold the kv heads the rank uses.  Under
+(``reduce_from``); the caches hold the kv heads the rank uses.  A decode
+cache split along the sequence over the data axes (a replicated batch,
+``launch.serve.seq_shard``) holds the rank's block of positions: each
+step writes position ``len`` on the rank that owns it, computes the
+rank's partial softmax (``decode_partial``) and merges the ranks' by
+log-sum-exp (``merge_partials``), before ``wo``'s sum over "model".  Under
 FSDP (``fs``, the "data" axis) the rank holds its block of the d rows of
 ``wq`` / ``wk`` / ``wv`` and of the d columns of ``wo``, and each call
 gathers them (``layers.gathered``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from repro_torch.kernels import ops, ref as kref
+from repro_torch.core import sharding
 from repro_torch.core.sharding import SOLO, Group, P
 from .layers import (ModelConfig, _param, build, emb_axis, gathered,
                      layout, rope)
@@ -159,30 +167,142 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 def attend_cached(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor, cache: dict):
+                  v: torch.Tensor, cache: dict, seq: Group = SOLO):
     """The decode step after the projections and rope: write the new k, v
     (B, KVH, 1, hd) at position ``len`` (the same for the whole batch, as
     in the reference's server), attend q (B, H, 1, hd) over the cache, and
-    advance ``len``.  Returns ((B, 1, H * hd), cache)."""
+    advance ``len``.  Returns ((B, 1, H * hd), cache).
+
+    On ``seq`` (the data axes over which the cache's positions are split,
+    ``launch.serve.seq_shard``) the cache holds the rank's block of T
+    positions, ``seq.index`` · T …: the rank that owns position ``len``
+    writes it, every rank attends over its block (``decode_partial``) and
+    the ranks' partial softmaxes are merged (``merge_partials``).  ``len``
+    stays global and equal on every rank (RoPE reads it)."""
     B = q.shape[0]
-    idx = cache["len"][:1].long()
-    cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
+    impl = "grouped" if cfg.fast_decode else "ref"
     lengths = cache["len"] + 1
-    o = ops.decode_attention(q, cache["k"], cache["v"], lengths,
-                             window=cfg.window,
-                             impl="grouped" if cfg.fast_decode else "ref")
+    if seq.size == 1:
+        idx = cache["len"][:1].long()
+        cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
+        o = ops.decode_attention(q, cache["k"], cache["v"], lengths,
+                                 window=cfg.window, impl=impl)
+    else:
+        start = seq.index * cache["k"].shape[2]
+        write_owned(cache, k, v, start)
+        o = merge_partials(*decode_partial(
+            q, cache["k"], cache["v"], lengths, start=start,
+            window=cfg.window, impl=impl), seq).to(q.dtype)
     cache["len"] = lengths
     return o.transpose(1, 2).reshape(B, 1, q.shape[1] * cfg.hd), cache
 
 
+def write_owned(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                start: int) -> None:
+    """Write k, v (B, KVH, 1, hd) at global position ``len`` into a cache
+    block of the T positions ``start`` … ``start + T - 1``, where the
+    block holds that position; elsewhere the slot at the clamped index is
+    written back with what it held.  No host sync: the owner is decided
+    on the device."""
+    T = cache["k"].shape[2]
+    pos = cache["len"][:1].long() - start
+    own = (pos >= 0) & (pos < T)
+    idx = pos.clamp(0, T - 1)
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        c.index_copy_(2, idx, torch.where(own, new.to(c.dtype),
+                                          c.index_select(2, idx)))
+
+
+def decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                   start: int = 0, window: int | None = None,
+                   impl: str = "ref"):
+    """One rank's part of a decode attention over a cache block of the T
+    positions ``start`` … ``start + T - 1`` (the window masked by global
+    position: valid is ``start + t < len`` and ``start + t >= len -
+    window``).  q: (B, H, 1, D); caches (B, KVH, T, D); lengths (B,).
+
+    With s_t = q·k_t / sqrt(D) over the block's valid slots, returns
+    float32 (m, l, o), m and l (B, H, 1, 1), o (B, H, 1, D):
+        m = max_t s_t,   l = Σ_t e^(s_t − m),   o = Σ_t e^(s_t − m) v_t.
+    A block with no valid slot gives m = −inf, l = 0, o = 0 (no NaN).
+    ``impl`` as ``ops.decode_attention``'s: "ref" repeats the cache over
+    the query group in float32; "grouped" (the reference's
+    ``fast_decode``) never repeats it, and rounds the block's
+    unnormalised weights e^(s_t − m) to q's dtype before the value
+    product.  That form rounds the normalised probabilities instead (by
+    the whole row's max and sum), which a block cannot know, so in
+    bfloat16 a split cache agrees with it within bfloat16's rounding of
+    the weights, not bit for bit; in float32 the rounding is none."""
+    B, H, _, D = q.shape
+    KVH, T = k_cache.shape[1], k_cache.shape[2]
+    group = H // KVH
+    f32 = torch.float32
+    valid = kref._decode_valid(lengths, T, window, start)
+    if impl == "grouped":
+        s = torch.einsum("bkgd,bktd->bkgt", q.reshape(B, KVH, group, D)
+                         .to(f32), k_cache.to(f32))
+    else:
+        s = torch.einsum("bhqd,bhtd->bhqt", q.to(f32),
+                         k_cache.repeat_interleave(group, 1).to(f32))
+    s = (s * (1.0 / math.sqrt(D))).masked_fill(~valid, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - torch.where(m == float("-inf"), 0.0, m))
+    del s
+    l = e.sum(-1, keepdim=True)
+    if impl == "grouped":
+        o = torch.einsum("bkgt,bktd->bkgd", e.to(q.dtype).to(f32),
+                         v_cache.to(f32))
+    else:
+        o = torch.einsum("bhqt,bhtd->bhqd", e,
+                         v_cache.repeat_interleave(group, 1).to(f32))
+    return (m.reshape(B, H, 1, 1), l.reshape(B, H, 1, 1),
+            o.reshape(B, H, 1, D))
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   seq: Group) -> torch.Tensor:
+    """The attention output from the ranks' ``decode_partial``s over the
+    axes of ``seq``, by log-sum-exp: with M = max_i m_i (an all-reduce
+    MAX) and a_i = e^(m_i − M) (0 for a rank with m_i = −inf),
+        out = Σ_i a_i o_i / Σ_i a_i l_i,
+    the sums one all-reduce SUM of (a_i l_i, a_i o_i) packed together —
+    softmax(s) · v over the union of the blocks.  Float32 (B, H, 1, D); a
+    row with no valid position anywhere gives 0.  The collectives count
+    in ``sharding.STATS``' ``merge_`` keys."""
+    def reduce():
+        M = sharding.all_reduce(m.clone(), seq.mesh, seq.axis,
+                                op=sharding.dist.ReduceOp.MAX)
+        return sharding.all_reduce(rescaled(m, l, o, M), seq.mesh, seq.axis)
+    return normalized(sharding.counted_as("merge_", reduce))
+
+
+def rescaled(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+             M: torch.Tensor) -> torch.Tensor:
+    """(a l, a o) packed on the last dimension, a = e^(m − M): one rank's
+    terms of ``merge_partials``' sums (a = 0 where m = −inf)."""
+    a = torch.exp(m - torch.where(M == float("-inf"), 0.0, M))
+    return torch.cat([a * l, a * o], dim=-1)
+
+
+def normalized(packed: torch.Tensor) -> torch.Tensor:
+    """Σ a o / Σ a l from the summed ``rescaled`` terms (0 where the sum
+    of a l is 0: no valid position anywhere)."""
+    L, O = packed[..., :1], packed[..., 1:]
+    return O / torch.where(L > 0, L, 1.0)
+
+
 def decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-           reduce: bool = True):
-    """Single-token decode. x: (B, 1, d); returns (y, cache)."""
+           reduce: bool = True, seq: Group = SOLO):
+    """Single-token decode. x: (B, 1, d); returns (y, cache); ``seq``:
+    the axes over which the cache's positions are split
+    (``attend_cached``)."""
     p = gathered(p)
     positions = cache["len"][:, None]
     q, k, v = _project(p, cfg, p.tp.copy_to(x), positions)
-    o, cache = attend_cached(cfg, q, k, v, cache)
+    o, cache = attend_cached(cfg, q, k, v, cache, seq)
     return _out(p, o, reduce), cache
 
 

@@ -37,6 +37,9 @@ in ``_logits`` and the streamed CE; the gradient of a gathered leaf is
 reduce-scattered over "data".  A config whose "model" or "data"
 dimensions, heads or experts do not split over the mesh raises
 (``check_ported``).
+In decode a batch replicated over the data axes may hold each
+self-attention cache as the rank's block of positions (``decode_step``'s
+``seq``; ``launch.serve.seq_shard``).
 The training loss is ``loss_fn`` (next-token CE in float32, through the
 whole logits or streamed over vocab chunks by ``_chunked_ce``, plus the
 MoE aux); with ``cfg.remat`` and grad on, ``trunk`` recomputes each repeat
@@ -536,12 +539,14 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict,
 # ---------------------------------------------------------------------------
 
 def _block_cache(p: Block, cfg: ModelConfig, batch: int, max_len: int,
-                 frontend, device) -> dict:
-    """The block's cache: the rank's kv heads, channels or heads."""
+                 frontend, device, seq=sharding.SOLO) -> dict:
+    """The block's cache: the rank's kv heads, channels or heads; a
+    self-attention layer's, the rank's block of positions on ``seq``."""
     mixer, m = p.desc["mixer"], p.tp.size
     if mixer == "attn":
-        return attention.init_cache(cfg, batch, max_len, device=device,
-                                    kv_heads=p.mixer.heads[1])
+        pos = seq.block(max_len)
+        return attention.init_cache(cfg, batch, pos.stop - pos.start,
+                                    device=device, kv_heads=p.mixer.heads[1])
     if mixer == "cross":
         return attention.init_cross_cache(p.mixer, cfg, frontend)
     if mixer == "mamba":
@@ -552,27 +557,30 @@ def _block_cache(p: Block, cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_cache(model: Transformer, cfg: ModelConfig, batch: int,
-               max_len: int, frontend=None) -> dict:
+               max_len: int, frontend=None, seq=sharding.SOLO) -> dict:
     """One cache per layer, ``{"layers": [...]}``, on the model's device:
     a KV cache for a self-attention layer, the frontend's keys and values
     ``{"ck", "cv"}`` for a cross layer (``frontend`` (B, T, d)),
     ``{"conv", "ssm"}`` for a Mamba one, ``{"C", "n", "m"}`` for an mLSTM
     and ``{"c", "n", "m"}`` for an sLSTM (the reference stacks the
     repeating group's caches for its scan); on a "model" axis, the rank's
-    kv heads, channels and heads."""
+    kv heads, channels and heads.  ``seq``: the group of the data axes
+    over which the self-attention caches' ``max_len`` positions are split
+    (``launch.serve.seq_shard``): each holds the rank's block."""
     dev = model.device
     frontend = as_frontend(frontend, dev)
-    return {"layers": [_block_cache(blk, cfg, batch, max_len, frontend, dev)
-                       for blk in model.layers]}
+    return {"layers": [_block_cache(blk, cfg, batch, max_len, frontend, dev,
+                                    seq) for blk in model.layers]}
 
 
 def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-                  mesh=None):
+                  mesh=None, seq=sharding.SOLO):
     h = rms_norm(x, p.norm1)
     mixer = p.desc["mixer"]
     par = cfg.parallel_block and p.desc["ffn"] == "dense"
     if mixer == "attn":
-        mo, cache = attention.decode(p.mixer, cfg, h, cache, reduce=not par)
+        mo, cache = attention.decode(p.mixer, cfg, h, cache, reduce=not par,
+                                     seq=seq)
     elif mixer == "cross":
         mo, cache = attention.decode_cross(p.mixer, cfg, h, cache)
     elif mixer == "mamba":
@@ -595,18 +603,22 @@ def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
 
 
 def decode_step(model: Transformer, cfg: ModelConfig, tokens, cache: dict,
-                embeds=None, frontend=None, mesh=None):
+                embeds=None, frontend=None, mesh=None, seq=sharding.SOLO):
     """One decode step. tokens: (B, 1) int, or embeds (B, 1, d) (the audio
     family's frame embeddings).  ``frontend`` is accepted as the
     reference's step takes it; the cross layers read the keys and values
     ``init_cache`` made from it.  Returns (logits (B, 1, V), cache); the
     cache is updated in place.  On a mesh (default ``model.mesh``) the
     tokens are this data rank's streams, and each MoE layer routes the
-    whole decode batch, as the reference's ``moe.apply`` does."""
+    whole decode batch, as the reference's ``moe.apply`` does.  ``seq``:
+    the data axes over which the self-attention caches hold blocks of
+    positions (``init_cache``); each such layer merges the ranks' partial
+    softmaxes over them (``attention.attend_cached``)."""
     mesh = _mesh(model, mesh)
     x = _embed(model, cfg, tokens, embeds)
     for li, blk in enumerate(model.layers):
         x, cache["layers"][li] = _block_decode(blk, cfg, x,
-                                               cache["layers"][li], mesh)
+                                               cache["layers"][li], mesh,
+                                               seq)
     x = rms_norm(x, model.final_norm)
     return _logits(model, x), cache

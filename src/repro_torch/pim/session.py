@@ -56,6 +56,7 @@ import numpy as np
 
 from repro_torch.core.banked import BankGrid, make_bank_grid, make_rank_grid
 from repro_torch.core.perfmodel import mram_capacity_bytes
+from repro_torch.core.streams import release_cublas_workspaces
 from repro_torch.runtime.autotune import DEFAULT_N_CHUNKS, TuningResult
 from repro_torch.runtime.pipeline import (_effective_chunks, _resolve_ranks,
                                           run_pipelined_ranked)
@@ -526,8 +527,14 @@ class PimSession:
 
     def close(self) -> None:
         """``dpu_free`` analogue: finish everything queued, stop the worker
-        thread, and refuse further launches.  Idempotent — a second close()
-        is a no-op."""
+        thread, release the resident cache, and refuse further launches.
+        Idempotent — a second close() is a no-op.
+
+        On CUDA it also frees the cuBLAS workspaces that its pipelines'
+        threads and streams took (``core.streams.release_cublas_workspaces``).
+        PyTorch keeps those for the whole process and frees them only all
+        at once, every thread's and handle's: close a CUDA session while no
+        other thread of the process is running a matmul."""
         if self._closed:
             return
         if self._serving:
@@ -537,6 +544,8 @@ class PimSession:
             self._sched.drain()      # no future may be left dangling
         if self._sched.cache is not None:
             self._sched.cache.clear()    # release resident device arrays
+        if self._grid.device.type == "cuda":
+            release_cublas_workspaces()  # its pipelines' matmuls took them
         if self._tracer is not None:
             if self._trace_path:
                 self._tracer.export(self._trace_path)

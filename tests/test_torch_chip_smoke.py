@@ -435,8 +435,10 @@ def smoke_dist_configs():
     without ``fsdp``; TinyLlama SMOKE at 2 layers, with and without
     ``fsdp``; StableLM SMOKE, 4 heads and 2 kv heads over 4 ranks; the
     Jamba SMOKE cut to 2 layers with ``moe_ep``, and with ``fsdp`` as its
-    FULL config is published), in their FULL dtypes where the phase runs
-    bfloat16, at short sequences."""
+    FULL config is published; danube SMOKE, window 16, over a cache of 64
+    positions decoded from 40, so that the window straddles a block
+    boundary on (4, 1) and (2, 2)), in their FULL dtypes where the phase
+    runs bfloat16, at short sequences."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -446,6 +448,7 @@ def smoke_dist_configs():
                              n_layers=2)
     bf16 = dataclasses.replace(published, dtype=torch.bfloat16)
     tp = get_config("stablelm-12b", smoke=True)
+    danube = get_config("h2o-danube-3-4b", smoke=True)
     return {"tp_f32": dataclasses.replace(tp, n_layers=4),
             "tp_bf16": dataclasses.replace(tp, dtype=torch.bfloat16),
             "hy_f32": dataclasses.replace(
@@ -465,7 +468,11 @@ def smoke_dist_configs():
             "h_jamba": dataclasses.replace(
                 get_config("jamba-1.5-large-398b", smoke=True), n_layers=2,
                 dtype=torch.bfloat16, fsdp=True),
-            "i_lm": dataclasses.replace(lm, fsdp=True), "fsdp_seq": 32,
+            "i_lm": dataclasses.replace(lm, fsdp=True),
+            "j_f32": danube,
+            "j_bf16": dataclasses.replace(danube, dtype=torch.bfloat16),
+            "j_max_len": 64, "j_start": 40, "j_new": 4, "j_slab": 8,
+            "j_prefill": 64, "fsdp_seq": 32,
             "prefill": 64, "prompt": 8, "new": 4, "f32_seq": 16, "seq": 32,
             "steps": 4, "ep_seq": 16, "world": 4}
 
@@ -479,7 +486,9 @@ def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
     DIST_EP_TOL; leg D's tensor-parallel forward and greedy tokens on (1,
     4) and each rank's parameter bytes against the reference's specs,
     leg E's TP + EP Jamba cut, leg F's gradients on (2, 2) and its
-    restart onto (1, 2); no launch (CPU tensors run the plain versions),
+    restart onto (1, 2); leg J's sequence-sharded cache on (4, 1) and (2,
+    2), each rank's bytes of keys and values the reference's specs'; no
+    launch (CPU tensors run the plain versions),
     no memory counter (the card's)."""
     import sys
 
@@ -489,7 +498,8 @@ def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
     counts = cs.dist_phase(torch.device("cpu"), "cpu rehearsal")
     assert counts == {"ep": {"flash_attention": 0, "moe_gmm": 0},
                       "tp": {"flash_attention": 0, "ssd_scan": 0,
-                             "moe_gmm": 0}}
+                             "moe_gmm": 0},
+                      "seq": {"flash_attention": 0}}
     out = capsys.readouterr().out
     assert "dist: 4 ranks on cpu rehearsal over gloo with cpu tensors" in out
     assert "experts [(0, 2), (2, 4), (4, 6), (6, 8)] of 8" in out
@@ -526,6 +536,13 @@ def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
     assert re.search(r"leg H Jamba cut \(2 layers at full width, fsdp, "
                      r"moe_ep off\) bf16, 2 x 32: \S+ GB of parameters a "
                      r"rank, equal to the byte", out)
+    assert re.search(r"leg J f32, 2 layers: keys and values a rank 8192 B "
+                     r"on \(4, 1\) and 8192 B on \(2, 2\), equal to the "
+                     r"byte .* \(one process 32768 B\); every step's logits"
+                     r" vs one process max \|diff\| \S+ on \(4, 1\), \S+ on "
+                     r"\(2, 2\) \(1e-3 relative\), on every rank", out)
+    assert re.search(r"leg J bf16, 2 layers on \(data 2, model 2\): .* the "
+                     r"merges on rank 0: 4 all-reduces", out)
     assert re.search(r"leg I f32, TinyLlama 2 layers with fsdp, 4 x 16 on "
                      r"\(2, 2\): .* optimizer state \S+ MB a rank, 0\.2\d+ "
                      r"of one process's; greedy tokens equal .* \(2, 1\) "

@@ -1241,6 +1241,131 @@ def test_placement_forward_over_nccl(dev):
                                    "nccl")
 
 
+def test_session_close_releases_the_rank_workspaces(dev):
+    """A ranked session's GEMV runs a matmul on each rank's compute
+    stream from a thread a rank, and PyTorch keeps a cuBLAS workspace (32
+    MiB on Hopper) for every (handle, stream) pair: 8 ranks take at least
+    8.  ``close()`` gives them back: the memory allocated after it is
+    within 64 MiB of what it was before the session."""
+    import gc
+
+    from repro_torch.core.streams import release_cublas_workspaces
+
+    gemv = REGISTRY["GEMV"]
+    args = gemv.make_args(np.random.default_rng(0), scale=4)
+    release_cublas_workspaces()     # no pair left by an earlier test
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    with pim.session(ranks=8, banks_per_rank=8) as s:
+        for _ in range(2):
+            gemv.compare(s.run("GEMV", *args), gemv.ref(*args))
+        torch.cuda.synchronize()
+        during = torch.cuda.memory_allocated(dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(dev)
+    assert during - before >= 8 * (32 << 20), (before, during)
+    assert after - before <= 64 << 20, (before, during, after)
+
+
+# -- the sequence-sharded decode cache --------------------------------------------------
+
+@pytest.mark.parametrize("impl", ["ref", "grouped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_partials_merge_on_the_card(dev, impl, dtype):
+    """H2O-Danube3's decode shape (32 heads, 8 kv heads of 120, window
+    4,096) over a seeded cache of 16,384 positions on CUDA tensors, split
+    into blocks at seeded boundaries: each block's ``decode_partial`` (the
+    window masked by global position), merged by ``rescaled`` /
+    ``normalized`` as ``merge_partials`` sums them over the ranks, equals
+    the plain decode attention over the whole cache (1e-5 in float32; the
+    grouped form rounds its probabilities to bfloat16 before the value
+    product, per block against the whole row's, so 2e-2 there), with no
+    NaN from the blocks that hold no valid position."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import attention
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, H, KVH, T, D, window = 1, 32, 8, 16384, 120, 4096
+    q = torch.randn((B, H, 1, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, KVH, T, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    f = kref.decode_attention_grouped if impl == "grouped" \
+        else kref.decode_attention
+    cuts = np.random.default_rng(21).choice(np.arange(1, T), 6,
+                                            replace=False)
+    edges = [0, *sorted(int(c) for c in cuts), T]
+    for n in (1, 4096, 9000, T):
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        want = f(q, k, v, lens, window=window)
+        parts = [attention.decode_partial(
+            q, k[:, :, a:b], v[:, :, a:b], lens, start=a, window=window,
+            impl=impl) for a, b in zip(edges, edges[1:])]
+        empty = [p for p, (a, b) in zip(parts, zip(edges, edges[1:]))
+                 if b <= n - window or a >= n]
+        for m, l, o in empty:
+            assert bool(torch.isneginf(m).all()) and not l.any() \
+                and not o.any()
+        M = torch.stack([p[0] for p in parts]).amax(0)
+        got = attention.normalized(sum(attention.rescaled(*p, M)
+                                       for p in parts)).to(dtype)
+        assert bool(torch.isfinite(got).all())
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        close(got, want, rel(want, tol))
+
+
+def _seq_rank(rank: int, toks):
+    """danube-smoke on (2, 1) on cuda:0, batch 1: the cache's positions
+    split over "data" -> (this rank's block length, every step's logits
+    of a teacher-forced decode, greedy tokens)."""
+    from repro_torch.runtime import elastic
+
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = elastic.carve_mesh(model_parallel=1)
+    cfg = get_config("h2o-danube-3-4b", smoke=True)
+    model = transformer.init(cfg, seed=0, device=card, mesh=mesh)
+    return _seq_decode(model, cfg, toks)
+
+
+def _seq_decode(model, cfg, toks):
+    from repro_torch.launch import serve
+
+    L = toks.shape[1]
+    cache = serve.make_cache(model, cfg, 1, L)
+    step = serve.make_serve_step(cfg, batch=1, max_len=L)
+    logits = []
+    with torch.no_grad():
+        for i in range(L):
+            lg, cache = step(model, cache, toks[:, i:i + 1].to(model.device))
+            logits.append(lg.float().cpu())
+    return (cache["layers"][0]["k"].shape[2], torch.cat(logits, 1),
+            serve.greedy_generate(model, cfg, toks[:, :40], 8).cpu())
+
+
+def test_sequence_sharded_decode_on_one_card_over_gloo(dev):
+    """Two ranks on cuda:0 over gloo, batch 1 over 48 positions: each
+    holds 24 (the reference's spec splits the sequence over "data"),
+    every step's logits equal the one-process decode on the whole cache
+    at 1e-4 and the greedy tokens are its."""
+    from repro_torch.launch import mesh as lmesh
+
+    cfg = get_config("h2o-danube-3-4b", smoke=True)
+    toks = torch.randint(0, cfg.vocab, (1, 48), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(9))
+    got = lmesh.spawn(_seq_rank, 2, toks, backend="gloo", timeout=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, want, tokens = _seq_decode(transformer.init(cfg, seed=0, device=dev),
+                                  cfg, toks)
+    assert T == 48
+    for t, logits, out in got:
+        assert t == 24
+        close(logits, want, rel(want, 1e-4))
+        assert torch.equal(out, tokens), (out, tokens)
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--fault-loop"]:
     fault_loop(*map(int, sys.argv[2:5]))
 if __name__ == "__main__" and sys.argv[1:2] == ["--restart"]:

@@ -183,6 +183,36 @@ def test_close_drains_pending_futures(pair, rng):
     assert outs[0] == outs[1] == red_ref(a)
 
 
+def test_close_releases_cublas_workspaces(monkeypatch):
+    """Closing a session on CUDA frees the cuBLAS workspaces PyTorch keeps
+    for every (handle, stream) pair its rank pipelines ran a matmul on
+    (``core.streams.release_cublas_workspaces``), once however often it
+    is closed.  A CPU session leaves them to their owners, even where
+    CUDA is initialized: the release is process-wide.  Without CUDA the
+    release does nothing.  On the card, ``tests/test_torch_gpu.py``
+    measures the memory it gives back."""
+    import dataclasses
+
+    from repro_torch.core import streams
+
+    calls = []
+    monkeypatch.setattr(torch._C, "_cuda_clearCublasWorkspaces",
+                        lambda: calls.append(1), raising=False)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    s = tpim.session(banks=2, device="cpu")
+    s.close()
+    assert calls == []
+    s = tpim.session(banks=2, device="cpu")
+    monkeypatch.setattr(s, "_grid", dataclasses.replace(
+        s._grid, device=torch.device("cuda")))
+    s.close()
+    s.close()
+    assert calls == [1]
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    streams.release_cublas_workspaces()
+    assert calls == [1]
+
+
 def test_context_manager_serves_and_closes(rng):
     a = red_args(rng, 1 << 16)
     with tpim.session(banks=4, device="cpu") as s:
