@@ -90,9 +90,19 @@ width over a seeded cache of long_500k's 524,288 positions, each data
 rank holding its block (float32 at 2 layers on (4, 1) and (2, 2), every
 step of 16 greedy tokens against the one-process port on the whole cache
 and each rank's bytes of keys and values against the reference's cache
-specs; bfloat16 at 8 layers on (2, 2) timed, with the merges'
+specs; bfloat16 at 4 layers on (2, 2) timed, with the merges'
 collectives and the peak memory a rank), beside the one process's
-prefill of 1 x 8,192 through ``flash_attention``.
+prefill of 1 x 8,192 through ``flash_attention``.  Last the split
+phase, leg K: tensor parallelism inside a head, 16 ranks on the one card
+in one launch: musicgen-medium at its published width on (1, 16), each
+rank's 96 columns 1.5 heads, so it computes the 2 heads they touch
+(float32 at 4 layers over seeded frame embeddings against one process,
+greedy tokens, one ``flash_attention`` launch a layer a rank; bfloat16
+at 12 layers timed, with the head gathers' collectives), and xlstm-125m
+whole on (1, 16), a quarter of an mLSTM head a rank, and on (2, 8), half
+a head with the batch over "data" (float32 against one process, greedy
+tokens); each rank's parameter bytes the reference's specs', its cache's
+bytes beside the specs'.
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -115,7 +125,9 @@ flash_attention and moe_gmm ``dist_launches_per_rank``, one rank's
 expert-parallel prefill in the dist phase, for flash_attention and
 ssd_scan ``tp_launches_per_rank``, one rank's StableLM prefill and one
 rank's forward of the Jamba cut, and for moe_gmm one rank's prefill of
-DeepSeek as published on (1, 4)), its error against its plain version, and its times beside its bound: ``ms``
+DeepSeek as published on (1, 4); for flash_attention
+``split_launches_per_rank``, one rank's bfloat16 musicgen prefill in leg
+K), its error against its plain version, and its times beside its bound: ``ms``
 (CUDA events around back-to-back calls of the wrapper) and ``device_ms``
 (the device operations those calls launched, from ``torch.profiler``), the
 same two for the library call, the CUDA launches of the port's kernels per
@@ -287,13 +299,28 @@ DIST_FSDP_SEQ = 512
 # one process also prefills 1 x SEQ_PREFILL through flash_attention
 SEQ_ARCH, SEQ_MAX_LEN, SEQ_START, SEQ_NEW = ("h2o-danube-3-4b", 524288,
                                              263144, 16)
-SEQ_F32_LAYERS, SEQ_BF16_LAYERS, SEQ_SLAB, SEQ_PREFILL = 2, 8, 4096, 8192
+# (SEQ_BF16_LAYERS of its 24 layers: the time the whole run's phases have)
+SEQ_F32_LAYERS, SEQ_BF16_LAYERS, SEQ_SLAB, SEQ_PREFILL = 2, 4, 4096, 8192
 SEQ_SEED = 17
+# the split phase, leg K: tensor parallelism inside a head, SPLIT_WORLD
+# ranks on the one card over DIST_BACKEND with CUDA tensors, one launch:
+# musicgen-medium FULL (24 heads of 64: 1.5 heads, 2 touched, a rank) on
+# (1, 16), float32 at SPLIT_F32_LAYERS over seeded frame embeddings of 1 x
+# PREFILL against one process at 1e-3 and SPLIT_NEW greedy steps from a
+# prompt of SPLIT_PROMPT tokens (every step a collective of 16 processes
+# through the host, ~0.1 s each), equal tokens; bfloat16 at
+# SPLIT_BF16_LAYERS (of 48: the leg's time) timed; xlstm-125m FULL (12
+# layers, 4 mLSTM heads of 192) on (1, 16), a quarter of a head a rank,
+# and on (2, 8), half a head, the batch over "data": float32 prefill of 2
+# x SPLIT_XLSTM_SEQ against one process at 1e-3, SPLIT_NEW greedy steps
+SPLIT_WORLD, SPLIT_ARCH = 16, "musicgen-medium"
+SPLIT_F32_LAYERS, SPLIT_BF16_LAYERS = 4, 12
+SPLIT_XLSTM_SEQ, SPLIT_PROMPT, SPLIT_NEW, SPLIT_SEED = 512, 1, 8, 19
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
 PHASES = ("kernels", "suite", "session", "tune", "lm", "moe", "hybrid",
-          "vlm", "xlstm", "train", "dist")
+          "vlm", "xlstm", "train", "dist", "split")
 # a forward's device time spent in each kernel of the port: the part of the
 # CUDA kernels' names that marks them
 SHARES = {"flash_attention": "flash_", "moe_gmm": "gmm_", "ssd_scan": "ssd_"}
@@ -757,12 +784,14 @@ def flash_rows(g, dev) -> dict:
     bfloat16), then the TinyLlama prefill shape, the H2O-Danube3 shape,
     and the prefill shapes of DeepSeek-MoE (16 heads of 128), the Jamba
     cut (64 query / 8 key-value heads of 128), Llama 3.2 Vision (32 /
-    8 of 128) and one rank of StableLM 2 12B over 4 model ranks (8 / 2
-    of 160, the ``launch_bf16<192, 64>`` instantiation), timed, at 4e-3
-    (``flash_case``)."""
+    8 of 128), one rank of StableLM 2 12B over 4 model ranks (8 / 2
+    of 160, the ``launch_bf16<192, 64>`` instantiation) and one rank of
+    musicgen-medium over 16 (the 2 heads of 64 its columns touch), timed,
+    at 4e-3 (``flash_case``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
+    from repro_torch.models import attention
 
     for label, (B, H, KVH, S, T, D, causal, window, dtype) in {
             "f32 GQA causal": (2, 8, 2, 300, 300, 64, True, None,
@@ -808,6 +837,13 @@ def flash_rows(g, dev) -> dict:
                           sl.n_kv_heads // m, PREFILL, PREFILL, sl.hd,
                           sl.window, g, dev))
     row["at_stablelm_12b_tp4_rank"] = dict_of(tp)
+    # one rank of musicgen-medium over 16 model ranks (leg K): the 2 heads
+    # that its 96 columns touch
+    mg = get_config(SPLIT_ARCH)
+    n = attention.head_split(mg.n_heads, mg.hd, SPLIT_WORLD, 0).n
+    split = timed(flash_case("flash_attention", 1, n, n, PREFILL, PREFILL,
+                             mg.hd, mg.window, g, dev))
+    row["at_musicgen_medium_tp16_rank"] = dict_of(split)
     torch.cuda.empty_cache()
     return row
 
@@ -2302,6 +2338,10 @@ def tp_tokens(c: dict, vocab: int):
                                (2, c["prompt"])))
 
 
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
 def reference_bytes(cfg, dims: dict) -> int:
     """The bytes of parameters that the reference's specs
     (``transformer.param_specs``) put on one device of a mesh of ``dims``
@@ -2328,6 +2368,12 @@ def reference_cache_bytes(cfg, batch: int, max_len: int, dims: dict) -> int:
     cache specs (``launch.serve.cache_specs`` of the whole cache's shapes,
     the reference's pure function) put on one device of a mesh of ``dims``
     ({axis: size}) for a decode cache of ``batch`` x ``max_len``."""
+    return reference_cache_parts(cfg, batch, max_len, dims)["kv"]
+
+
+def reference_cache_parts(cfg, batch: int, max_len: int, dims: dict) -> dict:
+    """``reference_cache_bytes`` of the self-attention layers' "k" and "v"
+    ("kv") and of the mLSTM layers' "C", "n" and "m", each apart."""
     from repro_torch.core.sharding import axis_size
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -2336,14 +2382,28 @@ def reference_cache_bytes(cfg, batch: int, max_len: int, dims: dict) -> int:
                                                            device="meta"),
                                    cfg, batch, max_len)
     specs = serve.cache_specs(whole, dims)
-    total = 0
+    total = dict.fromkeys(("kv", "C", "n", "m"), 0)
     for lc, sp in zip(whole["layers"], specs["layers"]):
-        for k in ("k", "v"):
-            if k in lc:
-                names = [a for e in sp[k] if e is not None
-                         for a in ((e,) if isinstance(e, str) else e)]
-                total += (lc[k].numel() * lc[k].element_size()
-                          // axis_size(dims, names))
+        kinds = ({"k": "kv", "v": "kv"} if "k" in lc else
+                 {"C": "C", "n": "n", "m": "m"} if "C" in lc else {})
+        for k, kind in kinds.items():
+            names = [a for e in sp[k] if e is not None
+                     for a in ((e,) if isinstance(e, str) else e)]
+            total[kind] += (lc[k].numel() * lc[k].element_size()
+                            // axis_size(dims, names))
+    return total
+
+
+def cache_parts(cache: dict) -> dict:
+    """A decode cache's bytes of "k" and "v" ("kv") and of the mLSTM
+    layers' "C", "n" and "m", each apart (``reference_cache_parts``'
+    kinds)."""
+    total = dict.fromkeys(("kv", "C", "n", "m"), 0)
+    for lc in cache["layers"]:
+        kinds = ({"k": "kv", "v": "kv"} if "k" in lc else
+                 {"C": "C", "n": "n", "m": "m"} if "C" in lc else {})
+        for k, kind in kinds.items():
+            total[kind] += lc[k].numel() * lc[k].element_size()
     return total
 
 
@@ -2408,8 +2468,7 @@ def dist_reference(c: dict, dev, d: str) -> dict:
         empty_cache(dev)
         cfg = c["tp_bf16"]
         model = transformer.init(cfg, seed=0, device=dev)
-        ref["tp_param_gb"] = sum(p.numel() * p.element_size()
-                                 for p in model.parameters()) / 1e9
+        ref["tp_param_gb"] = param_bytes(model) / 1e9
         logits, _ = transformer.forward(model, cfg, long, use_kernel=True)
         torch.save(logits.cpu(), os.path.join(d, "d_bf16.pt"))
         del logits
@@ -2692,8 +2751,7 @@ def moe_leg(rank: int, f32, bf16, c: dict, d: str, dev, mesh) -> dict:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         model = transformer.init(bf16, seed=0, device=dev, mesh=mesh)
-        out["param_bytes"] = sum(p.numel() * p.element_size()
-                                 for p in model.parameters())
+        out["param_bytes"] = param_bytes(model)
         fwd = lambda: transformer.forward(model, bf16, toks,  # noqa: E731
                                           use_kernel=True)[0]
         got, out["bf16_launches"] = counted(fwd, dev)
@@ -2877,8 +2935,7 @@ def tp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
-        out["d_param_bytes"] = sum(p.numel() * p.element_size()
-                                   for p in model.parameters())
+        out["d_param_bytes"] = param_bytes(model)
         fwd = lambda: transformer.forward(model, cfg, long,  # noqa: E731
                                           use_kernel=True)[0]
         got, out["d_bf16_launches"] = counted(fwd, dev)
@@ -3036,8 +3093,7 @@ def fsdp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
 
         cfg = c["h_bf16"]
         model = transformer.init(cfg, seed=0, device=dev, mesh=m22)
-        out["h_param_bytes"] = sum(p.numel() * p.element_size()
-                                   for p in model.parameters())
+        out["h_param_bytes"] = param_bytes(model)
         out["h_gathered"] = layer_gathered(model)
         empty_cache(dev)
         held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
@@ -3066,8 +3122,7 @@ def fsdp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         model = transformer.init(cfg, seed=0, device=dev, mesh=m22)
-        out["hj_param_bytes"] = sum(p.numel() * p.element_size()
-                                    for p in model.parameters())
+        out["hj_param_bytes"] = param_bytes(model)
         toks = fsdp_tokens(c, cfg.vocab)[0].to(dev)[r]
         got, out["hj_launches"] = counted(
             lambda: transformer.forward(model, cfg, toks,
@@ -3547,6 +3602,400 @@ def fsdp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
     return launches(g16)
 
 
+def split_configs() -> dict:
+    """Leg K's models and sizes (one picklable dict: the ranks take
+    everything from it): musicgen-medium FULL cut to SPLIT_F32_LAYERS in
+    float32 and to SPLIT_BF16_LAYERS in bfloat16, xlstm-125m FULL whole in
+    float32, on (1, world) and (2, world / 2)."""
+    from repro_torch.configs import get_config
+
+    mg, xl = get_config(SPLIT_ARCH), get_config(XLSTM_ARCH)
+    return {"mg_f32": dataclasses.replace(mg, n_layers=SPLIT_F32_LAYERS,
+                                          dtype=torch.float32),
+            "mg_bf16": dataclasses.replace(mg, n_layers=SPLIT_BF16_LAYERS),
+            "xl_f32": dataclasses.replace(xl, dtype=torch.float32),
+            "prefill": PREFILL, "xl_seq": SPLIT_XLSTM_SEQ,
+            "prompt": SPLIT_PROMPT, "new": SPLIT_NEW, "world": SPLIT_WORLD,
+            "mg_layers": mg.n_layers}
+
+
+def split_meshes(c: dict) -> dict:
+    """Leg K's meshes as {name: {axis: size}}: (1, world) and (2, world /
+    2)."""
+    return {"m1": {"data": 1, "model": c["world"]},
+            "m2": {"data": 2, "model": c["world"] // 2}}
+
+
+def split_inputs(c: dict, dev):
+    """Leg K's inputs, the same in the parent and in every rank:
+    musicgen's frame embeddings (1, prefill, d) float32, drawn on ``dev``
+    from SPLIT_SEED, and its prompt (1, prompt); xlstm's tokens (2,
+    xl_seq) and prompt (2, prompt)."""
+    mg, xl = c["mg_f32"], c["xl_f32"]
+    g = torch.Generator(device=dev).manual_seed(SPLIT_SEED)
+    embeds = torch.randn((1, c["prefill"], mg.d_model), generator=g,
+                         device=dev)
+    rng = np.random.default_rng(SPLIT_SEED)
+    return (embeds, *(torch.from_numpy(rng.integers(0, v, shape).astype(
+        np.int32)).to(dev) for v, shape in (
+            (mg.vocab, (1, c["prompt"])), (xl.vocab, (2, c["xl_seq"])),
+            (xl.vocab, (2, c["prompt"])))))
+
+
+def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Max |got - want| in float32; every element within tol * (1 +
+    |want|) (``check`` without its line: each rank's worst is printed by
+    the report)."""
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        got.shape, want.shape, got.dtype, want.dtype)
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got).all() and bool((err <= rel(want, tol)).all()), (
+        float(err.max()))
+    return float(err.max())
+
+
+def split_reference(c: dict, dev, d: str) -> dict:
+    """Leg K in one process: musicgen's float32 cut (prefill logits to
+    ``d``, launches, greedy tokens), its bfloat16 cut (logits to ``d``,
+    launches, host ms), xlstm's float32 prefill (logits to ``d``) and
+    greedy tokens; every model freed before the ranks start."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    ref = {}
+    embeds, mg_prompt, xl_toks, xl_prompt = split_inputs(c, dev)
+    with torch.no_grad():
+        cfg = c["mg_f32"]
+        model = transformer.init(cfg, seed=0, device=dev)
+        got, ref["mg_f32_launches"] = counted(lambda: transformer.forward(
+            model, cfg, embeds=embeds, use_kernel=True)[0], dev)
+        torch.save(got.cpu(), os.path.join(d, "k_mg_f32.pt"))
+        del got
+        ref["mg_tokens"] = serve.greedy_generate(model, cfg, mg_prompt,
+                                                 c["new"]).cpu()
+        del model
+        empty_cache(dev)
+        cfg = c["mg_bf16"]
+        model = transformer.init(cfg, seed=0, device=dev)
+        x = embeds.to(cfg.dtype)
+        fwd = lambda: transformer.forward(model, cfg, embeds=x,  # noqa: E731
+                                          use_kernel=True)[0]
+        got, ref["mg_bf16_launches"] = counted(fwd, dev)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        torch.save(got.cpu(), os.path.join(d, "k_mg_bf16.pt"))
+        del got
+        if dev.type == "cuda":
+            ref["mg_bf16_ms"] = host_ms(fwd)
+        del model
+        empty_cache(dev)
+        cfg = c["xl_f32"]
+        model = transformer.init(cfg, seed=0, device=dev)
+        got, ref["xl_launches"] = counted(
+            lambda: transformer.forward(model, cfg, xl_toks)[0], dev)
+        torch.save(got.cpu(), os.path.join(d, "k_xl_f32.pt"))
+        chunked, _ = transformer.forward(
+            model, dataclasses.replace(cfg, mlstm_chunk=MLSTM_CHUNK), xl_toks)
+        ref["xl_spread"] = float(((got - chunked).abs()
+                                  / (1 + chunked.abs())).max())
+        del got, chunked
+        torch.save(mlstm_layer_io(model, cfg, xl_toks),
+                   os.path.join(d, "k_xl_layers.pt"))
+        ref["xl_tokens"] = serve.greedy_generate(model, cfg, xl_prompt,
+                                                 c["new"]).cpu()
+        del model
+        empty_cache(dev)
+    return ref
+
+
+def mlstm_layer_io(model, cfg, toks) -> list:
+    """Each mLSTM layer's input (the normed hidden state) and output in the
+    forward of ``toks``, on the CPU."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import rms_norm
+
+    x, io = model.embed[toks], []
+    for blk in model.layers:
+        h = rms_norm(x, blk.norm1)
+        mo = transformer._mix(blk, cfg, h, None, False)
+        if blk.desc["mixer"] == "mlstm":
+            io.append((h.cpu(), mo.cpu()))
+        x = x + mo
+    return io
+
+
+def split_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
+    """Leg K of one rank, on ``device_type`` device 0 (every rank on the
+    one card): musicgen's float32 cut on (1, world) against one process's
+    logits at 1e-3 and its greedy tokens, each rank's parameter and cache
+    bytes; its bfloat16 cut counted and timed once, with the collectives
+    (``STATS``, the head gathers' ``heads_`` keys apart) and the peak;
+    xlstm's float32 prefill on (1, world) and (2, world / 2): each mLSTM
+    layer on the one process's input of the rank's rows against its
+    output at 1e-3, the stack's logits' relative gap (printed beside the
+    one process's own parallel vs chunked gap: through 12 float32 layers
+    the stack moves further than one layer, PERF.md), its greedy tokens
+    and its cache's bytes; the wall-clock time at each leg's end.  Asserts fail
+    the rank and the leg."""
+    from repro_torch.core import sharding
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer, xlstm
+    from repro_torch.runtime import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out: dict = {"rank": rank, "t0": time.time()}
+    w = c["world"]
+    meshes = {"m1": elastic.carve_mesh(model_parallel=w, device_type=dev.type),
+              "m2": elastic.carve_mesh(model_parallel=w // 2,
+                                       device_type=dev.type)}
+    embeds, mg_prompt, xl_toks, xl_prompt = split_inputs(c, dev)
+    L = c["prompt"] + c["new"]
+    marks = out["marks"] = [("meshes", time.time())]
+    with torch.no_grad():
+        cfg = c["mg_f32"]
+        model = transformer.init(cfg, seed=0, device=dev, mesh=meshes["m1"])
+        out["mg_heads"] = model.layers[0].mixer.heads
+        out["mg_f32_bytes"] = param_bytes(model)
+        got, out["mg_f32_launches"] = counted(lambda: transformer.forward(
+            model, cfg, embeds=embeds, use_kernel=True)[0], dev)
+        out["mg_f32_err"] = within(got, torch.load(os.path.join(
+            d, "k_mg_f32.pt")).to(dev), 1e-3)
+        del got
+        marks.append(("musicgen f32", time.time()))
+        out["mg_tokens"] = serve.greedy_generate(model, cfg, mg_prompt,
+                                                 c["new"]).cpu()
+        out["mg_cache"] = cache_parts(serve.make_cache(model, cfg, 1, L))
+        del model
+        empty_cache(dev)
+        marks.append(("musicgen greedy", time.time()))
+
+        cfg = c["mg_bf16"]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = transformer.init(cfg, seed=0, device=dev, mesh=meshes["m1"])
+        out["mg_bf16_bytes"] = param_bytes(model)
+        x = embeds.to(cfg.dtype)
+        fwd = lambda: transformer.forward(model, cfg, embeds=x,  # noqa: E731
+                                          use_kernel=True)[0]
+        got, out["mg_bf16_launches"] = counted(fwd, dev)
+        want = torch.load(os.path.join(d, "k_mg_bf16.pt")).to(dev)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        out["mg_bf16_err"] = float((got.float() - want.float()).abs().max())
+        out["mg_bf16_agree"] = float((got.argmax(-1) == want.argmax(-1))
+                                     .float().mean())
+        del got, want
+        sync(dev)
+        sharding.reset_stats()
+        t0 = time.perf_counter()
+        fwd()
+        sync(dev)
+        out["mg_ms"] = (time.perf_counter() - t0) * 1e3
+        out["mg_stats"] = dict(sharding.STATS)
+        if dev.type == "cuda":
+            out["mg_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del model
+        empty_cache(dev)
+        marks.append(("musicgen bf16", time.time()))
+
+        cfg = c["xl_f32"]
+        whole = torch.load(os.path.join(d, "k_xl_f32.pt"))
+        io = torch.load(os.path.join(d, "k_xl_layers.pt"))
+        for name, mesh in meshes.items():
+            model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+            mixer = next(b.mixer for b in model.layers
+                         if b.desc["mixer"] == "mlstm")
+            out[f"xl_{name}_split"] = (mixer.split.n, mixer.v_layout[0])
+            out[f"xl_{name}_bytes"] = param_bytes(model)
+            rows = train.rows(2, mesh)
+            out[f"xl_{name}_rows"] = (rows.start, rows.stop)
+            sharding.reset_stats()
+            got, out[f"xl_{name}_launches"] = counted(
+                lambda: transformer.forward(model, cfg, xl_toks[rows])[0],
+                dev)
+            out[f"xl_{name}_stats"] = dict(sharding.STATS)
+            marks.append((f"xlstm {name} forward", time.time()))
+            want = whole[rows].to(dev)
+            out[f"xl_{name}_stack"] = float(((got - want).abs()
+                                             / (1 + want.abs())).max())
+            del got, want
+            mlstm = [b.mixer for b in model.layers
+                     if b.desc["mixer"] == "mlstm"]
+            out[f"xl_{name}_err"] = max(
+                within(xlstm.apply_mlstm(p, cfg, h[rows].to(dev)),
+                       mo[rows].to(dev), 1e-3)
+                for p, (h, mo) in zip(mlstm, io))
+            marks.append((f"xlstm {name} layers", time.time()))
+            out[f"xl_{name}_tokens"] = serve.greedy_generate(
+                model, cfg, xl_prompt, c["new"]).cpu()
+            out[f"xl_{name}_cache"] = cache_parts(serve.make_cache(
+                model, cfg, 2, L))
+            del model
+            empty_cache(dev)
+            marks.append((f"xlstm {name} greedy", time.time()))
+        del whole, io
+        if dev.type == "cuda":
+            out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def split_phase(dev, card: str) -> dict[str, int]:
+    """Leg K: tensor parallelism inside a head, ``world`` ranks (processes
+    from ``launch.mesh.spawn``) on the one card over DIST_BACKEND with
+    CUDA tensors, in one launch (``split_rank``; the one process's
+    references first, ``split_reference``), then ``split_report`` ->
+    the launches a rank of musicgen's bfloat16 prefill."""
+    import tempfile
+
+    from repro_torch.launch import mesh as lmesh
+
+    c = split_configs()
+    work = os.path.join(ROOT, "build", "repro_torch")
+    os.makedirs(work, exist_ok=True)
+    print(f"split: leg K, {c['world']} ranks on {card} over {DIST_BACKEND} "
+          f"with {dev.type} tensors")
+    empty_cache(dev)
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        t0 = time.perf_counter()
+        ref = split_reference(c, dev, d)
+        print(f"  one process: {time.perf_counter() - t0:.2f} s")
+        t0, wall = time.perf_counter(), time.time()
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = lmesh.spawn(split_rank, c["world"], c, d, dev.type,
+                                backend=DIST_BACKEND, timeout=600, workdir=d)
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        start = [r["t0"] - wall for r in ranks]
+        legs, at = [], max(r["marks"][0][1] for r in ranks)
+        for i, (label, _) in enumerate(ranks[0]["marks"][1:], 1):
+            end = max(r["marks"][i][1] for r in ranks)
+            legs.append(f"{label} {end - at:.2f}")
+            at = end
+        print(f"  {c['world']} ranks: {time.perf_counter() - t0:.2f} s: "
+              f"started {min(start):.2f}–{max(start):.2f} s after the "
+              f"launch, meshes at "
+              f"{max(r['marks'][0][1] for r in ranks) - wall:.2f} s, then "
+              f"(s, the last rank's) {', '.join(legs)}")
+    return split_report(c, ranks, ref, dev, card)
+
+
+def split_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
+    """Leg K's gates and lines (``split_rank``) -> the launches a rank of
+    musicgen's bfloat16 prefill."""
+    from repro_torch.models import attention, xlstm
+
+    cuda = int(dev.type == "cuda")
+    f32, bf16, xl = c["mg_f32"], c["mg_bf16"], c["xl_f32"]
+    meshes = split_meshes(c)
+    L = c["prompt"] + c["new"]
+    m = c["world"]
+    for key, cfg in (("mg_f32_launches", f32), ("mg_bf16_launches", bf16)):
+        want = {"flash_attention": cuda * cfg.n_layers}
+        assert {k: ref[key][k] for k in want} == want, (key, ref[key])
+        for r in ranks:
+            assert {k: r[key][k] for k in want} == want, (r["rank"], key,
+                                                         r[key])
+            assert sum(r[key].values()) == sum(want.values()), r[key]
+    spec = reference_cache_parts(f32, 1, L, meshes["m1"])
+    whole = reference_cache_parts(f32, 1, L, {"data": 1, "model": 1})
+    for r in ranks:
+        kv = attention.kv_heads(f32, m, r["rank"])
+        kept = kv.stop - kv.start
+        assert r["mg_heads"] == (kept, kept), r["mg_heads"]
+        assert r["mg_cache"]["kv"] * f32.n_kv_heads == whole["kv"] * kept
+        assert torch.equal(r["mg_tokens"], ref["mg_tokens"]), (
+            r["rank"], r["mg_tokens"], ref["mg_tokens"])
+        for key, cfg in (("mg_f32_bytes", f32), ("mg_bf16_bytes", bf16)):
+            assert r[key] == reference_bytes(cfg, meshes["m1"]), (
+                r["rank"], key, r[key])
+    r0 = ranks[0]
+    kept = r0["mg_heads"][0]
+    print(f"  leg K: {f32.name} (d {f32.d_model}, {f32.n_heads} heads "
+          f"of {f32.hd}, MHA) on (data 1, model {m}): "
+          f"{f32.n_heads * f32.hd // m} columns a rank, "
+          f"{f32.n_heads * f32.hd / m / f32.hd:g} heads, {kept} heads "
+          f"computed a rank ({kept * m} for {f32.n_heads}); parameters a "
+          f"rank equal to the byte to the reference's specs: "
+          f"{r0['mg_f32_bytes']} B at {f32.n_layers} layers float32, "
+          f"{r0['mg_bf16_bytes']} B at {bf16.n_layers} bfloat16")
+    print(f"  leg K f32, {f32.n_layers} layers, prefill of 1 x {c['prefill']}"
+          f" seeded frame embeddings: vs one process max |diff| "
+          f"{max(r['mg_f32_err'] for r in ranks):.3e} (1e-3 relative) on "
+          f"every rank; flash_attention {r0['mg_f32_launches']['flash_attention']}"
+          f" launches a rank; greedy 1 x ({c['prompt']} + {c['new']}) tokens "
+          f"equal to one process's on every rank: {ref['mg_tokens'].tolist()};"
+          f" keys and values a rank {r0['mg_cache']['kv']} B, {kept} of "
+          f"{f32.n_kv_heads} kv heads whole: "
+          f"{r0['mg_cache']['kv'] / spec['kv']:.4f} x the reference's cache "
+          f"specs' {spec['kv']} B (one process {whole['kv']} B)")
+    st = r0["mg_stats"]
+    print(f"  leg K bf16, {bf16.n_layers} of {c['mg_layers']} layers, "
+          f"prefill 1 x "
+          f"{c['prefill']}: {[round(r['mg_ms'], 2) for r in ranks]} ms a rank "
+          f"(one timed; one process "
+          f"{ref.get('mg_bf16_ms', float('nan')):.2f} ms); flash_attention "
+          f"{r0['mg_bf16_launches']['flash_attention']} launches a rank; the "
+          f"head gathers on rank 0: {st['heads_calls']} calls, "
+          f"{st['heads_bytes'] / 1e6:.1f} MB, {st['heads_seconds'] * 1e3:.2f}"
+          f" ms of host time (all collectives {st['calls']}, "
+          f"{st['bytes'] / 1e6:.1f} MB, {st['seconds'] * 1e3:.2f} ms); peak "
+          f"{[round(r.get('mg_peak_gb', 0.0), 2) for r in ranks]} GB a rank; "
+          f"vs one process max |diff| "
+          f"{max(r['mg_bf16_err'] for r in ranks):.3e}, argmax agrees at "
+          f"{min(r['mg_bf16_agree'] for r in ranks):.4f}; on {card}")
+    assert not any(ref["xl_launches"].values()), ref["xl_launches"]
+    for name, dims in meshes.items():
+        M, D = dims["model"], dims["data"]
+        spec = reference_cache_parts(xl, 2, L, dims)
+        params = reference_bytes(xl, dims)
+        for r in ranks:
+            assert not any(r[f"xl_{name}_launches"].values()), r
+            assert r[f"xl_{name}_bytes"] == params, (r["rank"], name)
+            a, b = r[f"xl_{name}_rows"]
+            assert b - a == 2 // D
+            assert torch.equal(r[f"xl_{name}_tokens"],
+                               ref["xl_tokens"][a:b]), (r["rank"], name)
+            sp = xlstm.mlstm_split(xl, M, r["rank"] % M)
+            assert r[f"xl_{name}_split"] == (sp.n, xlstm.mlstm_v_layout(sp)[0])
+            assert r[f"xl_{name}_cache"]["C"] == spec["C"], (
+                r["rank"], name, r[f"xl_{name}_cache"], spec)
+        r0 = ranks[0]
+        n, cols = r0[f"xl_{name}_split"]
+        st = r0[f"xl_{name}_stats"]
+        print(f"  leg K {xl.name} f32, {xl.n_layers} layers on (data {D}, "
+              f"model {M}): {cols} columns a rank in {n} of {xl.n_heads} "
+              f"heads of {xl.d_model // xl.n_heads} "
+              f"({cols / (xl.d_model // xl.n_heads):g} of a head); prefill "
+              f"{2 // D} x {c['xl_seq']} a rank: each mLSTM layer vs one "
+              f"process max |diff| "
+              f"{max(r[f'xl_{name}_err'] for r in ranks):.3e} (1e-3 "
+              f"relative), the stack's logits "
+              f"{max(r[f'xl_{name}_stack'] for r in ranks):.3e} relative "
+              f"(not held: the one process's own parallel vs chunked "
+              f"{ref['xl_spread']:.3e}); head gathers of the prefill on "
+              f"rank 0 {st['heads_calls']} calls, "
+              f"{st['heads_bytes'] / 1e6:.1f} MB, "
+              f"{st['heads_seconds'] * 1e3:.2f} ms (all collectives "
+              f"{st['calls']}, {st['bytes'] / 1e6:.1f} MB, "
+              f"{st['seconds'] * 1e3:.2f} ms); greedy 2 x "
+              f"({c['prompt']} + {c['new']}) tokens equal to one process's "
+              f"rows on every rank; parameters a rank {params} B, the "
+              f"specs'; cache a rank C {r0[f'xl_{name}_cache']['C']} B (the "
+              f"specs' {spec['C']} B), n {r0[f'xl_{name}_cache']['n']} B "
+              f"(specs' {spec['n']} B), m {r0[f'xl_{name}_cache']['m']} B "
+              f"(specs' {spec['m']} B); no launch")
+    print(f"  leg K peak memory "
+          f"{[round(r.get('peak_gb', 0.0), 2) for r in ranks]} GB a rank")
+    return {"flash_attention": ranks[0]["mg_bf16_launches"]["flash_attention"]}
+
+
 def held_line(dev, after: str) -> None:
     """The device memory still allocated after a phase (what the next
     phases start from)."""
@@ -3707,6 +4156,15 @@ def main() -> int:
             row["flash_attention"]["danube_prefill_launches"] = \
                 counts["seq"]["flash_attention"]
         print(f"dist: {time.perf_counter() - t0:.2f} s")
+        held("dist")
+    if run("split"):
+        t0 = time.perf_counter()
+        counts = split_phase(dev, smi)
+        if "flash_attention" in row:
+            row["flash_attention"]["split_launches_per_rank"] = \
+                counts["flash_attention"]
+        print(f"split: {time.perf_counter() - t0:.2f} s")
+        held("split")
     for r in rows:
         print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "
               f"on its path; {fmt(r['cuda_launches_per_call'])} CUDA "

@@ -118,11 +118,14 @@ def member(mesh) -> bool:
 #: calls, host seconds and bytes of the collectives since ``reset_stats``;
 #: the ``fsdp_`` keys count the FSDP gathers and their reduce-scatters
 #: alone (``fsdp_gather``), the ``merge_`` keys the decode's merges of a
-#: sequence-sharded cache's partial softmaxes (``counted_as``), which the
-#: first three count too
+#: sequence-sharded cache's partial softmaxes, the ``heads_`` keys the
+#: forward gathers of the heads a rank's columns do not hold whole
+#: (``layers.gather_blocks``) (``counted_as``), which the first three
+#: count too
 STATS = {"calls": 0, "seconds": 0.0, "bytes": 0,
          "fsdp_calls": 0, "fsdp_seconds": 0.0, "fsdp_bytes": 0,
-         "merge_calls": 0, "merge_seconds": 0.0, "merge_bytes": 0}
+         "merge_calls": 0, "merge_seconds": 0.0, "merge_bytes": 0,
+         "heads_calls": 0, "heads_seconds": 0.0, "heads_bytes": 0}
 
 
 def reset_stats() -> None:
@@ -288,7 +291,7 @@ def _reduce_scatter(g: torch.Tensor, mesh, axis: str, dim: int):
 
 def counted_as(prefix: str, fn):
     """``fn()``, its collectives counted in the ``prefix`` keys of STATS
-    too (``"fsdp_"``, ``"merge_"``)."""
+    too (``"fsdp_"``, ``"merge_"``, ``"heads_"``)."""
     before = {k: STATS[k] for k in ("calls", "seconds", "bytes")}
     out = fn()
     for k, v in before.items():

@@ -15,9 +15,13 @@ streams' rows of the cache and decodes them, and every MoE layer routes
 the whole decode batch with the rank's experts (``transformer``).  A
 batch that does not divide is replicated, as the reference replicates its
 inputs: every rank decodes it whole.  Over the "model" axis the model is
-tensor parallel whatever the batch: each rank's cache holds its kv heads
-(or the kv heads its query heads use), Mamba channels and mLSTM heads —
-the specs' "model" shard of heads / state.  Under FSDP each decode step
+tensor parallel whatever the batch: each rank's cache holds the kv
+heads its query heads use (whole, where its columns cut a head:
+``attention.kv_heads``), Mamba channels, and for the mLSTM heads its
+columns touch (its own columns of C, n and m whole,
+``xlstm.init_mlstm_cache``) — the specs' "model" shard of heads / state,
+or more where a rank computes a head that it shares (musicgen-medium on
+16 ranks: 2 of 24 kv heads, 4/3 of the spec's bytes).  Under FSDP each decode step
 gathers each layer's leaves over "data" just before the layer and frees
 them after it, whether the batch is split or replicated (the model's own
 "data" group).

@@ -7,8 +7,11 @@ entry of the reference's parameter specs (``transformer.param_specs``)
 a shard by ``layers.layout`` — tensor parallelism and the experts over
 "model", FSDP over "data" — expert parallelism (``moe.apply_ep``) and the decode cache of a
 replicated batch split along the sequence over "data"
-(``attention.merge_partials``).  Still missing: the splits inside a head
-that ``transformer.check_ported`` refuses (ROADMAP queue 1, item 9.7) and
+(``attention.merge_partials``) and the splits inside a head (a rank's
+columns cut a head: it computes every head they touch,
+``layers.head_split``).  Still missing: the Mamba heads that do not
+divide and a ``parallel_block`` mixer other than self-attention, which
+``transformer.check_ported`` refuses (ROADMAP queue 1, item 9.7c), and
 the dry-run (item 9.8)."""
 from . import attention, moe, transformer
 from .layers import ModelConfig

@@ -15,14 +15,18 @@ in place (no copy of the cache per token), and the returned cache is the
 same dict with its ``len`` advanced.
 
 Tensor parallelism (a layer built with ``tp``, the mesh's "model" axis of
-M ranks): rank r holds the columns of its query heads r·H/M … of ``wq``
-(``bq``), the rows of those heads of ``wo``, and the block r of the
-columns of ``wk`` / ``wv`` (``bk`` / ``bv``).  Where the kv heads divide
-(KVH % M == 0) that block is the rank's kv heads; otherwise the rank
-computes its block of the keys and values, gathers them over "model" and
-keeps the kv heads its query heads use.  The layer's input enters through
-``copy_to`` and its output is the ranks' partial sums added
-(``reduce_from``); the caches hold the kv heads the rank uses.  A decode
+M ranks): rank r holds the reference's contiguous block r of the columns
+of ``wq`` / ``wk`` / ``wv`` (``bq`` / ``bk`` / ``bv``) and the same rows of
+``wo``, wherever a head falls (``layers.head_split``).  It computes every
+query head its columns touch, whole, and the kv heads those use
+(``kv_heads``): where its block of q (or of k and v) is not those heads
+whole, it gathers the blocks over "model" (one call for q, k and v) and
+keeps them.  RoPE rotates whole heads, the kernel runs on them, and the
+rank keeps its own columns of their output for its rows of ``wo``.
+Where its query heads use their kv heads unevenly, it keeps one kv head a
+query head (a local MHA).  The layer's input enters through ``copy_to``
+and its output is the ranks' partial sums added (``reduce_from``); the
+caches hold the kv heads the rank keeps.  A decode
 cache split along the sequence over the data axes (a replicated batch,
 ``launch.serve.seq_shard``) holds the rank's block of positions: each
 step writes position ``len`` on the rank that owns it, computes the
@@ -42,31 +46,33 @@ from torch import nn
 from repro_torch.kernels import ops, ref as kref
 from repro_torch.core import sharding
 from repro_torch.core.sharding import SOLO, Group, P
-from .layers import (ModelConfig, _param, build, emb_axis, gathered,
-                     layout, rope)
+from .layers import (ModelConfig, _param, build, emb_axis, gather_blocks,
+                     gathered, head_split, layout, rope)
 
 
-def kv_heads(cfg: ModelConfig, m: int, r: int) -> slice:
-    """The kv heads that the query heads of rank ``r`` of ``m`` use;
-    raises where the rank's query heads do not group evenly over them
-    (``transformer.check_ported`` says so first)."""
-    H, KVH = cfg.n_heads, cfg.n_kv_heads
-    if H % m:
-        raise ValueError(f"{cfg.name}: {H} heads do not split over {m} "
-                         f"model ranks")
-    hl, rep = H // m, H // KVH
-    if hl % rep and rep % hl:
-        raise ValueError(f"{cfg.name}: {hl} query heads a rank do not group "
-                         f"evenly over kv heads of {rep} query heads each")
-    return slice(r * hl // rep, ((r + 1) * hl - 1) // rep + 1)
+def kv_heads(cfg: ModelConfig, m: int, r: int):
+    """The kv heads that rank ``r`` of ``m`` keeps for the query heads
+    its columns touch (``layers.head_split``): a slice of them where
+    those query heads use them evenly (the kernel's query head h reads kv
+    head h // (query heads / kv heads)), else one kv head a query head,
+    repeated where two share it (a list of indices)."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    hs = head_split(cfg.n_heads, cfg.hd, m, r).heads
+    kv = slice(hs.start // rep, (hs.stop - 1) // rep + 1)
+    uses = {min(hs.stop, (j + 1) * rep) - max(hs.start, j * rep)
+            for j in range(kv.start, kv.stop)}
+    return kv if len(uses) == 1 else [h // rep
+                                      for h in range(hs.start, hs.stop)]
 
 
 class Attention(nn.Module):
     """One attention layer's weights, drawn from ``gen`` when it is given
     (the reference's init scheme) and left uninitialised otherwise (for a
     weight carry); on ``tp`` the rank's part (module docstring).
-    ``heads``: (query, kv) heads the rank computes; ``kv``: the kv heads
-    it keeps, of the gathered whole when ``gathered``."""
+    ``split``: the rank's ``layers.HeadSplit`` of the query columns;
+    ``kv``: the kv heads it keeps (``kv_heads``); ``heads``: (query, kv)
+    heads it computes; ``gather_q`` / ``gather_kv``: whether it gathers
+    the queries / the keys and values over "model"."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
                  device=None, tp: Group = SOLO, fs: Group = SOLO):
@@ -85,9 +91,14 @@ class Attention(nn.Module):
                     device=device)))
                 if lay is not None:
                     self.layouts[name] = lay
+        self.split = head_split(H, hd, tp.size, tp.index)
         self.kv = kv_heads(cfg, tp.size, tp.index)
-        self.gathered = KVH % tp.size != 0
-        self.heads = (H // tp.size, self.kv.stop - self.kv.start)
+        own = head_split(KVH, hd, tp.size, tp.index)
+        self.gather_q = not self.split.whole
+        self.gather_kv = not (own.whole and self.kv == own.heads)
+        n = self.kv.stop - self.kv.start if isinstance(self.kv, slice) \
+            else len(self.kv)
+        self.heads = (self.split.n, n)
 
 
 def specs(cfg: ModelConfig) -> dict:
@@ -108,35 +119,48 @@ def _bias(p: Attention, name: str):
     return getattr(p, name) if hasattr(p, name) else 0
 
 
-def _kv(p: Attention, cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
-    """The rank's keys or values (B, S, ·) as (B, S, kv heads, hd): its
-    block, or the kv heads it keeps of the gathered whole (whose
-    gradients the ranks sum)."""
-    B, S, _ = t.shape
-    if p.gathered:
-        t = p.tp.copy_to(p.tp.gather(t, dim=-1))
-        return t.reshape(B, S, cfg.n_kv_heads, cfg.hd)[:, :, p.kv]
-    return t.reshape(B, S, p.heads[1], cfg.hd)
+def _heads(p: Attention, cfg: ModelConfig, q=None, k=None, v=None):
+    """The heads the rank computes of its blocks ``q`` (B, S, ·) and ``k``
+    / ``v`` (B, T, ·), as (B, ·, heads, hd): its query columns' touched
+    heads whole and the kv heads it keeps (``kv_heads``).  What does not
+    lie whole in the rank's block is gathered over "model", in one call
+    for the tensors of one length (``layers.gather_blocks``)."""
+    ts = {"q": q, "k": k, "v": v}
+    groups: dict = {}
+    for n, t in ts.items():
+        if t is not None and (p.gather_q if n == "q" else p.gather_kv):
+            groups.setdefault((t.shape[:-1], t.dtype), []).append(n)
+    for group in groups.values():
+        ts.update(zip(group, gather_blocks(p.tp, [ts[n] for n in group])))
+    out = []
+    for n, t in ts.items():
+        if t is None:
+            continue
+        t = t.unflatten(-1, (-1, cfg.hd))
+        if n == "q":
+            out.append(t[:, :, p.split.heads] if p.gather_q else t)
+        else:
+            out.append(t[:, :, p.kv] if p.gather_kv else t)
+    return out
 
 
 def _project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor):
-    B, S, _ = x.shape
-    hd = cfg.hd
     q = x @ p.wq + _bias(p, "bq")
     k = x @ p.wk + _bias(p, "bk")
     v = x @ p.wv + _bias(p, "bv")
-    q = q.reshape(B, S, p.heads[0], hd).transpose(1, 2)
-    k = _kv(p, cfg, k).transpose(1, 2)
-    v = _kv(p, cfg, v).transpose(1, 2)
+    q, k, v = (t.transpose(1, 2) for t in _heads(p, cfg, q, k, v))
     q = rope(q, positions[:, None, :], cfg.rope_theta)
     k = rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
 
 
 def _out(p: Attention, o: torch.Tensor, reduce: bool) -> torch.Tensor:
-    """The rank's heads' output (B, S, heads · hd) through its rows of
-    ``wo``; the ranks' partial sums added unless ``reduce=False``."""
+    """The output (B, S, heads · hd) of the heads the rank computes: its
+    own columns of them through its rows of ``wo``; the ranks' partial
+    sums added unless ``reduce=False``."""
+    if p.gather_q:
+        o = o[..., p.split.own]
     y = o @ p.wo
     return p.tp.reduce_from(y) if reduce else y
 
@@ -331,8 +355,8 @@ def cross_kv(p: Attention, cfg: ModelConfig, kv_tokens: torch.Tensor):
     heads the rank keeps), in the promoted dtype of the frontend and the
     weights."""
     p = gathered(p)
-    k = _kv(p, cfg, promoted_matmul(kv_tokens, p.wk))
-    v = _kv(p, cfg, promoted_matmul(kv_tokens, p.wv))
+    k, v = _heads(p, cfg, k=promoted_matmul(kv_tokens, p.wk),
+                  v=promoted_matmul(kv_tokens, p.wv))
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -345,7 +369,7 @@ def apply_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                          "tokens: pass frontend=")
     B, S, _ = x.shape
     p = gathered(p)
-    q = (p.tp.copy_to(x) @ p.wq).reshape(B, S, p.heads[0], cfg.hd)
+    q, = _heads(p, cfg, q=p.tp.copy_to(x) @ p.wq)
     k, v = cross_kv(p, cfg, kv_tokens)
     o = kref.attention(q.transpose(1, 2), k, v, causal=False)
     return _out(p, o.transpose(1, 2).reshape(B, S, -1), True)
@@ -368,7 +392,7 @@ def decode_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     values (all T of them valid). x: (B, 1, d); returns (y, cache)."""
     B = x.shape[0]
     p = gathered(p)
-    q = (p.tp.copy_to(x) @ p.wq).reshape(B, 1, p.heads[0], cfg.hd)
+    q, = _heads(p, cfg, q=p.tp.copy_to(x) @ p.wq)
     T = cache["ck"].shape[2]
     lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
     o = ops.decode_attention(q.transpose(1, 2), cache["ck"], cache["cv"],

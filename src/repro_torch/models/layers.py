@@ -21,8 +21,11 @@ the rank's one contiguous block of that dimension, the reference's, and
 gathered over "data" just before a layer uses it (``gathered``, ZeRO-3;
 its gradient is reduce-scattered, ``sharding.fsdp_gather``).  A leaf
 with both entries is a block on each of two dimensions (``Layout``).
-Each rank draws every leaf as one process draws it, a slab of rows at a
-time (``leaf``), and keeps its part.
+The fused (heads · hd) columns of the attention and the mLSTM are split
+so too, wherever a head falls: a rank computes every head its block
+touches (``head_split``), gathering what it does not hold whole over
+"model" (``gather_blocks``).  Each rank draws every leaf as one process
+draws it, a slab of rows at a time (``leaf``), and keeps its part.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.sharding import SOLO, Group, P
+from repro_torch.core.sharding import SOLO, Group, P, counted_as
 
 
 # ---------------------------------------------------------------------------
@@ -355,6 +358,61 @@ def layout(name: str, spec, shape, m: int, d: int = 1) -> Layout | None:
                              + (" in each half" if fused else ""))
         splits.append(Split(axis, dim, shape[dim], n, fused))
     return Layout(tuple(splits)) if splits else None
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """Rank r's part of a fused (heads · hd) axis that the contiguous
+    ``Split`` over M "model" ranks cuts into blocks, wherever a head
+    falls: ``cols``, its block of columns; ``heads``, every head those
+    columns touch, ``range(cols.start // hd, (cols.stop - 1) // hd + 1)``;
+    ``own``, its columns within the touched heads' flattened columns;
+    ``whole``, the columns are those heads' whole (nothing to gather)."""
+    cols: slice
+    heads: slice
+    hd: int
+
+    @property
+    def n(self) -> int:
+        """The number of touched heads."""
+        return self.heads.stop - self.heads.start
+
+    @property
+    def own(self) -> slice:
+        a = self.heads.start * self.hd
+        return slice(self.cols.start - a, self.cols.stop - a)
+
+    @property
+    def whole(self) -> bool:
+        return self.own == slice(0, self.n * self.hd)
+
+    def widths(self) -> list[int]:
+        """The rank's columns in each touched head, in order."""
+        return [min(self.cols.stop, (h + 1) * self.hd)
+                - max(self.cols.start, h * self.hd)
+                for h in range(self.heads.start, self.heads.stop)]
+
+
+def head_split(n_heads: int, hd: int, m: int, r: int) -> HeadSplit:
+    """The ``HeadSplit`` of rank ``r`` of ``m`` over ``n_heads`` heads of
+    ``hd`` (``layout`` raises first where the columns do not divide)."""
+    n = n_heads * hd
+    cols = slice(r * n // m, (r + 1) * n // m)
+    return HeadSplit(cols, slice(cols.start // hd, (cols.stop - 1) // hd + 1),
+                     hd)
+
+
+def gather_blocks(tp: Group, ts: list) -> list:
+    """Each rank's column blocks ``ts`` (tensors of the same leading
+    dimensions) whole over ``tp``, in one gather of their concatenation;
+    every rank uses the wholes in its own way, so the gradients of the
+    wholes are summed over the ranks (``copy_to``) before each rank takes
+    its block's.  Counted in ``sharding.STATS``' ``heads_`` keys."""
+    widths = [t.shape[-1] for t in ts]
+    w = tp.copy_to(counted_as("heads_", lambda: tp.gather(
+        torch.cat(ts, dim=-1), dim=-1)))
+    w = w.unflatten(-1, (tp.size, sum(widths)))
+    return [part.flatten(-2) for part in w.split(widths, dim=-1)]
 
 
 def build(module: nn.Module, shapes: dict, specs: dict, dtype, gen, device,

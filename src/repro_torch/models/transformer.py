@@ -34,8 +34,10 @@ on a "data" axis of D > 1 ranks: each rank holds its block and gathers a
 layer's leaves over "data" just before the layer uses them
 (``layers.gathered``; ZeRO-3), the embedding in ``_embed`` and the head
 in ``_logits`` and the streamed CE; the gradient of a gathered leaf is
-reduce-scattered over "data".  A config whose "model" or "data"
-dimensions, heads or experts do not split over the mesh raises
+reduce-scattered over "data".  A rank's columns of the attention's or
+the mLSTM's heads may cut a head: it computes every head they touch
+(``layers.head_split``).  A config whose "model" or "data" dimensions,
+Mamba heads or experts do not split over the mesh raises
 (``check_ported``).
 In decode a batch replicated over the data axes may hold each
 self-attention cache as the rank's block of positions (``decode_step``'s
@@ -116,13 +118,13 @@ def check_ported(cfg: ModelConfig, mesh=None) -> None:
     divide over a "model" axis of M > 1 ranks; tensor parallelism over
     such an axis needs every "model" dimension of ``param_specs`` to
     divide by M (``jax.jit`` refuses such a spec), each fused leaf's
-    halves too, the query heads (and Mamba's heads) to divide by M (the
-    reference would split a head), each rank's query heads to group
-    evenly over the kv heads, and a ``parallel_block`` config's dense
-    layers to mix by self-attention (the one mixer whose partial sum
-    joins the FFN's); FSDP over a "data" axis of D > 1 ranks needs every
-    "data" dimension to divide by D.  Each message names the config and
-    the axis."""
+    halves too, Mamba's heads to divide by M, and a ``parallel_block``
+    config's dense layers to mix by self-attention (the one mixer whose
+    partial sum joins the FFN's); FSDP over a "data" axis of D > 1 ranks
+    needs every "data" dimension to divide by D.  The attention's and
+    the mLSTM's heads need not divide: a rank's columns may cut a head,
+    and it computes every head they touch (``layers.head_split``).  Each
+    message names the config and the axis."""
     if any(_desc(cfg, li)["ffn"] == "moe" for li in range(cfg.n_layers)):
         moe.expert_ranks(cfg, mesh)
     dims = sharding.mesh_shape(mesh) if mesh is not None else {}
@@ -137,14 +139,6 @@ def check_ported(cfg: ModelConfig, mesh=None) -> None:
                 if _desc(cfg, li)["ffn"] == "dense"} - {"attn"}:
             raise ValueError(f"{why} joins only a self-attention mixer's "
                              f"partial sum to a parallel_block layer's FFN")
-        if mixers & {"attn", "cross", "mlstm"}:
-            if cfg.n_heads % m:
-                raise ValueError(f"{why} needs the {cfg.n_heads} heads to "
-                                 f"divide")
-            try:
-                attention.kv_heads(cfg, m, 0)
-            except ValueError as e:
-                raise ValueError(f"{why}: {e}") from None
         if "mamba" in mixers and mamba._dims(cfg)[1] % m:
             raise ValueError(f"{why} needs the {mamba._dims(cfg)[1]} Mamba "
                              f"heads to divide")
@@ -552,7 +546,8 @@ def _block_cache(p: Block, cfg: ModelConfig, batch: int, max_len: int,
     if mixer == "mamba":
         return mamba.init_cache(cfg, batch, device=device, m=m)
     if mixer == "mlstm":
-        return xlstm.init_mlstm_cache(cfg, batch, device=device, m=m)
+        return xlstm.init_mlstm_cache(cfg, batch, device=device, m=m,
+                                      r=p.tp.index)
     return xlstm.init_slstm_cache(cfg, batch, device=device)
 
 

@@ -27,17 +27,23 @@ float32 too.  No Pallas kernel runs here in the reference, and none runs
 here.  Parameters are named as the reference's keys.
 
 Tensor parallelism (``tp``, the "model" axis of M ranks): an mLSTM rank
-holds its heads r·H/M … — the columns of ``wq`` / ``wk`` / ``wv`` /
-``wz`` and the rows of ``wo`` — and ``wi`` / ``wf`` / ``norm`` whole, of
-which it uses its heads' part through ``copy_to``; the norm over d sums
-its squares over the ranks in both directions, and ``wo``'s partial sums
-are added.  The sLSTM recurrence runs whole on every rank; its ``up``
-holds the rank's block of each half (g | u) and it multiplies by its rows
-of ``down`` (held whole, used through ``copy_to``), the partial sums
-added.  Under FSDP (``fs``, the "data" axis) the rank holds its block
-of the d rows of every mLSTM weight but ``wo`` (its d columns) and of
-every sLSTM weight but ``down`` (its d columns), which each call gathers
-(``layers.gathered``).
+holds the reference's contiguous block r of the columns of ``wq`` /
+``wk`` / ``wv`` / ``wz`` and the same rows of ``wo``, wherever a head
+falls (``mlstm_split``), and ``wi`` / ``wf`` / ``norm`` whole, of which
+it uses the touched heads' and its own columns' part through
+``copy_to``.  Where its columns cut a head it gathers q and k over
+"model" and keeps the touched heads whole (q·k, n and q·n sum over the
+whole head), and keeps only its own columns of v (``mlstm_v_layout``):
+its output's columns are (w / norm) @ v[:, own], and its decode state C
+is (B, heads, hd, own columns), n and m whole for the touched heads.
+The norm over d sums its squares over the ranks in both directions, and
+``wo``'s partial sums are added.  The sLSTM recurrence runs whole on
+every rank; its ``up`` holds the rank's block of each half (g | u) and it
+multiplies by its rows of ``down`` (held whole, used through
+``copy_to``), the partial sums added.  Under FSDP (``fs``, the "data"
+axis) the rank holds its block of the d rows of every mLSTM weight but
+``wo`` (its d columns) and of every sLSTM weight but ``down`` (its d
+columns), which each call gathers (``layers.gathered``).
 """
 from __future__ import annotations
 
@@ -48,8 +54,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.sharding import SOLO, Group, P
-from .layers import (ModelConfig, _param, build, emb_axis, gathered,
-                     rms_norm, rms_norm_parts)
+from .layers import (HeadSplit, ModelConfig, _param, build, emb_axis,
+                     gather_blocks, gathered, head_split, rms_norm,
+                     rms_norm_parts)
 
 #: the start of the stabiliser m (the reference's)
 M_START = -1e30
@@ -77,7 +84,9 @@ def _weights(module: nn.Module, shapes: dict, specs: dict,
 
 class MLSTM(nn.Module):
     """``wq``, ``wk``, ``wv``, ``wz``, ``wo`` (d, d); ``wi``, ``wf`` (d, H),
-    the input and forget gates' logits; ``norm`` (d,)."""
+    the input and forget gates' logits; ``norm`` (d,).  ``split``: the
+    rank's ``layers.HeadSplit`` of the d columns; ``v_layout``: how its
+    own columns of v lie in its touched heads (``mlstm_v_layout``)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
                  device=None, tp: Group = SOLO, fs: Group = SOLO):
@@ -88,6 +97,8 @@ class MLSTM(nn.Module):
                         "wi": (d, H), "wf": (d, H), "wz": (d, d),
                         "wo": (d, d)}, mlstm_specs(cfg), cfg, gen, device, tp,
                  fs)
+        self.split = mlstm_split(cfg, tp.size, tp.index)
+        self.v_layout = mlstm_v_layout(self.split)
 
 
 def mlstm_specs(cfg: ModelConfig) -> dict:
@@ -98,27 +109,70 @@ def mlstm_specs(cfg: ModelConfig) -> dict:
             "wo": P("model", e), "norm": P(None)}
 
 
+def mlstm_split(cfg: ModelConfig, m: int = 1, r: int = 0) -> HeadSplit:
+    """Rank ``r`` of ``m``'s block of the d columns of ``wq`` / ``wk`` /
+    ``wv`` / ``wz`` and the heads it touches."""
+    H, hd = _dims(cfg)
+    return head_split(H, hd, m, r)
+
+
+def mlstm_v_layout(sp: HeadSplit):
+    """(w, index, out): the rank's own columns of v laid out as w columns
+    in each of its touched heads, (B, heads, S, w).  Where its columns are
+    as many in each head (whole heads, or all in one) that is a reshape,
+    and ``index`` / ``out`` are None; otherwise ``index`` (heads, w) picks
+    each head's columns of the rank's block, the rest a zero column (index
+    ``cols``), and ``out`` (cols,) picks the rank's columns back out of
+    the (heads · w) flattened output."""
+    widths = sp.widths()
+    w = max(widths)
+    if len(set(widths)) == 1:
+        return w, None, None
+    c = sp.cols.stop - sp.cols.start
+    index = torch.full((sp.n, w), c, dtype=torch.long)
+    out, at = [], 0
+    for j, n in enumerate(widths):
+        index[j, :n] = torch.arange(at, at + n)
+        out.extend(range(j * w, j * w + n))
+        at += n
+    return w, index, torch.tensor(out, dtype=torch.long)
+
+
 def _mlstm_heads(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
-    """q (float32, scaled), k, v (B, H, S, hd); i, f (B, H, S) float32 —
-    the rank's H / M heads of the replicated ``x`` (which enters through
-    ``copy_to``)."""
+    """q (float32, scaled), k (B, heads, S, hd); v (B, heads, S, w) (the
+    rank's own columns of each touched head, ``mlstm_v_layout``); i, f
+    (B, heads, S) float32 — of the replicated ``x`` (which enters through
+    ``copy_to``).  q and k of the touched heads are gathered whole over
+    "model" where the rank's columns cut a head (q·k, n and q·n sum over
+    the whole head); v stays the rank's own."""
     B, S, _ = x.shape
     H, hd = _dims(cfg)
-    tp = p.tp
-
-    def heads(w):
-        return (x @ w).reshape(B, S, H // tp.size, hd).transpose(1, 2)
-
-    q = heads(p.wq).to(torch.float32) / math.sqrt(hd)
-    i = (x @ tp.part(p.wi, 1)).to(torch.float32).transpose(1, 2)
-    f = (x @ tp.part(p.wf, 1)).to(torch.float32).transpose(1, 2)
-    return q, heads(p.wk), heads(p.wv), i, f
+    sp, tp = p.split, p.tp
+    q, k = x @ p.wq, x @ p.wk
+    if not sp.whole:
+        cols = slice(sp.heads.start * hd, sp.heads.stop * hd)
+        q, k = (t[..., cols] for t in gather_blocks(tp, [q, k]))
+    q, k = (t.reshape(B, S, sp.n, hd).transpose(1, 2) for t in (q, k))
+    q = q.to(torch.float32) / math.sqrt(hd)
+    v = x @ p.wv
+    w, index, _ = p.v_layout
+    if index is not None:
+        v = torch.cat([v, v.new_zeros(B, S, 1)], dim=-1)[..., index.to(
+            v.device)]
+    v = v.reshape(B, S, sp.n, w).transpose(1, 2)
+    i, f = ((x @ tp.copy_to(g)[:, sp.heads]).to(torch.float32)
+            .transpose(1, 2) for g in (p.wi, p.wf))
+    return q, k, v, i, f
 
 
 def _out(p, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The output gate and projection: y (B, S, d / M) float32, the rank's
-    heads; the ranks' partial sums added."""
+    """The output gate and projection: y (B, S, heads · w) float32, the
+    rank's columns of its touched heads (``mlstm_v_layout``); the ranks'
+    partial sums added."""
     tp = p.tp
+    out = p.v_layout[2]
+    if out is not None:
+        y = y[..., out.to(y.device)]
     y = y.to(x.dtype)
     z = F.silu((x @ p.wz).to(torch.float32)).to(x.dtype)
     o = rms_norm_parts(y * z, tp.part(p.norm, 0), x.shape[-1], tp) @ p.wo
@@ -164,15 +218,14 @@ def apply_mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     S: the parallel form within a chunk plus the state carried in from
     the chunks before it."""
     B, S, d = x.shape
-    H, hd = _dims(cfg)
-    H //= p.tp.size
     L = min(chunk, S)
     assert S % L == 0, f"chunk {L} must divide the sequence {S}"
     nc = S // L
     p = gathered(p)
     x = p.tp.copy_to(x)
     q, k, v, i, f = _mlstm_heads(p, cfg, x)
-    qf, kf, vf = (t.to(torch.float32).reshape(B, H, nc, L, hd)
+    H = q.shape[1]
+    qf, kf, vf = (t.to(torch.float32).reshape(B, H, nc, L, t.shape[-1])
                   for t in (q, k, v))
     i = i.reshape(B, H, nc, L)
     logf = F.logsigmoid(f).reshape(B, H, nc, L)
@@ -215,20 +268,22 @@ def apply_mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     num = wgt @ vf + carry_s[..., None] * (qf @ c_in)
     den = wgt.sum(-1) + carry_s * torch.einsum("bhcld,bhcd->bhcl", qf, n_in)
     h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
-    return _out(p, x, h.reshape(B, H, S, hd).transpose(1, 2)
-                .reshape(B, S, H * hd))
+    return _out(p, x, h.reshape(B, H, S, -1).transpose(1, 2)
+                .reshape(B, S, -1))
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None,
-                     m: int = 1) -> dict:
-    """(C, n, m) of the rank's H / ``m`` heads."""
-    H, hd = _dims(cfg)
-    H //= m
-    return {"C": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                     m: int = 1, r: int = 0) -> dict:
+    """(C, n, m) of the heads that rank ``r`` of ``m`` touches: C (B,
+    heads, hd, w) holds the rank's own columns of v (``mlstm_v_layout``),
+    n (B, heads, hd) and m (B, heads) whole."""
+    sp = mlstm_split(cfg, m, r)
+    n, w = sp.n, mlstm_v_layout(sp)[0]
+    return {"C": torch.zeros((batch, n, sp.hd, w), dtype=torch.float32,
                              device=device),
-            "n": torch.zeros((batch, H, hd), dtype=torch.float32,
+            "n": torch.zeros((batch, n, sp.hd), dtype=torch.float32,
                              device=device),
-            "m": torch.full((batch, H), M_START, dtype=torch.float32,
+            "m": torch.full((batch, n), M_START, dtype=torch.float32,
                             device=device)}
 
 

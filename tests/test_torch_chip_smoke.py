@@ -549,6 +549,65 @@ def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
                      r"resumed \[.*\] \(1e-5\)", out)
 
 
+def smoke_split_configs():
+    """Leg K's models at SMOKE size on 4 ranks: musicgen SMOKE (6 heads of
+    8: 1.5 heads a rank on (1, 4)) in float32 and bfloat16, xlstm SMOKE
+    with 1 head of 64 (a quarter of a head a rank on (1, 4), half on (2,
+    2)), at short sequences."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    mg = get_config("musicgen-medium", smoke=True)
+    return {"mg_f32": mg, "mg_bf16": dataclasses.replace(mg,
+                                                         dtype=torch.bfloat16),
+            "xl_f32": dataclasses.replace(get_config("xlstm-125m", smoke=True),
+                                          n_heads=1, n_kv_heads=1),
+            "prefill": 64, "xl_seq": 32, "prompt": 1, "new": 4, "world": 4,
+            "mg_layers": get_config("musicgen-medium").n_layers}
+
+
+def test_split_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
+    """Leg K at SMOKE size in 4 gloo ranks on the CPU: musicgen's float32
+    forward with its columns cutting a head, against one process at every
+    position on every rank, its greedy tokens, each rank's parameter bytes
+    the reference's specs' and its keys and values the 2 kv heads it
+    computes (4/3 of the specs'); the bfloat16 forward with its head
+    gathers counted; xlstm's quarter and half heads on (1, 4) and (2, 2),
+    each rank's rows against one process, its tokens, and its mLSTM C the
+    specs' bytes; no launch (CPU tensors run the plain versions)."""
+    import sys
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.setattr(cs, "split_configs", smoke_split_configs)
+    counts = cs.split_phase(torch.device("cpu"), "cpu rehearsal")
+    assert counts == {"flash_attention": 0}
+    out = capsys.readouterr().out
+    assert "split: leg K, 4 ranks on cpu rehearsal over gloo with cpu " \
+        "tensors" in out
+    assert re.search(r"leg K: musicgen-smoke \(d 48, 6 heads of 8, MHA\) on "
+                     r"\(data 1, model 4\): 12 columns a rank, 1\.5 heads, 2 "
+                     r"heads computed a rank \(8 for 6\); parameters a rank "
+                     r"equal to the byte", out)
+    assert re.search(r"leg K f32, 2 layers, prefill of 1 x 64 seeded frame "
+                     r"embeddings: vs one process max \|diff\| \S+ \(1e-3 "
+                     r"relative\) on every rank; flash_attention 0 launches "
+                     r"a rank; greedy 1 x \(1 \+ 4\) tokens equal .* 2 of 6 kv "
+                     r"heads whole: 1\.3333 x the reference's cache specs'",
+                     out)
+    assert re.search(r"leg K bf16, 2 of 48 layers, prefill 1 x 64: .* the "
+                     r"head gathers on rank 0: 2 calls, ", out)
+    assert re.search(r"leg K xlstm-smoke f32, 4 layers on \(data 1, model 4\)"
+                     r": 16 columns a rank in 1 of 1 heads of 64 \(0\.25 of a "
+                     r"head\); prefill 2 x 32 a rank: each mLSTM layer vs "
+                     r"one process max \|diff\| \S+ \(1e-3 relative\), the "
+                     r"stack's logits \S+ relative \(not held: .*\); head "
+                     r"gathers of the prefill on rank 0 3 calls", out)
+    assert re.search(r"leg K xlstm-smoke f32, 4 layers on \(data 2, model 2\)"
+                     r": 32 columns a rank in 1 of 1 heads of 64 \(0\.5 of a "
+                     r"head\); prefill 1 x 32", out)
+
+
 def test_routing_tape_replays_top_k_sets(cs):
     """``routing_tape``: a recorded tape replayed into the same model gives
     the same logits bit for bit and no flipped set; a tape with every

@@ -1366,6 +1366,79 @@ def test_sequence_sharded_decode_on_one_card_over_gloo(dev):
         assert torch.equal(out, tokens), (out, tokens)
 
 
+def _split_head_rank(rank: int, dtype, x):
+    """musicgen SMOKE (6 heads of 8) on (1, 4) on cuda:0 in ``dtype``: 12
+    columns a rank, 1.5 heads, so each rank gathers the 2 heads its
+    columns touch -> (the first layer's attention with the kernel and
+    plain, the launches of the kernel's call, the forward's logits with
+    the kernel and its launches)."""
+    import dataclasses
+
+    from repro_torch.models import attention
+    from repro_torch.runtime import elastic
+
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = elastic.carve_mesh(model_parallel=4)
+    cfg = dataclasses.replace(get_config("musicgen-medium", smoke=True),
+                              dtype=dtype)
+    model = transformer.init(cfg, seed=0, device=card, mesh=mesh)
+    p = model.layers[0].mixer
+    x = x.to(card, dtype)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got = attention.apply(p, cfg, x, use_kernel=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = attention.apply(p, cfg, x)
+        ops.reset_launch_counts()
+        logits, _ = transformer.forward(model, cfg, embeds=x,
+                                        use_kernel=True)
+        torch.cuda.synchronize()
+    return (p.heads, got.float().cpu(), want.float().cpu(), counts,
+            logits.float().cpu(), ops.launch_counts())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_head_attention_on_one_card_over_gloo(dev, dtype):
+    """Four ranks on cuda:0 over gloo, musicgen SMOKE with 1.5 heads a
+    rank: each rank launches ``flash_attention`` once on the 2 whole heads
+    its columns touch (q, k and v gathered over "model", sliced to those
+    heads), and the layer's output equals its plain version's at the
+    kernel's tolerance (2e-3 float32, 2e-2 bfloat16); the forward through
+    the kernel launches it once a layer a rank, and in float32 equals the
+    one process's at 2e-3 (in bfloat16 the ranks' partial sums round
+    apart from the one process's: finite only)."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as lmesh
+
+    cfg = dataclasses.replace(get_config("musicgen-medium", smoke=True),
+                              dtype=dtype)
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(11))
+    got = lmesh.spawn(_split_head_rank, 4, dtype, x, backend="gloo",
+                      timeout=300)
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = transformer.init(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        whole, _ = transformer.forward(one, cfg, embeds=x.to(dev, dtype),
+                                       use_kernel=True)
+    whole = whole.float().cpu()
+    for heads, kernel, plain, counts, logits, fwd_counts in got:
+        assert heads == (2, 2)
+        close(kernel, plain, rel(plain, tol))
+        assert counts["flash_attention"] == 1 and sum(counts.values()) == 1
+        if dtype == torch.float32:
+            close(logits, whole, rel(whole, tol))
+        assert bool(torch.isfinite(logits).all())
+        assert fwd_counts["flash_attention"] == cfg.n_layers, fwd_counts
+        assert sum(fwd_counts.values()) == cfg.n_layers, fwd_counts
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--fault-loop"]:
     fault_loop(*map(int, sys.argv[2:5]))
 if __name__ == "__main__" and sys.argv[1:2] == ["--restart"]:

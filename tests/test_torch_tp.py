@@ -39,7 +39,9 @@ as its parameters and every rank carries in
   ``moe_ep``, on (1, 4) and (2, 2) against ``NamedSharding(mesh,
   spec).shard_shape`` of the reference's whole spec; the fused leaves'
   permutation stated.
-- ``check_ported`` refusing a split the reference would make of a head.
+- ``check_ported`` building a split the reference makes of a head
+  (tests/test_torch_split_heads.py runs them) and refusing what stays
+  refused.
 
 Tolerances are each family's one-process ones from its own test file:
 logits 1e-4 (jamba's stack 1e-3, tests/test_torch_moe_hybrid.py), the
@@ -590,23 +592,32 @@ def test_fused_leaves_hold_a_block_of_each_half():
 
 
 def test_check_ported_refuses_a_split_head():
-    """musicgen SMOKE (6 heads of 8 over a "model" axis of 4: the
-    reference's 48 columns divide, so it would split a head) raises and
-    names the config and M; so do a vocab that does not divide and a
-    rank's query heads that straddle two kv heads; 2 ranks pass."""
+    """A split the reference makes of a head now builds: musicgen SMOKE (6
+    heads of 8 over a "model" axis of 4, 1.5 heads a rank), xlstm SMOKE (2
+    heads over 4, half a head) and a rank's query heads that straddle two
+    kv heads; what stays refused raises and names the config and M: a
+    vocab that does not divide, Mamba heads that do not divide (jamba
+    SMOKE with heads of 64: 2 over 4) and, in the next test, a
+    ``parallel_block`` mixer other than self-attention."""
     cfg = get_config("musicgen-medium", smoke=True)
-    with pytest.raises(ValueError, match=r"musicgen-smoke.* 4 model ranks"
-                                         r".*6 heads"):
-        transformer.check_ported(cfg, {"data": 1, "model": 4})
+    transformer.check_ported(cfg, {"data": 1, "model": 4})
     transformer.check_ported(cfg, {"data": 2, "model": 2})
+    transformer.check_ported(get_config("xlstm-125m", smoke=True),
+                             {"data": 1, "model": 4})
     odd = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
                               vocab=130)
-    with pytest.raises(ValueError, match=r"tinyllama-smoke.*embed"):
+    with pytest.raises(ValueError, match=r"tinyllama-smoke.* 4 model ranks"
+                                         r".*embed"):
         transformer.check_ported(odd, {"data": 1, "model": 4})
     straddle = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
                                    n_heads=6, n_kv_heads=3, d_model=48)
-    with pytest.raises(ValueError, match="group evenly"):
-        transformer.check_ported(straddle, {"model": 2})
+    transformer.check_ported(straddle, {"model": 2})
+    wide = dataclasses.replace(get_config("jamba-1.5-large-398b", smoke=True),
+                               ssm_head_dim=64)
+    with pytest.raises(ValueError, match=r"jamba-smoke.* 4 model ranks.*2 "
+                                         r"Mamba heads"):
+        transformer.check_ported(wide, {"data": 1, "model": 4})
+    transformer.check_ported(wide, {"data": 1, "model": 2})
 
 
 def test_check_ported_refuses_a_parallel_block_mixer_other_than_attention():
