@@ -79,9 +79,10 @@ rest of the reference's placement: G, DeepSeek-MoE 16B FULL as published
 (``moe_ep`` off: its experts split over "model", 16 a rank through
 ``moe_gmm``) on (1, 4), each rank's 8.20 GB equal to the reference's
 specs, as legs A and B; H, FSDP on (2, 2): DeepSeek with ``fsdp=True``
-(8.19 GB a rank; float32 at 4 layers against one process at every
-position; one timed bfloat16 prefill of 2 x 2,048 with the FSDP gathers'
-counts and no gathered leaf alive between layers) and the Jamba cut at
+(float32 at 4 layers against one process at every position; one timed
+bfloat16 prefill of 2 x 2,048 at 4 of its 28 layers, its parameters a
+rank the reference's specs', with the FSDP gathers' counts and no
+gathered leaf alive between layers) and the Jamba cut at
 its published placement (5.95 GB a rank); I, TinyLlama at 2 layers with
 ``fsdp=True`` on (2, 2) (gradient parts, a quarter of the optimizer
 state a rank, greedy tokens, ``fit`` restored onto (2, 1)).  Last leg J,
@@ -102,7 +103,18 @@ at 12 layers timed, with the head gathers' collectives), and xlstm-125m
 whole on (1, 16), a quarter of an mLSTM head a rank, and on (2, 8), half
 a head with the batch over "data" (float32 against one process, greedy
 tokens); each rank's parameter bytes the reference's specs', its cache's
-bytes beside the specs'.
+bytes beside the specs'.  Last the dryrun phase: the port's dry-run
+(``python3 -m repro_torch.launch.dryrun``: one rank of a cell of the
+reference's (16, 16) or (2, 16, 16) mesh traced on the meta device over
+a fake process group) on three cells, one process each, all at once —
+TinyLlama at train_4k on (16, 16), DeepSeek-MoE 16B at prefill_32k on
+(2, 16, 16) (the experts), H2O-Danube3 4B at long_500k on (16, 16) (the
+sequence-sharded cache) — each record read back, its parameter bytes a
+rank the reference's specs'; beside them, in a child, TinyLlama's rank 0
+on the card over the same fake group, its weights uninitialised, its parameter,
+gradient and optimizer-state bytes the meta trace's to the byte, and
+``torch.cuda.max_memory_allocated`` over its step beside the trace's
+peak.
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -268,8 +280,12 @@ RESTART_SEQ, RESTART_STEPS = 512, 4
 # one process's aux is the whole batch's, the mesh's the mean of the data
 # shards' (the reference's apply_ep)
 DIST_WORLD, DIST_BACKEND = 4, "gloo"
+# (DIST_STEPS 3, not 4: the script's time, ~4 s a step of leg C's, F's
+# and I's fits, whose collectives go through the host; with 3 the fits
+# restart after 1 step and the resumed run's 2nd loss follows an update
+# made with the restored optimizer state)
 DIST_PROMPT, DIST_NEW = 16, 16
-DIST_TRAIN_LAYERS, DIST_F32_SEQ, DIST_STEPS = 2, 256, 4
+DIST_TRAIN_LAYERS, DIST_F32_SEQ, DIST_STEPS = 2, 256, 3
 DIST_EP_SEQ, DIST_EP_TOL = 512, 2e-2
 # its tensor-parallel legs on a (1, DIST_WORLD) mesh: D, StableLM 2 12B
 # (configs/stablelm_12b.py:FULL: 12.14 B parameters, 24.3 GB in bfloat16,
@@ -284,11 +300,13 @@ TP_ARCH, TP_F32_LAYERS, TP_F32_SEQ = "stablelm-12b", 4, 512
 # FULL as published (moe_ep off) on (1, DIST_WORLD), as legs A and B; H,
 # FSDP on (2, 2): DeepSeek with fsdp=True in float32 at MOE_F32_LAYERS, 2 x
 # DIST_FSDP_SEQ (a row a data rank), against one process at 1e-3, and in
-# bfloat16 at all 28 layers, 2 x PREFILL, one timed prefill (over gloo each
-# rank moves its model block of every leaf through the host); the Jamba
-# cut at its published placement (fsdp=True) in bfloat16, 2 x
-# DIST_FSDP_SEQ; I, TinyLlama at DIST_TRAIN_LAYERS with fsdp=True on (2, 2)
-DIST_FSDP_SEQ = 512
+# bfloat16 at FSDP_BF16_LAYERS of its 28 layers (the script's time: ~1 s
+# a layer, nearly all gloo's gathers), 2 x PREFILL, one timed prefill
+# (over gloo each rank moves its model block of every leaf through the
+# host); the Jamba cut at its published placement (fsdp=True) in
+# bfloat16, 2 x DIST_FSDP_SEQ; I, TinyLlama at DIST_TRAIN_LAYERS with
+# fsdp=True on (2, 2)
+DIST_FSDP_SEQ, FSDP_BF16_LAYERS = 512, 4
 # its leg of the sequence-sharded decode cache: J, H2O-Danube3 4B at its
 # published width, a batch-1 cache of long_500k's SEQ_MAX_LEN positions
 # seeded a slab of SEQ_SLAB positions at a time, SEQ_NEW greedy tokens
@@ -316,11 +334,22 @@ SEQ_SEED = 17
 SPLIT_WORLD, SPLIT_ARCH = 16, "musicgen-medium"
 SPLIT_F32_LAYERS, SPLIT_BF16_LAYERS = 4, 12
 SPLIT_XLSTM_SEQ, SPLIT_PROMPT, SPLIT_NEW, SPLIT_SEED = 512, 1, 8, 19
+# the dryrun phase: the port's dry-run (src/repro_torch/launch/dryrun.py,
+# one rank of a cell traced on the meta device over a fake process group)
+# on DRYRUN_CELLS, one CLI process a cell (leg a), and beside them the
+# first cell's rank 0 on the card over the same fake group, its weights
+# uninitialised, in a child (``--dryrun-child``; leg b): four processes
+# started together
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
+                ("deepseek-moe-16b", "prefill_32k", "multi"),
+                ("h2o-danube-3-4b", "long_500k", "single"))
+DRYRUN_MESHES = {"single": {"data": 16, "model": 16},
+                 "multi": {"pod": 2, "data": 16, "model": 16}}
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
 PHASES = ("kernels", "suite", "session", "tune", "lm", "moe", "hybrid",
-          "vlm", "xlstm", "train", "dist", "split")
+          "vlm", "xlstm", "train", "dist", "split", "dryrun")
 # a forward's device time spent in each kernel of the port: the part of the
 # CUDA kernels' names that marks them
 SHARES = {"flash_attention": "flash_", "moe_gmm": "gmm_", "ssd_scan": "ssd_"}
@@ -2261,10 +2290,11 @@ def dist_configs() -> dict:
     StableLM 2 12B FULL in float32 at TP_F32_LAYERS and bfloat16 at all 40
     (leg D); the Jamba cut with ``moe_ep`` in float32 (leg E); DeepSeek
     FULL as published, ``moe_ep`` off, the same two ways (leg G) and with
-    ``fsdp=True`` (leg H), the Jamba cut as published (``fsdp=True``) in
-    bfloat16 (leg H), TinyLlama's float32 cut with ``fsdp=True`` (leg
-    I), H2O-Danube3 4B FULL cut to SEQ_F32_LAYERS in float32 and to
-    SEQ_BF16_LAYERS in bfloat16 with leg J's cache sizes."""
+    ``fsdp=True`` (leg H, bfloat16 at FSDP_BF16_LAYERS), the Jamba cut as
+    published (``fsdp=True``) in bfloat16 (leg H), TinyLlama's float32 cut
+    with ``fsdp=True`` (leg I), H2O-Danube3 4B FULL cut to SEQ_F32_LAYERS
+    in float32 and to SEQ_BF16_LAYERS in bfloat16 with leg J's cache
+    sizes."""
     from repro_torch.configs import get_config
 
     published = get_config(MOE_ARCH)
@@ -2290,7 +2320,8 @@ def dist_configs() -> dict:
             "g_bf16": published,
             "h_f32": dataclasses.replace(published, n_layers=MOE_F32_LAYERS,
                                          dtype=torch.float32, fsdp=True),
-            "h_bf16": dataclasses.replace(published, fsdp=True),
+            "h_bf16": dataclasses.replace(published, fsdp=True,
+                                          n_layers=FSDP_BF16_LAYERS),
             "h_jamba": dataclasses.replace(get_config(HYBRID_ARCH),
                                            n_layers=HYBRID_LAYERS),
             "i_lm": dataclasses.replace(lm, dtype=torch.float32, fsdp=True),
@@ -2717,8 +2748,8 @@ def moe_leg(rank: int, f32, bf16, c: dict, d: str, dev, mesh) -> dict:
     MOE_F32_LAYERS (its prefill with one process's top-k sets replayed,
     against one process's logits on rank 0; its greedy tokens), then the
     bfloat16 one at every layer (its parameter bytes, a counted prefill,
-    the error and argmax agreement against one process's on rank 0, the
-    mean of 3 timed prefills with the collectives' counts, the peak)."""
+    the error and argmax agreement against one process's on rank 0, one
+    timed prefill after it with the collectives' counts, the peak)."""
     from repro_torch.core import sharding
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -2763,15 +2794,13 @@ def moe_leg(rank: int, f32, bf16, c: dict, d: str, dev, mesh) -> dict:
                                       .float().mean())
             del want
         del got
-        fwd()
         sync(dev)
         sharding.reset_stats()
         t0 = time.perf_counter()
-        for _ in range(3):
-            fwd()
+        fwd()
         sync(dev)
-        out["prefill_ms"] = (time.perf_counter() - t0) / 3 * 1e3
-        out["allreduce"] = {k: v / 3 for k, v in sharding.STATS.items()}
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["allreduce"] = dict(sharding.STATS)
         if dev.type == "cuda":
             out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         del model
@@ -2797,8 +2826,10 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
     out: dict = {"rank": rank}
     mesh = elastic.carve_mesh(model_parallel=c["world"], device_type=dev.type)
     out["mesh_a"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    marks = out["marks"] = [("mesh", time.time())]
 
     out.update(moe_leg(rank, c["moe_f32"], c["moe_bf16"], c, d, dev, mesh))
+    marks.append(("A-B", time.time()))
 
     # leg C: data parallelism on (4, 1)
     m41 = elastic.carve_mesh(model_parallel=1, device_type=dev.type)
@@ -2834,8 +2865,10 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
         out["fit_resumed"] = dist_fit(lm, dev, m21, c, c["steps"],
                                       Checkpointer(os.path.join(d, "ck")))
     empty_cache(dev)
+    marks.append(("C f32 and fit", time.time()))
     out["bf16"], out["bf16_ms"] = dist_steps(c["lm_bf16"], dev, m41, 4,
                                              c["seq"], c["steps"])
+    marks.append(("C bf16", time.time()))
 
     # leg C: expert parallelism on (2, 2)
     m22 = elastic.carve_mesh(model_parallel=2, device_type=dev.type)
@@ -2847,9 +2880,13 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
     if dev.type == "cuda":
         out["ep_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     empty_cache(dev)
+    marks.append(("C EP", time.time()))
     tp_legs(rank, c, d, dev, mesh, m22, out)
+    marks.append(("F", time.time()))
     fsdp_legs(rank, c, d, dev, mesh, m22, out)
+    marks.append(("I", time.time()))
     seq_legs(rank, c, d, dev, m41, m22, out)
+    marks.append(("J", time.time()))
     return out
 
 
@@ -2950,11 +2987,10 @@ def tp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
         sync(dev)
         sharding.reset_stats()
         t0 = time.perf_counter()
-        for _ in range(3):
-            fwd()
+        fwd()
         sync(dev)
-        out["d_ms"] = (time.perf_counter() - t0) / 3 * 1e3
-        out["d_allreduce"] = {k: v / 3 for k, v in sharding.STATS.items()}
+        out["d_ms"] = (time.perf_counter() - t0) * 1e3
+        out["d_allreduce"] = dict(sharding.STATS)
         if dev.type == "cuda":
             out["d_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         del model
@@ -2983,6 +3019,7 @@ def tp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
         del got, model
         empty_cache(dev)
 
+    out["marks"].append(("D-E", time.time()))
     # leg F: TinyLlama on (2, 2), float32
     lm = c["lm_f32"]
     model, _ = train.init_state(0, lm, dev, m22)
@@ -3069,6 +3106,7 @@ def fsdp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
     from repro_torch.runtime import elastic
 
     out["g"] = moe_leg(rank, c["g_f32"], c["g_bf16"], c, d, dev, mesh)
+    out["marks"].append(("G", time.time()))
 
     # leg H: FSDP on (2, 2), DeepSeek in float32, then bfloat16
     cfg = c["h_f32"]
@@ -3136,6 +3174,7 @@ def fsdp_legs(rank: int, c: dict, d: str, dev, mesh, m22, out: dict) -> None:
         del got, want, model
         empty_cache(dev)
 
+    out["marks"].append(("H", time.time()))
     # leg I: TinyLlama with FSDP on (2, 2), float32
     lm = c["i_lm"]
     model, opt = train.init_state(0, lm, dev, m22)
@@ -3183,7 +3222,7 @@ def dist_phase(dev, card: str) -> dict[str, int]:
     device).  Leg A: DeepSeek-MoE 16B FULL with ``moe_ep`` on a (1, 4)
     mesh, prefill of PREFILL tokens through ``flash_attention``: float32
     at MOE_F32_LAYERS against the one-process port at 1e-3, bfloat16 at
-    all 28 layers timed (mean of 3), its all-reduces' host time, each
+    all 28 layers timed once, its all-reduces' host time, each
     rank's peak memory, the largest |diff| and the argmax agreement
     against the one-process port printed; launches counted per rank
     (``flash_attention`` one a layer, ``moe_gmm`` none: the reference's
@@ -3233,7 +3272,8 @@ def dist_phase(dev, card: str) -> dict[str, int]:
                 del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-        print(f"  {DIST_WORLD} ranks: {time.perf_counter() - t0:.2f} s")
+        print(f"  {DIST_WORLD} ranks: {time.perf_counter() - t0:.2f} s: "
+              f"{leg_seconds(ranks)}")
     r0 = ranks[0]
     moe, n_attn = c["moe_bf16"], c["moe_f32"].n_layers
     want_launches = lambda n: ({"flash_attention": n, "moe_gmm": 0}  # noqa: E731
@@ -3261,7 +3301,7 @@ def dist_phase(dev, card: str) -> dict[str, int]:
     ar = r0["allreduce"]
     print(f"  leg A bf16, {moe.n_layers} layers, prefill 1 x {c['prefill']}:"
           f" {[round(r['prefill_ms'], 2) for r in ranks]} ms per rank "
-          f"(mean of 3; one process {ref.get('prefill_ms', float('nan')):.2f}"
+          f"(one timed; one process {ref.get('prefill_ms', float('nan')):.2f}"
           f" ms); all-reduces per prefill on rank 0: {ar['calls']:.0f} calls,"
           f" {ar['bytes'] / 1e6:.1f} MB, {ar['seconds'] * 1e3:.2f} ms of host"
           f" time; peak memory per rank "
@@ -3419,7 +3459,7 @@ def tp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
           f" (1e-3 relative); greedy 2 x ({c['prompt']} + {c['new']}) "
           f"tokens equal to one process's on every rank")
     print(f"  leg D bf16, {tp.n_layers} layers, prefill 1 x {c['prefill']}: "
-          f"{[round(r['d_ms'], 2) for r in ranks]} ms per rank (mean of 3; "
+          f"{[round(r['d_ms'], 2) for r in ranks]} ms per rank (one timed; "
           f"one process {ref.get('tp_prefill_ms', float('nan')):.2f} ms); "
           f"all-reduces and gathers per prefill on rank 0: "
           f"{ar['calls']:.0f} calls, {ar['bytes'] / 1e6:.1f} MB, "
@@ -3503,7 +3543,7 @@ def fsdp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
           f"on every rank")
     print(f"  leg G bf16, {g16.n_layers} layers, prefill 1 x {c['prefill']}:"
           f" {[round(r['g']['prefill_ms'], 2) for r in ranks]} ms per rank "
-          f"(mean of 3; one process {ref.get('prefill_ms', float('nan')):.2f}"
+          f"(one timed; one process {ref.get('prefill_ms', float('nan')):.2f}"
           f" ms); collectives per prefill on rank 0: {ar['calls']:.0f} "
           f"calls, {ar['bytes'] / 1e6:.1f} MB, {ar['seconds'] * 1e3:.2f} ms "
           f"of host time; peak memory per rank "
@@ -3873,17 +3913,23 @@ def split_phase(dev, card: str) -> dict[str, int]:
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
         start = [r["t0"] - wall for r in ranks]
-        legs, at = [], max(r["marks"][0][1] for r in ranks)
-        for i, (label, _) in enumerate(ranks[0]["marks"][1:], 1):
-            end = max(r["marks"][i][1] for r in ranks)
-            legs.append(f"{label} {end - at:.2f}")
-            at = end
         print(f"  {c['world']} ranks: {time.perf_counter() - t0:.2f} s: "
               f"started {min(start):.2f}–{max(start):.2f} s after the "
               f"launch, meshes at "
               f"{max(r['marks'][0][1] for r in ranks) - wall:.2f} s, then "
-              f"(s, the last rank's) {', '.join(legs)}")
+              f"{leg_seconds(ranks)}")
     return split_report(c, ranks, ref, dev, card)
+
+
+def leg_seconds(ranks: list) -> str:
+    """The seconds of each leg the ranks marked (``out["marks"]``: the
+    first mark, then one at each leg's end), the last rank's."""
+    legs, at = [], max(r["marks"][0][1] for r in ranks)
+    for i, (label, _) in enumerate(ranks[0]["marks"][1:], 1):
+        end = max(r["marks"][i][1] for r in ranks)
+        legs.append(f"{label} {end - at:.2f}")
+        at = end
+    return f"(s, the last rank's) {', '.join(legs)}"
 
 
 def split_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
@@ -3996,6 +4042,172 @@ def split_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
     return {"flash_attention": ranks[0]["mg_bf16_launches"]["flash_attention"]}
 
 
+def dryrun_record(d: str, cell: tuple) -> dict:
+    """The record the dry-run wrote for ``cell`` into ``d``."""
+    from repro_torch.configs import get_config
+
+    arch, shape, mesh = cell
+    name = "2x16x16" if mesh == "multi" else "16x16"
+    with open(os.path.join(d, f"{get_config(arch).name}_{shape}_{name}"
+                              ".json")) as f:
+        return json.load(f)
+
+
+def dryrun_phase(dev, card: str) -> None:
+    """Leg a: ``python3 -m repro_torch.launch.dryrun`` on each of
+    DRYRUN_CELLS; leg b: the first cell's rank on ``dev`` in a child
+    (``dryrun_child``); all four processes at once.  Then each record is
+    read back and checked (``dryrun_report``), and leg b's bytes held to
+    the first record's."""
+    import tempfile
+
+    work = os.path.join(ROOT, "build", "repro_torch")
+    os.makedirs(work, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        t0 = time.perf_counter()
+        cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--out", d]
+                for arch, shape, mesh in DRYRUN_CELLS]
+        cmds.append([sys.executable, os.path.abspath(__file__),
+                     "--dryrun-child", dev.type])
+        procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for cmd, p, (out, err) in zip(cmds, procs, outs):
+            assert p.returncode == 0, (cmd, p.returncode, err[-3000:])
+        for out, _ in outs[:-1]:
+            assert out.rstrip().endswith(
+                "[dryrun] all requested cells traced OK"), out[-3000:]
+        print(f"dryrun: {len(procs) - 1} cells (leg a) and leg b, one "
+              f"process each, at once: {time.perf_counter() - t0:.2f} s "
+              f"(the records name {card.split(',')[0]})")
+        recs = [dryrun_record(d, cell) for cell in DRYRUN_CELLS]
+    dryrun_report(recs)
+    got = json.loads(outs[-1][0].strip().splitlines()[-1])
+    want = recs[0]["memory_per_device"]
+    for k in ("parameters", "gradients", "optimizer_state"):
+        assert got[k] == want[k], (k, got[k], want[k])
+    arch, shape, _ = DRYRUN_CELLS[0]
+    line = (f"  leg b: {arch} x {shape} rank 0 on {dev.type}, one step in "
+            f"{got['seconds']:.2f} s: parameters {got['parameters']} B, "
+            f"gradients {got['gradients']} B, optimizer state "
+            f"{got['optimizer_state']} B, equal to the meta trace's to the "
+            f"byte; ")
+    peak = want["total_per_device"]
+    if got["peak"] is None:
+        line += (f"the trace's peak {peak / 1e9:.3f} GB; the card's not "
+                 f"measured")
+    else:
+        line += (f"torch.cuda.max_memory_allocated {got['peak'] / 1e9:.3f} "
+                 f"GB beside the trace's peak {peak / 1e9:.3f} GB: ratio "
+                 f"{got['peak'] / peak:.4f}")
+    print(line)
+
+
+def dryrun_report(recs: list) -> None:
+    """Leg a's gates: each record traced ("OK"), named the card of
+    ``core.perfmodel.GpuModel`` and tested ``hbm_ok`` against its 80 GB;
+    the parameter bytes a rank the reference's specs' (``reference_bytes``);
+    TinyLlama's gradients its parameters' and its optimizer state six
+    times them (master, mu, nu in float32) and the step; DeepSeek's
+    collectives its MoE layers' all-reduces and the logits' gather; the
+    Danube rank's keys and values its block of 524,288 positions of the
+    kv heads it keeps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    for cell, rec in zip(DRYRUN_CELLS, recs):
+        arch, shape, mesh = cell
+        cfg, dims = get_config(arch), DRYRUN_MESHES[mesh]
+        mem = rec["memory_per_device"]
+        assert rec["status"] == "OK", (cell, rec["status"])
+        assert rec["card"] == "NVIDIA H100 80GB HBM3, 700.00 W", rec["card"]
+        assert rec["hbm_ok"] == (mem["total_per_device"] <= 80 * 10**9)
+        assert mem["parameters"] == reference_bytes(cfg, dims), (
+            cell, mem["parameters"], reference_bytes(cfg, dims))
+        c = rec["collectives"]
+        assert c["count"] == sum(k["count"] for k in c["by_kind"].values())
+        assert rec["cost_per_device"]["flops"] > 0 and c["count"] > 0
+        bound = max(rec["roofline"][f"t_{k}_s"]
+                    for k in ("compute", "memory", "collective"))
+        print(f"  {arch} x {shape} x {rec['mesh']}: peak "
+              f"{mem['total_per_device'] / 1e9:.3f} GB a rank (fits 80 GB: "
+              f"{rec['hbm_ok']}; parameters {mem['parameters'] / 1e9:.3f}, "
+              f"gradients {mem['gradients'] / 1e9:.3f}, optimizer "
+              f"{mem['optimizer_state'] / 1e9:.3f}, cache "
+              f"{mem['cache'] / 1e9:.3f}, activations "
+              f"{mem['activations'] / 1e9:.3f}, temporaries "
+              f"{mem['temporaries'] / 1e9:.3f}); "
+              f"{rec['cost_per_device']['flops']:.4e} FLOPs, "
+              f"{rec['cost_per_device']['bytes']:.4e} bytes a rank; "
+              f"collectives {c['count']}, "
+              + ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e6:.1f} MB"
+                          for k, v in sorted(c["by_kind"].items()))
+              + f"; bound {rec['roofline']['bound']} {bound:.4f} s; "
+              f"traced in {rec['trace_seconds']:.2f} s")
+    tiny, deep, danube = (r["memory_per_device"] for r in recs)
+    assert tiny["gradients"] == tiny["parameters"]
+    assert tiny["optimizer_state"] == 6 * tiny["parameters"] + 4
+    kinds = recs[1]["collectives"]["by_kind"]
+    assert set(kinds) == {"all-reduce", "all-gather"}, kinds
+    assert kinds["all-gather"]["count"] == 1, kinds
+    cfg = get_config(DRYRUN_CELLS[2][0])
+    kv = attention.kv_heads(cfg, 16, 0)
+    kept = kv.stop - kv.start if isinstance(kv, slice) else len(kv)
+    whole = cfg.n_layers * 2 * cfg.n_kv_heads * SEQ_MAX_LEN * cfg.hd * 2
+    kv = danube["cache"] - cfg.n_layers * 4        # each layer's int32 len
+    assert kv * cfg.n_kv_heads * 16 == whole * kept, (danube["cache"], whole,
+                                                      kept)
+    spec = reference_cache_bytes(cfg, 1, SEQ_MAX_LEN, DRYRUN_MESHES["single"])
+    print(f"  {cfg.name}: keys and values a rank {kv} B, its 1/16 of the "
+          f"positions of {kept} of {cfg.n_kv_heads} kv heads: "
+          f"{kv / spec:.4f} x the reference's cache specs' {spec} B (which "
+          f"split the positions over 'data' alone)")
+
+
+def dryrun_child(device: str) -> None:
+    """Leg b: rank 0 of DRYRUN_CELLS[0] built on ``device`` (its weights
+    uninitialised) over the fake group of 256 ranks and its step run
+    once; prints a JSON line of its parameter, gradient and
+    optimizer-state bytes, the step's seconds and, on a card, the step's
+    ``torch.cuda.max_memory_allocated`` ("peak"; None elsewhere).  Values
+    are not checked: over a fake group the collectives move nothing."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    arch, shape, mesh = DRYRUN_CELLS[0]
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    with dryrun.fake_world(256):
+        m = make_production_mesh(multi_pod=mesh == "multi",
+                                 device_type="cpu")
+        t = dryrun.trace_cell(get_config(arch), SHAPES[shape], m, device=dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        t.step()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+    print(json.dumps({
+        "parameters": param_bytes(t.model),
+        "gradients": sum(t.grads.values()),
+        "optimizer_state": sum(x.numel() * x.element_size() for x in
+                               dryrun._tensors(t.held["optimizer_state"])),
+        "seconds": secs,
+        "peak": torch.cuda.max_memory_allocated(dev) if cuda else None}))
+
+
 def held_line(dev, after: str) -> None:
     """The device memory still allocated after a phase (what the next
     phases start from)."""
@@ -4005,13 +4217,17 @@ def held_line(dev, after: str) -> None:
 
 
 def main() -> int:
+    argv = sys.argv[1:]
+    if "--dryrun-child" in argv:    # dryrun_phase's leg b, on its device
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        dryrun_child(argv[argv.index("--dryrun-child") + 1])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import cuda_lib
 
-    argv = sys.argv[1:]
     if "--restart-child" in argv:   # restart_leg's child: deterministic
         torch.use_deterministic_algorithms(True)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4165,6 +4381,11 @@ def main() -> int:
                 counts["flash_attention"]
         print(f"split: {time.perf_counter() - t0:.2f} s")
         held("split")
+    if run("dryrun"):
+        t0 = time.perf_counter()
+        dryrun_phase(dev, smi)
+        print(f"dryrun: {time.perf_counter() - t0:.2f} s")
+        held("dryrun")
     for r in rows:
         print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "
               f"on its path; {fmt(r['cuda_launches_per_call'])} CUDA "

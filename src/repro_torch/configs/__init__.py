@@ -1,8 +1,8 @@
 """Assigned-architecture configs (``--arch <id>``) + shape registry, copied
-from ``repro.configs`` as plain data.  ``input_specs`` is not ported (it
-builds JAX dry-run stand-ins)."""
+from ``repro.configs`` as plain data; ``input_specs`` gives meta-device
+stand-ins for a cell's inputs (the dry-run's)."""
 from .registry import (ARCHS, ARCH_IDS, SHAPES, Shape, get_config,
-                       is_subquadratic, skip_reason)
+                       input_specs, is_subquadratic, skip_reason)
 
 __all__ = ["ARCHS", "ARCH_IDS", "SHAPES", "Shape", "get_config",
-           "is_subquadratic", "skip_reason"]
+           "input_specs", "is_subquadratic", "skip_reason"]

@@ -3,14 +3,17 @@
 
 Each arch module defines FULL (the exact public-literature config) and
 SMOKE (a reduced same-family config for CPU tests); the modules are copies
-of the reference's, with torch dtypes.  The reference's ``input_specs``
-builds JAX ``ShapeDtypeStruct`` stand-ins for its dry-run and is not
-ported yet: it comes with the dry-run (ROADMAP queue 1, item 9.8).
+of the reference's, with torch dtypes.  ``input_specs`` gives tensors on
+the meta device as stand-ins for every model input (the reference's
+``ShapeDtypeStruct``: shape and dtype, no memory), for the dry-run
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.models.layers import ModelConfig
 
@@ -58,6 +61,29 @@ def skip_reason(cfg: ModelConfig, shape: Shape) -> str | None:
     return None
 
 
-# input_specs (the reference's JAX ShapeDtypeStruct stand-ins for its
-# dry-run) is not ported yet: it comes with the dry-run (ROADMAP queue 1,
-# item 9.8).
+def _spec(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: Shape) -> dict:
+    """Meta-device stand-ins for every input of the traced step, the
+    reference's keys, shapes and dtypes: tokens and labels int32, the
+    audio family's ``embeds`` and the VLM family's ``frontend`` in
+    ``cfg.dtype``; decode takes one new token (its cache comes from
+    ``launch.serve.make_cache``)."""
+    B, S = shape.batch, shape.seq
+    i32 = torch.int32
+    if shape.kind == "decode":
+        if cfg.family == "audio":
+            return {"embeds": _spec((B, 1, cfg.d_model), cfg.dtype)}
+        return {"tokens": _spec((B, 1), i32)}
+    if cfg.family == "audio":
+        batch = {"embeds": _spec((B, S, cfg.d_model), cfg.dtype)}
+    else:
+        batch = {"tokens": _spec((B, S), i32)}
+    if shape.kind == "train":
+        batch["labels"] = _spec((B, S), i32)
+    if cfg.family == "vlm":
+        batch["frontend"] = _spec((B, cfg.n_frontend_tokens, cfg.d_model),
+                                  cfg.dtype)
+    return batch

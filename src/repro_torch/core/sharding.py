@@ -128,19 +128,30 @@ STATS = {"calls": 0, "seconds": 0.0, "bytes": 0,
          "heads_calls": 0, "heads_seconds": 0.0, "heads_bytes": 0}
 
 
+#: None, or a list to which every collective appends (kind, operand
+#: bytes, ranks of its group): an "all-reduce" its operand, an
+#: "all-gather" and a "reduce-scatter" their input (``launch.dryrun``'s
+#: count, the rule of the reference's ``core/hlo.py``)
+TAPE = None
+
+
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = 0.0 if k.endswith("seconds") else 0
 
 
 def _nccl(group) -> bool:
-    return dist.get_backend(group) == "nccl"
+    """Whether ``group`` takes NCCL's paths: NCCL's own, and PyTorch's
+    ``fake`` backend, which stands for a mesh of cards in the dry-run."""
+    return dist.get_backend(group) in ("nccl", "fake")
 
 
-def _count(t0: float, nbytes: int) -> None:
+def _count(t0: float, nbytes: int, kind: str, operand: int, n: int) -> None:
     STATS["calls"] += 1
     STATS["seconds"] += time.perf_counter() - t0
     STATS["bytes"] += nbytes
+    if TAPE is not None:
+        TAPE.append((kind, operand, n))
 
 
 def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
@@ -151,7 +162,8 @@ def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
         if shape.get(a, 1) > 1:
             t0 = time.perf_counter()
             dist.all_reduce(t, op=op, group=mesh.get_group(a))
-            _count(t0, t.numel() * t.element_size())
+            nbytes = t.numel() * t.element_size()
+            _count(t0, nbytes, "all-reduce", nbytes, shape[a])
     return t
 
 
@@ -262,11 +274,13 @@ def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
         out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=x.dtype,
                           device=x.device)
         dist.all_gather_into_tensor(out, src, group=group)
-        _count(t0, out.numel() * out.element_size())
+        _count(t0, out.numel() * out.element_size(), "all-gather",
+               src.numel() * src.element_size(), n)
         return out.movedim(0, dim)
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    _count(t0, x.numel() * x.element_size() * n)
+    _count(t0, x.numel() * x.element_size() * n, "all-gather",
+           x.numel() * x.element_size(), n)
     return torch.cat(parts, dim=dim)
 
 
@@ -282,7 +296,8 @@ def _reduce_scatter(g: torch.Tensor, mesh, axis: str, dim: int):
         src = g.movedim(dim, 0).contiguous()
         out = torch.empty((k, *src.shape[1:]), dtype=g.dtype, device=g.device)
         dist.reduce_scatter_tensor(out, src, group=group)
-        _count(t0, src.numel() * src.element_size())
+        nbytes = src.numel() * src.element_size()
+        _count(t0, nbytes, "reduce-scatter", nbytes, n)
         return out.movedim(0, dim)
     whole = all_reduce(g.clone(memory_format=torch.contiguous_format), mesh,
                        axis)

@@ -11,8 +11,7 @@ replicated batch split along the sequence over "data"
 columns cut a head: it computes every head they touch,
 ``layers.head_split``).  Still missing: the Mamba heads that do not
 divide and a ``parallel_block`` mixer other than self-attention, which
-``transformer.check_ported`` refuses (ROADMAP queue 1, item 9.7c), and
-the dry-run (item 9.8)."""
+``transformer.check_ported`` refuses (ROADMAP queue 1, item 9.7c)."""
 from . import attention, moe, transformer
 from .layers import ModelConfig
 

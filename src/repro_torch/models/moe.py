@@ -165,7 +165,10 @@ def _rank_in_expert(ef: torch.Tensor, E: int):
     """Each pair's rank within its expert (a stable sort keeps token
     order) and each expert's count of pairs."""
     order = torch.argsort(ef, stable=True)
-    counts = torch.bincount(ef, minlength=E)                 # (E,)
+    # bincount's int64 counts; a scatter-add has a meta kernel (the
+    # dry-run's) and is deterministic on CUDA for integers
+    counts = torch.zeros(E, dtype=torch.int64, device=ef.device).scatter_add_(
+        0, ef.long(), torch.ones_like(ef, dtype=torch.int64))  # (E,)
     starts = counts.cumsum(0) - counts
     rank = torch.empty_like(ef)
     rank[order] = torch.arange(ef.numel(), device=ef.device) - starts[ef[order]]

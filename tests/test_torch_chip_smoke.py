@@ -643,3 +643,31 @@ def test_routing_tape_replays_top_k_sets(cs):
         with pytest.raises(AssertionError):
             with cs.routing_tape(tape + tape[:1]):
                 transformer.forward(model, cfg, toks)
+
+
+def test_dryrun_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
+    """The dryrun phase at its real cells, whose traces hold no memory
+    (meta): leg a's three CLI processes, their records read back and held
+    to the reference's parameter specs; leg b's child on the meta device,
+    its parameter, gradient and optimizer-state bytes the trace's (the
+    card's peak is not measured here)."""
+    import sys
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    cs.dryrun_phase(torch.device("meta"), "cpu rehearsal")
+    out = capsys.readouterr().out
+    assert "dryrun: 3 cells (leg a) and leg b, one process each, at once" \
+        in out
+    assert re.search(r"tinyllama-1\.1b x train_4k x 16x16: peak \S+ GB a "
+                     r"rank \(fits 80 GB: True; parameters 0\.138, gradients "
+                     r"0\.138, optimizer 0\.826", out)
+    assert re.search(r"deepseek-moe-16b x prefill_32k x 2x16x16: .* "
+                     r"all-gather 1 x 419\.4 MB, all-reduce 165 x", out)
+    assert "keys and values a rank 377487360 B, its 1/16 of the positions " \
+        "of 1 of 8 kv heads: 0.1250 x the reference's cache specs'" in out
+    assert re.search(r"leg b: tinyllama-1\.1b x train_4k rank 0 on meta, "
+                     r"one step in \S+ s: parameters 137678848 B, gradients "
+                     r"137678848 B, optimizer state 826073092 B, equal to "
+                     r"the meta trace's to the byte; the trace's peak \S+ "
+                     r"GB; the card's not measured", out)

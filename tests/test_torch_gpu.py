@@ -1444,3 +1444,41 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--fault-loop"]:
 if __name__ == "__main__" and sys.argv[1:2] == ["--restart"]:
     torch.use_deterministic_algorithms(True)
     restart_check()
+
+
+def test_dryrun_rank_on_the_card_holds_the_meta_traces_bytes(dev):
+    """The dry-run's rank on the card (``chip_smoke.py``'s dryrun phase,
+    leg b, cut to 2 layers): rank 0 of TinyLlama FULL at train_4k on the
+    (16, 16) mesh over a fake group of 256 ranks, built on the card with
+    its weights uninitialised and on the meta device; its parameter,
+    gradient and optimizer-state bytes equal to the byte, and the card's
+    peak over one step at least the bytes held across it.  Values are not
+    checked: over a fake group the collectives move nothing."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2)
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        want = dryrun._cell_costs(dryrun.trace_cell(
+            cfg, SHAPES["train_4k"], mesh))["memory"]
+        t = dryrun.trace_cell(cfg, SHAPES["train_4k"], mesh, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t.step()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+    got = {"parameters": sum(p.numel() * p.element_size()
+                             for p in t.model.parameters()),
+           "gradients": sum(t.grads.values()),
+           "optimizer_state": sum(x.numel() * x.element_size() for x in
+                                  dryrun._tensors(t.held["optimizer_state"]))}
+    assert got == {k: want[k] for k in got}
+    held = want["parameters"] + want["optimizer_state"] + want["inputs"]
+    assert peak >= held, (peak, held)
+    print(f"peak on the card {peak} B, the meta trace's "
+          f"{want['total_per_device']} B: ratio "
+          f"{peak / want['total_per_device']:.4f}")
