@@ -110,11 +110,20 @@ a fake process group) on three cells, one process each, all at once —
 TinyLlama at train_4k on (16, 16), DeepSeek-MoE 16B at prefill_32k on
 (2, 16, 16) (the experts), H2O-Danube3 4B at long_500k on (16, 16) (the
 sequence-sharded cache) — each record read back, its parameter bytes a
-rank the reference's specs'; beside them, in a child, TinyLlama's rank 0
-on the card over the same fake group, its weights uninitialised, its parameter,
-gradient and optimizer-state bytes the meta trace's to the byte, and
-``torch.cuda.max_memory_allocated`` over its step beside the trace's
-peak.
+rank the reference's specs'; TinyLlama at train_4k and decode_32k with
+``--opt tp1`` (the reference's specs without "model": parameters a rank
+the stripped specs', the decode rank's keys and values 16 times the cache
+specs') and at prefill_32k with ``--opt dp_all``, which must fail naming
+the batch of 32 that 256 ranks do not split; beside them, each in a child
+on the card over the same fake group with its weights uninitialised,
+TinyLlama's train_4k rank 0 (leg b) and its tp1 decode_32k rank 0 (leg
+b', a cell whose record fits 80 GB), their parameter, gradient,
+optimizer-state and cache bytes the meta trace's to the byte, and
+``torch.cuda.max_memory_allocated`` over the step beside the trace's
+peak.  Last the examples phase, its processes started with the dry-run's:
+``examples/torch_quickstart.py`` and ``torch_serve_decode.py`` on the
+card as a user starts them, each to its closing check line (the other
+three examples are checked on the CPU alone).
 
     python3 chip_smoke.py [--build | --only PHASE[,PHASE...]]
 
@@ -336,20 +345,41 @@ SPLIT_F32_LAYERS, SPLIT_BF16_LAYERS = 4, 12
 SPLIT_XLSTM_SEQ, SPLIT_PROMPT, SPLIT_NEW, SPLIT_SEED = 512, 1, 8, 19
 # the dryrun phase: the port's dry-run (src/repro_torch/launch/dryrun.py,
 # one rank of a cell traced on the meta device over a fake process group)
-# on DRYRUN_CELLS, one CLI process a cell (leg a), and beside them the
-# first cell's rank 0 on the card over the same fake group, its weights
-# uninitialised, in a child (``--dryrun-child``; leg b): four processes
-# started together
+# on DRYRUN_CELLS, one CLI process a cell (leg a); the reference's spec
+# lever tp1 on DRYRUN_TP1 (leg a'), and dp_all on DRYRUN_REFUSED, whose
+# prefill batch of 32 does not split over 256 ranks (the CLI must fail and
+# say so); and beside them, each in a child over the same fake group with
+# its weights uninitialised (``--dryrun-child``), the first cell's rank 0
+# on the card (leg b) and the tp1 decode cell's (leg b', a cell whose
+# record fits 80 GB): eight processes started together
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
                 ("deepseek-moe-16b", "prefill_32k", "multi"),
                 ("h2o-danube-3-4b", "long_500k", "single"))
+DRYRUN_TP1 = (("tinyllama-1.1b", "train_4k", "single"),
+              ("tinyllama-1.1b", "decode_32k", "single"))
+DRYRUN_REFUSED = ("tinyllama-1.1b", "prefill_32k", "single")
+#: leg -> (cell, opt flags) of the children on the card
+DRYRUN_CHILDREN = {"b": (DRYRUN_CELLS[0], ()),
+                   "b'": (DRYRUN_TP1[1], ("tp1",))}
 DRYRUN_MESHES = {"single": {"data": 16, "model": 16},
                  "multi": {"pod": 2, "data": 16, "model": 16}}
+# the examples phase: two of the port's user scripts (examples/torch_*.py,
+# the reference's examples/*.py) on the card at their own arguments, each
+# a process of its own started as a user starts it, together with the
+# dryrun phase's processes: name -> its closing check line.  The other
+# three (serve_prim, prim_suite, train_tinyllama) are checked on the CPU
+# alone (tests/test_torch_examples.py): no cut that keeps every gate was
+# found to pay for their seconds here (PERF.md §6)
+EXAMPLES = {
+    "torch_quickstart": "all results match the gold references.",
+    "torch_serve_decode": "token-identical to greedy_generate across 4 "
+                          "stream(s)",
+}
 # the phases, in order; ``--only a,b`` runs those alone (the session phase
 # needs the suite's arguments; the tune phase makes them itself when the
 # suite did not run)
 PHASES = ("kernels", "suite", "session", "tune", "lm", "moe", "hybrid",
-          "vlm", "xlstm", "train", "dist", "split", "dryrun")
+          "vlm", "xlstm", "train", "dist", "split", "dryrun", "examples")
 # a forward's device time spent in each kernel of the port: the part of the
 # CUDA kernels' names that marks them
 SHARES = {"flash_attention": "flash_", "moe_gmm": "gmm_", "ssd_scan": "ssd_"}
@@ -2373,19 +2403,21 @@ def param_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def reference_bytes(cfg, dims: dict) -> int:
+def reference_bytes(cfg, dims: dict, tp1: bool = False) -> int:
     """The bytes of parameters that the reference's specs
-    (``transformer.param_specs``) put on one device of a mesh of ``dims``
-    ({axis: size}): each leaf's bytes over the sizes of the axes its spec
-    names, "model" (the experts' too, with or without ``moe_ep``) and
-    "data" (``fsdp``) alike (``NamedSharding``'s shard of dimensions that
-    divide, which tests/test_torch_tp.py holds the port's layout to)."""
+    (``transformer.param_specs``; with ``tp1``, as its dry-run's ``tp1``
+    rewrites them: no "model" entry) put on one device of a mesh of
+    ``dims`` ({axis: size}): each leaf's bytes over the sizes of the axes
+    its spec names, "model" (the experts' too, with or without ``moe_ep``)
+    and "data" (``fsdp``) alike (``NamedSharding``'s shard of dimensions
+    that divide, which tests/test_torch_tp.py holds the port's layout
+    to)."""
     from repro_torch.core.sharding import axis_size
     from repro_torch.models import transformer
 
     whole = transformer.Transformer(dataclasses.replace(cfg, moe_ep=False),
                                     device="meta")
-    specs = transformer.param_specs(cfg)
+    specs = transformer.param_specs(cfg, tp1)
     total = 0
     for name, p in whole.named_parameters():
         names = [a for e in specs[name] if e is not None
@@ -2823,7 +2855,7 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
     dev = torch.device(device_type, 0)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    out: dict = {"rank": rank}
+    out: dict = {"rank": rank, "t0": time.time()}
     mesh = elastic.carve_mesh(model_parallel=c["world"], device_type=dev.type)
     out["mesh_a"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
     marks = out["marks"] = [("mesh", time.time())]
@@ -3259,7 +3291,7 @@ def dist_phase(dev, card: str) -> dict[str, int]:
         held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
         print(f"  one process: {time.perf_counter() - t0:.2f} s; "
               f"{held / 1e9:.2f} GB still held by this process")
-        t0 = time.perf_counter()
+        t0, wall = time.perf_counter(), time.time()
         # the ranks share the card: expandable segments keep each rank's
         # cache from holding memory in blocks it no longer fits
         alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
@@ -3272,8 +3304,10 @@ def dist_phase(dev, card: str) -> dict[str, int]:
                 del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        start = [r["t0"] - wall for r in ranks]
         print(f"  {DIST_WORLD} ranks: {time.perf_counter() - t0:.2f} s: "
-              f"{leg_seconds(ranks)}")
+              f"started {min(start):.2f}–{max(start):.2f} s after the "
+              f"launch, then {leg_seconds(ranks)}")
     r0 = ranks[0]
     moe, n_attn = c["moe_bf16"], c["moe_f32"].n_layers
     want_launches = lambda n: ({"flash_attention": n, "moe_gmm": 0}  # noqa: E731
@@ -4042,74 +4076,199 @@ def split_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
     return {"flash_attention": ranks[0]["mg_bf16_launches"]["flash_attention"]}
 
 
-def dryrun_record(d: str, cell: tuple) -> dict:
-    """The record the dry-run wrote for ``cell`` into ``d``."""
+def dryrun_record(d: str, cell: tuple, flags=()) -> dict:
+    """The record the dry-run wrote for ``cell`` under ``flags`` into
+    ``d``."""
+    return json.load(open(dryrun_path(d, cell, flags)))
+
+
+def dryrun_path(d: str, cell: tuple, flags=()) -> str:
+    """The file of ``cell``'s record (the reference's names)."""
     from repro_torch.configs import get_config
 
     arch, shape, mesh = cell
     name = "2x16x16" if mesh == "multi" else "16x16"
-    with open(os.path.join(d, f"{get_config(arch).name}_{shape}_{name}"
-                              ".json")) as f:
-        return json.load(f)
+    tag = "opt-" + "-".join(flags) + "_" if flags else ""
+    return os.path.join(d, f"{tag}{get_config(arch).name}_{shape}_{name}"
+                           ".json")
 
 
-def dryrun_phase(dev, card: str) -> None:
+def dryrun_cmd(d: str, cell: tuple, flags=()) -> list:
+    arch, shape, mesh = cell
+    return ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", d]
+            + (["--opt", ",".join(flags)] if flags else []))
+
+
+def run_together(cmds: list, env: dict, timeout: float = 600) -> list:
+    """Every command of ``cmds`` started at once -> (returncode, stdout,
+    stderr, seconds from the start to its exit) of each; none is left
+    running."""
+    import threading
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs: list = [None] * len(procs)
+
+    def wait(i: int) -> None:
+        try:
+            o, e = procs[i].communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            procs[i].kill()
+            o, e = procs[i].communicate()
+        outs[i] = (procs[i].returncode, o, e, time.perf_counter() - t0)
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def dryrun_phase(dev, card: str, examples: bool = False) -> None:
     """Leg a: ``python3 -m repro_torch.launch.dryrun`` on each of
-    DRYRUN_CELLS; leg b: the first cell's rank on ``dev`` in a child
-    (``dryrun_child``); all four processes at once.  Then each record is
-    read back and checked (``dryrun_report``), and leg b's bytes held to
-    the first record's."""
+    DRYRUN_CELLS; leg a': ``--opt tp1`` on each of DRYRUN_TP1 and ``--opt
+    dp_all`` on DRYRUN_REFUSED; legs b and b': DRYRUN_CHILDREN's ranks on
+    ``dev``, each in a child (``dryrun_child``); with ``examples`` the
+    examples phase's processes (``example_cmds``); all at once.  Then
+    each record is read back and checked (``dryrun_report``,
+    ``tp1_report``), the refusal read from the CLI's output, each
+    child's bytes held to its cell's record, and each example's output
+    checked (``examples_report``)."""
     import tempfile
 
     work = os.path.join(ROOT, "build", "repro_torch")
     os.makedirs(work, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    labels = ([f"{a} {sh}" for a, sh, _ in DRYRUN_CELLS]
+              + [f"{a} {sh} --opt tp1" for a, sh, _ in DRYRUN_TP1]
+              + [f"{DRYRUN_REFUSED[0]} {DRYRUN_REFUSED[1]} --opt dp_all"]
+              + [f"leg {leg}" for leg in DRYRUN_CHILDREN])
     with tempfile.TemporaryDirectory(dir=work) as d:
         t0 = time.perf_counter()
-        cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape, "--mesh", mesh, "--out", d]
-                for arch, shape, mesh in DRYRUN_CELLS]
-        cmds.append([sys.executable, os.path.abspath(__file__),
-                     "--dryrun-child", dev.type])
-        procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for cmd in cmds]
-        try:
-            outs = [p.communicate(timeout=600) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for cmd, p, (out, err) in zip(cmds, procs, outs):
-            assert p.returncode == 0, (cmd, p.returncode, err[-3000:])
-        for out, _ in outs[:-1]:
+        cmds = ([dryrun_cmd(d, cell) for cell in DRYRUN_CELLS]
+                + [dryrun_cmd(d, cell, ("tp1",)) for cell in DRYRUN_TP1]
+                + [dryrun_cmd(d, DRYRUN_REFUSED, ("dp_all",))]
+                + [[sys.executable, os.path.abspath(__file__),
+                    "--dryrun-child", dev.type, leg]
+                   for leg in DRYRUN_CHILDREN])
+        n_dry = len(cmds)
+        outs = run_together(cmds + (example_cmds(dev) if examples else []),
+                            env)
+        outs, shown = outs[:n_dry], outs[n_dry:]
+        n1 = len(DRYRUN_CELLS) + len(DRYRUN_TP1)
+        refused, children = outs[n1], outs[n1 + 1:]
+        for i, (cmd, (rc, out, err, _)) in enumerate(zip(cmds, outs)):
+            if i != n1:
+                assert rc == 0, (cmd, rc, err[-3000:])
+        for rc, out, _, _ in outs[:n1]:
             assert out.rstrip().endswith(
                 "[dryrun] all requested cells traced OK"), out[-3000:]
-        print(f"dryrun: {len(procs) - 1} cells (leg a) and leg b, one "
-              f"process each, at once: {time.perf_counter() - t0:.2f} s "
-              f"(the records name {card.split(',')[0]})")
+        print(f"dryrun: {n_dry} processes (legs a, a', b, b')"
+              f"{' and the examples' if examples else ''} at once: "
+              f"{time.perf_counter() - t0:.2f} s (the records name "
+              f"{card.split(',')[0]}); each process's seconds: "
+              + ", ".join(f"{lb} {o[3]:.2f}" for lb, o in zip(labels, outs)))
+        if examples:
+            examples_report(dev, shown)
         recs = [dryrun_record(d, cell) for cell in DRYRUN_CELLS]
+        tp1 = [dryrun_record(d, cell, ("tp1",)) for cell in DRYRUN_TP1]
+        # dp_all: the reference's jit refuses a batch that the data axes
+        # and "model" do not divide; the CLI fails there and writes no
+        # record
+        rc, out, _, _ = refused
+        arch, shape, _ = DRYRUN_REFUSED
+        assert rc != 0 and "batch 32 does not split over 256 ranks of " \
+            "('data', 'model')" in out, (rc, out[-3000:])
+        assert not os.path.exists(dryrun_path(d, DRYRUN_REFUSED,
+                                              ("dp_all",)))
+        print(f"  {arch} x {shape} x 16x16 --opt dp_all: refused, exit "
+              f"{rc}: " + next(line for line in out.splitlines()
+                               if "does not split" in line).strip())
     dryrun_report(recs)
-    got = json.loads(outs[-1][0].strip().splitlines()[-1])
-    want = recs[0]["memory_per_device"]
-    for k in ("parameters", "gradients", "optimizer_state"):
-        assert got[k] == want[k], (k, got[k], want[k])
-    arch, shape, _ = DRYRUN_CELLS[0]
-    line = (f"  leg b: {arch} x {shape} rank 0 on {dev.type}, one step in "
-            f"{got['seconds']:.2f} s: parameters {got['parameters']} B, "
-            f"gradients {got['gradients']} B, optimizer state "
-            f"{got['optimizer_state']} B, equal to the meta trace's to the "
-            f"byte; ")
-    peak = want["total_per_device"]
-    if got["peak"] is None:
-        line += (f"the trace's peak {peak / 1e9:.3f} GB; the card's not "
-                 f"measured")
-    else:
-        line += (f"torch.cuda.max_memory_allocated {got['peak'] / 1e9:.3f} "
-                 f"GB beside the trace's peak {peak / 1e9:.3f} GB: ratio "
-                 f"{got['peak'] / peak:.4f}")
-    print(line)
+    tp1_report(tp1)
+    for (leg, (cell, flags)), child in zip(DRYRUN_CHILDREN.items(),
+                                           children):
+        want = (recs[DRYRUN_CELLS.index(cell)] if not flags
+                else tp1[DRYRUN_TP1.index(cell)])["memory_per_device"]
+        got = json.loads(child[1].strip().splitlines()[-1])
+        keys = ("parameters", "gradients", "optimizer_state", "cache")
+        for k in keys:
+            assert got[k] == want[k], (leg, k, got[k], want[k])
+        arch, shape, _ = cell
+        line = (f"  leg {leg}: {arch} x {shape}"
+                f"{' --opt ' + ','.join(flags) if flags else ''} rank 0 on "
+                f"{dev.type}, one step in {got['seconds']:.2f} s: "
+                + ", ".join(f"{k.replace('_', ' ')} {got[k]} B" for k in keys)
+                + ", equal to the meta trace's to the byte; ")
+        peak = want["total_per_device"]
+        if got["peak"] is None:
+            line += (f"the trace's peak {peak / 1e9:.3f} GB; the card's not "
+                     f"measured")
+        else:
+            line += (f"torch.cuda.max_memory_allocated "
+                     f"{got['peak'] / 1e9:.3f} GB beside the trace's peak "
+                     f"{peak / 1e9:.3f} GB: ratio {got['peak'] / peak:.4f}")
+        print(line)
+
+
+def tp1_report(recs: list) -> None:
+    """Leg a''s gates: each tp1 record traced, its parameters a rank the
+    reference's specs without "model" (``reference_bytes(tp1=True)``);
+    train: gradients the parameters', optimizer state six times them and
+    the step, no collective but the data-parallel all-reduces; decode:
+    fits 80 GB (leg b' runs it on the card), its keys and values every
+    kv head over the rank's rows, 16 times the reference's cache specs'
+    (which still split them over "model": ROADMAP queue 3)."""
+    from repro_torch.configs import SHAPES, get_config
+
+    for cell, rec in zip(DRYRUN_TP1, recs):
+        arch, shape, mesh = cell
+        cfg, dims = get_config(arch), DRYRUN_MESHES[mesh]
+        mem = rec["memory_per_device"]
+        assert rec["status"] == "OK", (cell, rec["status"])
+        assert mem["parameters"] == reference_bytes(cfg, dims, tp1=True), (
+            cell, mem["parameters"], reference_bytes(cfg, dims, tp1=True))
+        c = rec["collectives"]
+        extra = ""
+        if SHAPES[shape].kind == "train":
+            assert mem["gradients"] == mem["parameters"]
+            assert mem["optimizer_state"] == 6 * mem["parameters"] + 4
+            assert set(c["by_kind"]) == {"all-reduce"}, c["by_kind"]
+        else:
+            assert rec["hbm_ok"], (cell, mem["total_per_device"])
+            sh = SHAPES[shape]
+            rows = sh.batch // dims["data"]
+            kv = mem["cache"] - cfg.n_layers * 4 * rows     # int32 lens
+            whole = cfg.n_layers * 2 * sh.batch * cfg.n_kv_heads * sh.seq \
+                * cfg.hd * 2
+            assert kv * dims["data"] == whole, (mem["cache"], whole)
+            spec = reference_cache_bytes(cfg, sh.batch, sh.seq, dims)
+            assert kv == 16 * spec, (kv, spec)
+            extra = (f"; keys and values a rank {kv} B, every kv head of its "
+                     f"rows: {kv / spec:.4f} x the reference's cache "
+                     f"specs' {spec} B")
+        print(f"  {arch} x {shape} x {rec['mesh']} --opt tp1: peak "
+              f"{mem['total_per_device'] / 1e9:.3f} GB a rank (fits 80 GB: "
+              f"{rec['hbm_ok']}; parameters {mem['parameters'] / 1e9:.3f}, "
+              f"{mem['parameters'] / reference_bytes(cfg, dims):.4f} x the "
+              f"specs' with 'model'; activations "
+              f"{mem['activations'] / 1e9:.3f}, temporaries "
+              f"{mem['temporaries'] / 1e9:.3f}); "
+              f"{rec['cost_per_device']['flops']:.4e} FLOPs a rank; "
+              f"collectives {c['count']}"
+              + "".join(f", {k} {v['count']} x {v['bytes'] / 1e6:.1f} MB"
+                        for k, v in sorted(c["by_kind"].items()))
+              + f"{extra}; traced in {rec['trace_seconds']:.2f} s")
 
 
 def dryrun_report(recs: list) -> None:
@@ -4173,24 +4332,26 @@ def dryrun_report(recs: list) -> None:
           f"split the positions over 'data' alone)")
 
 
-def dryrun_child(device: str) -> None:
-    """Leg b: rank 0 of DRYRUN_CELLS[0] built on ``device`` (its weights
-    uninitialised) over the fake group of 256 ranks and its step run
-    once; prints a JSON line of its parameter, gradient and
-    optimizer-state bytes, the step's seconds and, on a card, the step's
-    ``torch.cuda.max_memory_allocated`` ("peak"; None elsewhere).  Values
-    are not checked: over a fake group the collectives move nothing."""
+def dryrun_child(device: str, leg: str) -> None:
+    """Leg b or b' (DRYRUN_CHILDREN): the cell's rank 0 built on
+    ``device`` (its weights uninitialised) over the fake group of 256
+    ranks and its step run once; prints a JSON line of its parameter,
+    gradient, optimizer-state and cache bytes, the step's seconds and,
+    on a card, the step's ``torch.cuda.max_memory_allocated`` ("peak";
+    None elsewhere).  Values are not checked: over a fake group the
+    collectives move nothing."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
 
-    arch, shape, mesh = DRYRUN_CELLS[0]
+    (arch, shape, mesh), flags = DRYRUN_CHILDREN[leg]
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     with dryrun.fake_world(256):
         m = make_production_mesh(multi_pod=mesh == "multi",
                                  device_type="cpu")
-        t = dryrun.trace_cell(get_config(arch), SHAPES[shape], m, device=dev)
+        t = dryrun.trace_cell(get_config(arch), SHAPES[shape], m,
+                              opt_flags=flags, device=dev)
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -4199,13 +4360,41 @@ def dryrun_child(device: str) -> None:
         if cuda:
             torch.cuda.synchronize(dev)
         secs = time.perf_counter() - t0
+    held = {k: sum(x.numel() * x.element_size()
+                   for x in dryrun._tensors(t.held.get(k, [])))
+            for k in ("optimizer_state", "cache")}
     print(json.dumps({
         "parameters": param_bytes(t.model),
-        "gradients": sum(t.grads.values()),
-        "optimizer_state": sum(x.numel() * x.element_size() for x in
-                               dryrun._tensors(t.held["optimizer_state"])),
+        "gradients": sum(t.grads.values()), **held,
         "seconds": secs,
         "peak": torch.cuda.max_memory_allocated(dev) if cuda else None}))
+
+
+def example_cmds(dev) -> list:
+    """EXAMPLES as a user starts them: ``python3 examples/<name>.py`` on
+    the card (``--device`` elsewhere)."""
+    return [[sys.executable, os.path.join(ROOT, "examples", f"{name}.py")]
+            + (["--device", dev.type] if dev.type != "cuda" else [])
+            for name in EXAMPLES]
+
+
+def examples_report(dev, outs: list) -> None:
+    """Each example's process (``run_together``'s outputs, in EXAMPLES'
+    order) ended with 0 and printed its closing check line (results
+    against ``ref()``, the decode engine's tokens against
+    ``greedy_generate``): a line for each, with its seconds."""
+    for (name, check), (rc, out, err, secs) in zip(EXAMPLES.items(), outs):
+        assert rc == 0, (name, rc, err[-3000:])
+        assert check in out, (name, out[-3000:])
+        line = next(ln for ln in out.splitlines() if check in ln)
+        print(f"  examples/{name}.py on {dev.type}: exit 0 at {secs:.2f} s "
+              f"from the start: {line.strip()}")
+
+
+def examples_phase(dev) -> None:
+    """The examples phase alone: EXAMPLES' processes at once."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    examples_report(dev, run_together(example_cmds(dev), env))
 
 
 def held_line(dev, after: str) -> None:
@@ -4218,9 +4407,10 @@ def held_line(dev, after: str) -> None:
 
 def main() -> int:
     argv = sys.argv[1:]
-    if "--dryrun-child" in argv:    # dryrun_phase's leg b, on its device
+    if "--dryrun-child" in argv:    # dryrun_phase's leg b or b'
         sys.path.insert(0, os.path.join(ROOT, "src"))
-        dryrun_child(argv[argv.index("--dryrun-child") + 1])
+        i = argv.index("--dryrun-child")
+        dryrun_child(argv[i + 1], argv[i + 2])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4382,10 +4572,17 @@ def main() -> int:
         print(f"split: {time.perf_counter() - t0:.2f} s")
         held("split")
     if run("dryrun"):
+        # the examples' processes start with the dry-run's
         t0 = time.perf_counter()
-        dryrun_phase(dev, smi)
-        print(f"dryrun: {time.perf_counter() - t0:.2f} s")
-        held("dryrun")
+        dryrun_phase(dev, smi, examples=run("examples"))
+        both = " and examples" if run("examples") else ""
+        print(f"dryrun{both}: {time.perf_counter() - t0:.2f} s")
+        held(f"dryrun{both}")
+    elif run("examples"):
+        t0 = time.perf_counter()
+        examples_phase(dev)
+        print(f"examples: {time.perf_counter() - t0:.2f} s")
+        held("examples")
     for r in rows:
         print(f"  {r['name']:15s} {r.get('launches', '-')} wrapper launches "
               f"on its path; {fmt(r['cuda_launches_per_call'])} CUDA "

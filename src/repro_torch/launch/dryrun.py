@@ -96,7 +96,9 @@ CONFIG_FLAGS = {"remat_dots": {"remat_policy": "dots"},
                 "moe_ep": {"moe_ep": True}}
 #: the flags of the train step: 4 microbatches, the CE over 16 vocab chunks
 STEP_FLAGS = ("microbatch", "chunked_loss")
-#: the reference's flags that rewrite its parameter specs
+#: the reference's flags that rewrite its parameter specs: both strip
+#: "model" from them (``transformer.param_specs(cfg, tp1=True)``), and
+#: ``dp_all`` also splits the prefill batch over "model"
 SPEC_FLAGS = ("tp1", "dp_all")
 
 #: ring traffic a rank per operand byte over a group of n ranks
@@ -111,21 +113,25 @@ _ALLOCATIONS = {torch.ops.aten.empty, torch.ops.aten.empty_like,
 
 def apply_opt_flags(cfg, opt_flags):
     """``cfg`` with the config fields of ``opt_flags`` replaced (the
-    reference's levers); ``tp1`` and ``dp_all`` raise: the port's
-    placement reads ``param_specs`` inside the model (ROADMAP queue 1,
-    item 9.8b)."""
+    reference's levers); the step's and the specs' flags change no field
+    (``trace_cell`` reads them)."""
+    known = sorted(CONFIG_FLAGS) + list(STEP_FLAGS) + list(SPEC_FLAGS)
     for f in opt_flags:
-        if f in SPEC_FLAGS:
-            raise ValueError(
-                f"opt flag {f!r} rewrites the reference's parameter specs, "
-                f"which the port reads inside the model: not ported "
-                f"(ROADMAP queue 1, item 9.8b)")
-        if f not in CONFIG_FLAGS and f not in STEP_FLAGS:
-            raise ValueError(f"unknown opt flag {f!r}; known: "
-                             f"{sorted(CONFIG_FLAGS) + list(STEP_FLAGS)}")
+        if f not in known:
+            raise ValueError(f"unknown opt flag {f!r}; known: {known}")
     for f in opt_flags:
         cfg = dataclasses.replace(cfg, **CONFIG_FLAGS.get(f, {}))
     return cfg
+
+
+def prefill_axes(mesh, opt_flags) -> tuple | None:
+    """The axes that split the prefill batch: the data axes (None), or
+    under ``dp_all`` the data axes and "model" (the reference's
+    ``P((*data_axes, "model"), ...)``, ``repro/launch/dryrun.py:124-131``)."""
+    if "dp_all" not in opt_flags:
+        return None
+    dp = sharding.data_axes(mesh)
+    return ((dp,) if isinstance(dp, str) else tuple(dp)) + ("model",)
 
 
 @contextlib.contextmanager
@@ -170,8 +176,13 @@ def _nbytes(tree) -> int:
 
 def _local(t: torch.Tensor, device, rows: slice | None = None):
     """A tensor of ``t``'s dtype and the shape of its ``rows``, on
-    ``device``, with storage of its own (uninitialised)."""
-    return torch.empty_like(t if rows is None else t[rows], device=device)
+    ``device``, with storage of its own: uninitialised, but for an integer
+    tensor (token ids, labels) on a device that runs the step, which is
+    zero, so that every index it holds is in range."""
+    t = t if rows is None else t[rows]
+    if torch.device(device).type != "meta" and not t.is_floating_point():
+        return torch.zeros_like(t, device=device)
+    return torch.empty_like(t, device=device)
 
 
 def _note_grad(grads: dict, name: str, g: torch.Tensor) -> None:
@@ -187,10 +198,19 @@ def trace_cell(cfg, shape, mesh, *, opt_flags=(), device="meta") -> Traced:
     on the rank's rows) or decode (``launch.serve.make_cache`` and
     ``make_serve_step`` of the batch, on the rank's streams or, where the
     batch is replicated, its block of positions; the VLM family's cache
-    holds its frontend's keys and values).  The model's constructor
-    raises first where ``transformer.check_ported`` refuses the mesh."""
+    holds its frontend's keys and values).  ``tp1`` or ``dp_all`` builds
+    the model on the reference's specs without "model"
+    (``transformer.Transformer(tp1=True)``), and ``dp_all`` splits the
+    prefill's rows over "model" too (``prefill_axes``; a batch that does
+    not divide raises, as the reference's ``jit`` refuses it).  The
+    model's constructor raises first where ``transformer.check_ported``
+    refuses the mesh."""
     cfg = apply_opt_flags(cfg, opt_flags)
-    model = transformer.Transformer(cfg, device=device, mesh=mesh)
+    tp1 = any(f in SPEC_FLAGS for f in opt_flags)
+    axes = prefill_axes(mesh, opt_flags) if shape.kind == "prefill" else None
+    if axes:
+        train.rows(shape.batch, mesh, axes)
+    model = transformer.Transformer(cfg, device=device, mesh=mesh, tp1=tp1)
     specs = input_specs(cfg, shape)
     B, S = shape.batch, shape.seq
     grads: dict = {}
@@ -208,7 +228,7 @@ def trace_cell(cfg, shape, mesh, *, opt_flags=(), device="meta") -> Traced:
         return Traced(lambda: step(model, opt_state, batch), model,
                       {"optimizer_state": opt_state, "inputs": batch}, grads)
     if shape.kind == "prefill":
-        r = train.rows(B, mesh)
+        r = train.rows(B, mesh, axes)
         batch = {k: _local(v, device, r) for k, v in specs.items()}
 
         def prefill():
@@ -216,7 +236,7 @@ def trace_cell(cfg, shape, mesh, *, opt_flags=(), device="meta") -> Traced:
                 return transformer.forward(
                     model, cfg, tokens=batch.get("tokens"),
                     embeds=batch.get("embeds"), frontend=batch.get("frontend"),
-                    use_kernel=False)
+                    use_kernel=False, batch_axes=axes)
         return Traced(prefill, model, {"inputs": batch}, grads)
     frontend = None
     if cfg.family == "vlm":

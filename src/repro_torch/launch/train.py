@@ -111,12 +111,14 @@ def _dp(mesh) -> tuple[str, ...]:
     return tuple(a for a in dp if a in sharding.mesh_shape(mesh))
 
 
-def rows(n: int, mesh) -> slice:
-    """This rank's rows of ``n`` split over the data axes of ``mesh``."""
-    dp = _dp(mesh)
+def rows(n: int, mesh, axes=None) -> slice:
+    """This rank's rows of ``n`` split over the data axes of ``mesh``, or
+    over ``axes`` (the first major: the reference's ``P(axes, ...)``)."""
+    dp = _dp(mesh) if axes is None else tuple(axes)
     D = axis_size(mesh, dp)
     if n % D:
-        raise ValueError(f"batch {n} does not split over {D} data ranks")
+        what = "data ranks" if axes is None else f"ranks of {dp}"
+        raise ValueError(f"batch {n} does not split over {D} {what}")
     i = sharding.axis_index(mesh, dp)
     return slice(i * n // D, (i + 1) * n // D)
 

@@ -9,7 +9,9 @@ a shard by ``layers.layout`` — tensor parallelism and the experts over
 replicated batch split along the sequence over "data"
 (``attention.merge_partials``) and the splits inside a head (a rank's
 columns cut a head: it computes every head they touch,
-``layers.head_split``).  Still missing: the Mamba heads that do not
+``layers.head_split``); the reference dry-run's ``tp1`` placement, its
+specs without "model" (``transformer.Transformer(tp1=True)``).  Still
+missing: the Mamba heads that do not
 divide and a ``parallel_block`` mixer other than self-attention, which
 ``transformer.check_ported`` refuses (ROADMAP queue 1, item 9.7c)."""
 from . import attention, moe, transformer

@@ -26,6 +26,9 @@ so too, wherever a head falls: a rank computes every head its block
 touches (``head_split``), gathering what it does not hold whole over
 "model" (``gather_blocks``).  Each rank draws every leaf as one process
 draws it, a slab of rows at a time (``leaf``), and keeps its part.
+The reference's ``tp1`` rewrite of the specs (``strip_model``) leaves no
+"model" entry: a model placed by it is built on a "model" group of one
+rank (``sharding.SOLO``), so ``layout`` splits nothing over "model".
 """
 from __future__ import annotations
 
@@ -252,6 +255,13 @@ def rms_norm_parts(x: torch.Tensor, scale: torch.Tensor, n: int,
 def emb_axis(fsdp: bool):
     """Mesh axis for the embed dim of params: FSDP shards it over 'data'."""
     return "data" if fsdp else None
+
+
+def strip_model(spec: P) -> P:
+    """The reference's ``tp1`` rewrite of one spec (its dry-run's
+    ``_strip_model_axis``, ``repro/launch/dryrun.py:60-66``): every entry
+    equal to "model" becomes None; a tuple entry is kept as it is."""
+    return P(*(None if e == "model" else e for e in spec))
 
 
 def mlp_specs(cfg: ModelConfig) -> dict:

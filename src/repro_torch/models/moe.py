@@ -15,7 +15,7 @@ batch split over the data axes, replicated over "model", and the experts
 are split over a "model" axis of M > 1 ranks whatever ``moe_ep`` says
 (the reference's ``P("model", e, None)``, which ``jax.jit`` places so):
 the module holds the experts [j·E/M, (j+1)·E/M) of model rank j
-(``ep_slice``).  Each rank computes its experts' (token, expert) pairs of
+(``MoE.experts``).  Each rank computes its experts' (token, expert) pairs of
 the replicated routing, so no token crosses the wire, and the combine is
 one all-reduce over "model".  ``moe_ep`` only picks the per-shard
 function:
@@ -41,6 +41,13 @@ alike (the reference's ``apply_ep`` gathers them by hand,
 EXPERT_GATHER_BYTES hold gathered, each block multiplied and freed before
 the next (each expert needs only its own weights, so the function is the
 same).
+
+Under the reference's ``tp1`` specs (a model built with ``tp1=True``)
+every rank holds the experts whole and computes them all; under
+``moe_ep`` each rank then takes its block of them (``Group.part``, whose
+backward sums the ranks' gradients over "model"), as the reference's
+``shard_map`` slices its replicated experts, and the combine is the
+all-reduce again.
 
 Under tensor parallelism the shared experts hold the dense FFN's layout
 (``layers.MLP``): their partial sums join the experts' combine in one
@@ -71,31 +78,27 @@ from .layers import MLP, ModelConfig, build, emb_axis, gathered, mlp, swiglu
 EXPERT_GATHER_BYTES = 2 << 30
 
 
-def expert_ranks(cfg: ModelConfig, mesh, model_axis: str = "model") -> int:
+def expert_ranks(cfg: ModelConfig, mesh, model_axis: str = "model",
+                 tp1: bool = False) -> int:
     """The ranks of ``model_axis`` of ``mesh`` (a DeviceMesh or ``{axis:
-    size}``) the experts split over, 1 where there is no such axis.
-    ``moe_ep`` without a mesh that has ``model_axis`` raises, and so do
-    experts that do not divide over it."""
+    size}``) the experts split over, 1 where there is no such axis, or
+    under ``tp1`` (the specs without "model") unless ``moe_ep``: the
+    reference's ``apply_ep`` keeps its ``shard_map``'s in_specs on
+    ``model_axis`` and so slices the whole experts there.  ``moe_ep``
+    without a mesh that has ``model_axis`` raises, and so do experts that
+    do not divide over it."""
     E = cfg.moe_experts
     has = mesh is not None and model_axis in sharding.mesh_shape(mesh)
     if cfg.moe_ep and not has:
         raise ValueError(f"{cfg.name}: moe_ep=True (expert parallelism) needs"
                          f" a mesh with a {model_axis!r} axis to shard the "
                          f"{E} experts over")
-    m = sharding.axis_size(mesh, model_axis) if has else 1
+    m = sharding.axis_size(mesh, model_axis) if has and (
+        cfg.moe_ep or not tp1) else 1
     if E % m:
         raise ValueError(f"{cfg.name}: the {E} experts do not split over {m} "
                          f"{model_axis!r} ranks")
     return m
-
-
-def ep_slice(cfg: ModelConfig, mesh, model_axis: str = "model") -> slice:
-    """The experts this rank holds: its model rank's block on a mesh whose
-    ``model_axis`` has more than one rank, all of them otherwise
-    (``expert_ranks`` raises first)."""
-    if expert_ranks(cfg, mesh, model_axis) == 1:
-        return slice(0, cfg.moe_experts)
-    return sharding.block(cfg.moe_experts, mesh, model_axis)
 
 
 class MoE(nn.Module):
@@ -105,24 +108,28 @@ class MoE(nn.Module):
     ``gen`` when it is given (the reference's scheme: fan-in of d for
     ``wi``, of f for ``wo``), uninitialised otherwise (for a weight
     carry).  On ``mesh``, ``wi`` and ``wo`` hold the rank's experts only
-    (``self.experts``, ``ep_slice``) and, under FSDP, the rank's block of
-    their d dimension, as the router does: each leaf is drawn as one
+    (``self.experts``, its block over ``ep``) and, under FSDP, the rank's
+    block of their d dimension, as the router does: each leaf is drawn as one
     process draws it (``layers.leaf``) and the rank keeps its part, equal
     to that part of the one-process model of the same seed.  On ``tp``
-    the shared experts hold the rank's part."""
+    the shared experts hold the rank's part.  ``ep``: the group the
+    experts are split over (default the mesh's "model" axis; in a model,
+    its "model" group, which is one rank under ``tp1``: the experts
+    whole)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None, mesh=None, tp: Group = SOLO):
+                 device=None, mesh=None, tp: Group = SOLO,
+                 ep: Group | None = None):
         super().__init__()
         d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
-        self.experts = ep_slice(cfg, mesh)
+        ep = sharding.group(mesh, "model") if ep is None else ep
+        self.experts = ep.block(E)
         fs = sharding.group(mesh, "data")
         shapes = {"router": ((d, E), torch.float32, 0),
                   "wi": ((E, d, 2 * f), cfg.dtype, 1),
                   "wo": ((E, f, d), cfg.dtype, 1)}
-        # the experts' "model" group, then the layer's tensor-parallel one
-        build(self, shapes, specs(cfg), cfg.dtype, gen, device,
-              sharding.group(mesh, "model"), fs)
+        # the experts' group, then the layer's tensor-parallel one
+        build(self, shapes, specs(cfg), cfg.dtype, gen, device, ep, fs)
         self.tp = tp
         if cfg.moe_shared_experts:
             self.shared = MLP(cfg, f * cfg.moe_shared_experts, gen=gen,
@@ -175,34 +182,35 @@ def _rank_in_expert(ef: torch.Tensor, E: int):
     return rank, counts
 
 
-def _expert_blocks(p: MoE) -> list[tuple[int, int]]:
-    """The ranges of the rank's experts multiplied at once: all of them,
-    or under FSDP as many as EXPERT_GATHER_BYTES hold gathered (at least
-    one)."""
-    n = p.wi.shape[0]
+def _expert_blocks(p: MoE, wi, wo) -> list[tuple[int, int]]:
+    """The ranges of the rank's experts ``wi`` / ``wo`` multiplied at
+    once: all of them, or under FSDP as many as EXPERT_GATHER_BYTES hold
+    gathered (at least one)."""
+    n = wi.shape[0]
     if "wi" not in p.fsdp_dims:
         return [(0, n)]
-    whole = (p.wi[0].numel() + p.wo[0].numel()) * p.wi.element_size() \
-        * p.fs.size
+    whole = (wi[0].numel() + wo[0].numel()) * wi.element_size() * p.fs.size
     k = max(1, min(n, EXPERT_GATHER_BYTES // whole))
     return [(a, min(a + k, n)) for a in range(0, n, k)]
 
 
-def _expert_weights(p: MoE, a: int, b: int):
+def _expert_weights(p: MoE, wi, wo, a: int, b: int):
     """``wi`` and ``wo`` of the rank's experts [a, b), gathered over
     "data" under FSDP."""
     if "wi" not in p.fsdp_dims:
-        return p.wi, p.wo
-    return (p.fs.fsdp_gather(p.wi[a:b], p.fsdp_dims["wi"]),
-            p.fs.fsdp_gather(p.wo[a:b], p.fsdp_dims["wo"]))
+        return wi, wo
+    return (p.fs.fsdp_gather(wi[a:b], p.fsdp_dims["wi"]),
+            p.fs.fsdp_gather(wo[a:b], p.fsdp_dims["wo"]))
 
 
-def _experts(p: MoE, xt, ef, rank, kept, gate, C: int, cnt, use_kernel: bool):
+def _experts(p: MoE, xt, ef, rank, kept, gate, C: int, cnt, use_kernel: bool,
+             lo: int, wi, wo):
     """The (T, d) sum over each token's kept pairs with the rank's experts
-    of gate × expert output.  A pair's slot is ``(e - lo) * C + rank``;
-    dropped pairs and other ranks' pairs go to the spare row, cut off."""
+    ``wi`` / ``wo`` (the experts [lo, lo + n)) of gate × expert output.  A
+    pair's slot is ``(e - lo) * C + rank``; dropped pairs and other
+    ranks' pairs go to the spare row, cut off."""
     T, d = xt.shape
-    lo, n = p.experts.start, p.wi.shape[0]
+    n = wi.shape[0]
     K = ef.numel() // T
     mine = kept & (ef >= lo) & (ef < lo + n)
     slot = torch.where(mine, (ef - lo) * C + rank, n * C)
@@ -220,12 +228,12 @@ def _experts(p: MoE, xt, ef, rank, kept, gate, C: int, cnt, use_kernel: bool):
     else:
         experts = lambda a, w, c: torch.bmm(a, w)       # noqa: E731
     ys = []
-    for a, b in _expert_blocks(p):
-        wi, wo = _expert_weights(p, a, b)
-        g, u = experts(xg[a:b], wi, cnt[a:b]).chunk(2, dim=-1)
+    for a, b in _expert_blocks(p, wi, wo):
+        wia, woa = _expert_weights(p, wi, wo, a, b)
+        g, u = experts(xg[a:b], wia, cnt[a:b]).chunk(2, dim=-1)
         h = torch.nn.functional.silu(g.to(torch.float32)).to(xt.dtype) * u
-        ys.append(experts(h, wo, cnt[a:b]))
-        del wi, wo
+        ys.append(experts(h, woa, cnt[a:b]))
+        del wia, woa
     yg = ys[0] if len(ys) == 1 else torch.cat(ys)
 
     # combine: each pair's expert output, weighted; a token's K pairs are
@@ -237,11 +245,16 @@ def _experts(p: MoE, xt, ef, rank, kept, gate, C: int, cnt, use_kernel: bool):
 
 
 def apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
-          use_kernel: bool = False, mesh=None, model_axis: str = "model"):
+          use_kernel: bool = False, mesh=None, model_axis: str = "model",
+          batch_axes=None):
     """x: (B, S, d) -> ((B, S, d), aux), aux the float32 load-balancing
     loss.  With ``mesh``, ``x`` is this data rank's rows and the result is
-    that of the whole batch (module docstring)."""
-    return _moe(p, cfg, x, use_kernel, mesh, model_axis, per_shard=False)
+    that of the whole batch (module docstring); ``batch_axes``: the axes
+    that split the batch, default the mesh's axes but ``model_axis`` (the
+    reference's ``dp_all`` adds ``model_axis``, over which a ``tp1`` model
+    holds the experts whole)."""
+    return _moe(p, cfg, x, use_kernel, mesh, model_axis, per_shard=False,
+                batch_axes=batch_axes)
 
 
 def apply_ep(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, mesh,
@@ -257,14 +270,27 @@ def apply_ep(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, mesh,
 
 
 def _moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, use_kernel: bool, mesh,
-         model_axis: str, per_shard: bool):
+         model_axis: str, per_shard: bool, batch_axes=None):
     B, S, d = x.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
     T = B * S
     xt = x.reshape(T, d)
-    dp = sharding.other_axes(mesh, model_axis) if mesh is not None else ()
+    dp = batch_axes or (sharding.other_axes(mesh, model_axis)
+                        if mesh is not None else ())
     D = sharding.axis_size(mesh, dp) if dp else 1
-    split = p.wi.shape[0] < E                   # experts over model_axis
+    lo, wi, wo = p.experts.start, p.wi, p.wo
+    split = wi.shape[0] < E                     # experts over model_axis
+    if split and model_axis in dp:
+        raise ValueError(f"a batch split over {dp} needs the experts whole "
+                         f"on every {model_axis!r} rank (tp1)")
+    if per_shard and not split:
+        # tp1 with moe_ep: the whole experts on every rank, which takes
+        # its block of them, as the reference's shard_map slices them
+        # (``part`` sums the ranks' gradients of their blocks)
+        ep = sharding.group(mesh, model_axis)
+        if ep.size > 1:
+            lo, split = ep.block(E).start, True
+            wi, wo = ep.part(wi, 0), ep.part(wo, 0)
 
     probs = torch.softmax(xt.to(torch.float32) @ gathered(p).router, dim=-1)
     # each rank's pairs use the replicated probabilities and tokens: their
@@ -296,7 +322,8 @@ def _moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, use_kernel: bool, mesh,
     if apply.routing is not None:
         apply.routing.append((topk.sort(-1).values, int((~kept).sum())))
 
-    y = _experts(p, xin, ef, rank, kept, gate, C, cnt[p.experts], use_kernel)
+    y = _experts(p, xin, ef, rank, kept, gate, C,
+                 cnt[lo:lo + wi.shape[0]], use_kernel, lo, wi, wo)
 
     joined = cfg.moe_shared_experts and split and p.tp.size > 1
     if joined:      # the shared experts' partial sums join the combine

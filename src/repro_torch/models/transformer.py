@@ -38,7 +38,15 @@ reduce-scattered over "data".  A rank's columns of the attention's or
 the mLSTM's heads may cut a head: it computes every head they touch
 (``layers.head_split``).  A config whose "model" or "data" dimensions,
 Mamba heads or experts do not split over the mesh raises
-(``check_ported``).
+(``check_ported``).  ``tp1=True`` places the model by the specs the
+reference's dry-run leaves for its ``tp1`` and ``dp_all`` flags
+(``param_specs(cfg, tp1=True)``: no "model" entry): its "model" group
+is one rank, so every rank of a "model" axis holds the
+"model" dimensions and the experts whole and computes what the others
+compute; FSDP's "data" entries stay, and under ``moe_ep`` each rank
+takes its block of the whole experts, as the reference's ``shard_map``
+slices them.  A prefill's batch may also split over "model" (the
+reference's ``dp_all``; ``forward``'s ``batch_axes``).
 In decode a batch replicated over the data axes may hold each
 self-attention cache as the rank's block of positions (``decode_step``'s
 ``seq``; ``launch.serve.seq_shard``).
@@ -64,7 +72,8 @@ from repro_torch.core.banked import _device
 from repro_torch.core.sharding import P
 from . import attention, mamba, moe, xlstm
 from .layers import (MLP, ModelConfig, _param, build, emb_axis, gathered,
-                     layout, mlp, mlp_specs, rms_norm, swiglu)
+                     layout, mlp, mlp_specs, rms_norm, strip_model,
+                     swiglu)
 
 #: each mixer's module
 _MIXERS = {"attn": attention.Attention, "cross": attention.Attention,
@@ -112,23 +121,27 @@ def layer_plan(cfg: ModelConfig):
     raise ValueError(f"no periodic plan for {cfg.name}")
 
 
-def check_ported(cfg: ModelConfig, mesh=None) -> None:
+def check_ported(cfg: ModelConfig, mesh=None, tp1: bool = False) -> None:
     """Raise ``ValueError`` when ``cfg`` cannot be built on ``mesh``:
     ``moe_ep`` needs a mesh with a "model" axis, and the experts must
-    divide over a "model" axis of M > 1 ranks; tensor parallelism over
-    such an axis needs every "model" dimension of ``param_specs`` to
-    divide by M (``jax.jit`` refuses such a spec), each fused leaf's
-    halves too, Mamba's heads to divide by M, and a ``parallel_block``
-    config's dense layers to mix by self-attention (the one mixer whose
-    partial sum joins the FFN's); FSDP over a "data" axis of D > 1 ranks
-    needs every "data" dimension to divide by D.  The attention's and
-    the mLSTM's heads need not divide: a rank's columns may cut a head,
-    and it computes every head they touch (``layers.head_split``).  Each
-    message names the config and the axis."""
+    divide over a "model" axis of M > 1 ranks (``moe.expert_ranks``);
+    tensor parallelism over such an axis needs every "model" dimension of
+    ``param_specs`` to divide by M (``jax.jit`` refuses such a spec), each
+    fused leaf's halves too, Mamba's heads to divide by M, and a
+    ``parallel_block`` config's dense layers to mix by self-attention (the
+    one mixer whose partial sum joins the FFN's); FSDP over a "data" axis
+    of D > 1 ranks needs every "data" dimension to divide by D.  The
+    attention's and the mLSTM's heads need not divide: a rank's columns
+    may cut a head, and it computes every head they touch
+    (``layers.head_split``).  ``tp1``: the specs without "model"
+    (``param_specs``), so only FSDP's dimensions and ``moe_ep``'s experts
+    must divide.  Each message names the config and the axis."""
     if any(_desc(cfg, li)["ffn"] == "moe" for li in range(cfg.n_layers)):
-        moe.expert_ranks(cfg, mesh)
+        moe.expert_ranks(cfg, mesh, tp1=tp1)
+    specs = param_specs(cfg, tp1)
     dims = sharding.mesh_shape(mesh) if mesh is not None else {}
-    m, d = dims.get("model", 1), dims.get("data", 1)
+    m = 1 if tp1 else dims.get("model", 1)
+    d = dims.get("data", 1)
     if m == 1 and d == 1:
         return
     why = f"{cfg.name}: tensor parallelism over {m} model ranks"
@@ -145,7 +158,7 @@ def check_ported(cfg: ModelConfig, mesh=None) -> None:
     whole = Transformer(dataclasses.replace(cfg, moe_ep=False), device="meta")
     shapes = {k: tuple(v.shape) for k, v in whole.named_parameters()}
     fsdp = f"{cfg.name}: FSDP over {d} data ranks"
-    for name, spec in param_specs(cfg).items():
+    for name, spec in specs.items():
         for how, sizes in ((why, (m, 1)), (fsdp, (1, d))):
             try:
                 layout(name, spec, shapes[name], *sizes)
@@ -159,11 +172,14 @@ _MIXER_SPECS = {"attn": attention.specs, "cross": attention.specs,
                 "slstm": xlstm.slstm_specs}
 
 
-def param_specs(cfg: ModelConfig) -> dict:
+def param_specs(cfg: ModelConfig, tp1: bool = False) -> dict:
     """The reference's ``PartitionSpec`` (``P``) of every parameter, by
     the port's parameter name: the specs of the reference's ``init`` for
     each leaf (a stacked group leaf's without its leading repeat axis;
-    ``convert.reference_specs`` gives the reference's tree)."""
+    ``convert.reference_specs`` gives the reference's tree).  ``tp1``:
+    rewritten as the reference's dry-run does for its ``tp1`` and
+    ``dp_all`` flags (``layers.strip_model``: no entry "model"; "data"
+    kept)."""
     e = emb_axis(cfg.fsdp)
     out = {"embed": P("model", e), "lm_head": P(e, "model"),
            "final_norm": P(None)}
@@ -175,7 +191,7 @@ def param_specs(cfg: ModelConfig) -> dict:
             blk["ffn"] = (moe.specs(cfg) if desc["ffn"] == "moe"
                           else mlp_specs(cfg))
         out.update(_named(blk, f"layers.{li}."))
-    return out
+    return {k: strip_model(v) for k, v in out.items()} if tp1 else out
 
 
 def _named(tree: dict, prefix: str):
@@ -225,7 +241,8 @@ class Block(nn.Module):
                                             fs=fs)
         if desc["ffn"] != "none":
             self.norm2 = _param(torch.ones(d, dtype=cfg.dtype, device=device))
-            self.ffn = (moe.MoE(cfg, gen=gen, device=device, mesh=mesh, tp=tp)
+            self.ffn = (moe.MoE(cfg, gen=gen, device=device, mesh=mesh, tp=tp,
+                                ep=tp)
                         if desc["ffn"] == "moe"
                         else MLP(cfg, desc["ff"], gen=gen, device=device,
                                  tp=tp, fs=fs))
@@ -240,16 +257,23 @@ class Transformer(nn.Module):
     ``loss_fn`` and ``decode_step``), whose "model" axis (``self.tp``)
     shards the dense leaves and the experts and whose "data" axis
     (``self.fs``) the FSDP leaves: the rank draws each leaf as one
-    process draws it and keeps its part."""
+    process draws it and keeps its part.  ``tp1``: placed by the
+    reference's ``tp1`` specs (``param_specs(cfg, tp1=True)``): ``self.tp``
+    is the group of one (``sharding.SOLO``), so each rank holds the "model"
+    dimensions and the experts whole and the ranks of a "model" axis
+    compute alike; FSDP's "data" entries stay."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
-                 device=None, mesh=None):
+                 device=None, mesh=None, tp1: bool = False):
         super().__init__()
-        check_ported(cfg, mesh)
+        check_ported(cfg, mesh, tp1)
         dev = _device(device)
         self.cfg = cfg
         self.mesh = mesh
-        tp = sharding.group(mesh, "model")
+        # the tp1 specs hold no "model" entry (``layers.strip_model``, the
+        # reference's ``_strip_model_axis``; no spec names "model" inside a
+        # tuple), so the layers split nothing over a "model" group of one
+        tp = sharding.SOLO if tp1 else sharding.group(mesh, "model")
         fs = sharding.group(mesh, "data")
         d, V = cfg.d_model, cfg.vocab
         e = emb_axis(cfg.fsdp)
@@ -267,18 +291,18 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device=None,
-         mesh=None) -> Transformer:
+def init(cfg: ModelConfig, *, seed: int = 0, device=None, mesh=None,
+         tp1: bool = False) -> Transformer:
     """A model with seeded random weights (the reference's scheme: normal
     with variance 1 / fan-in, ones for the norms, zeros for the biases),
     drawn on ``device`` from ``torch.Generator(device).manual_seed(seed)``.
     The bits differ from the reference's ``jax.random`` ones; the parity
     tests carry the reference's weights across instead.  On ``mesh`` every
     rank draws what one process draws, a slab at a time, and keeps its
-    part of each leaf (``layers.leaf``)."""
+    part of each leaf (``layers.leaf``); ``tp1`` as ``Transformer``'s."""
     dev = _device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return Transformer(cfg, gen=gen, device=dev, mesh=mesh)
+    return Transformer(cfg, gen=gen, device=dev, mesh=mesh, tp1=tp1)
 
 
 # ---------------------------------------------------------------------------
@@ -307,10 +331,11 @@ def _mix(p: Block, cfg: ModelConfig, h: torch.Tensor, frontend,
 
 
 def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                 use_kernel: bool, frontend=None, mesh=None):
+                 use_kernel: bool, frontend=None, mesh=None, batch_axes=None):
     """One block's forward -> (x, aux), aux the MoE FFN's load-balancing
     loss (0 for the other FFNs); ``frontend`` the tokens a cross layer
-    attends to; ``mesh`` the mesh whose data axes split ``x``'s batch."""
+    attends to; ``mesh`` the mesh whose data axes (or ``batch_axes``)
+    split ``x``'s batch."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.norm1)
     if cfg.parallel_block and p.desc["ffn"] == "dense":
@@ -326,7 +351,7 @@ def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
             fo, aux = moe.apply_ep(p.ffn, cfg, h2, mesh=mesh)
         else:
             fo, aux = moe.apply(p.ffn, cfg, h2, use_kernel=use_kernel,
-                                mesh=mesh)
+                                mesh=mesh, batch_axes=batch_axes)
     else:
         fo = mlp(p.ffn, h2)
     return x + fo, aux
@@ -385,10 +410,12 @@ def _embed(model: Transformer, cfg: ModelConfig, tokens, embeds):
 
 
 def _group_apply(blocks, cfg: ModelConfig, x: torch.Tensor,
-                 aux: torch.Tensor, use_kernel: bool, frontend, mesh):
+                 aux: torch.Tensor, use_kernel: bool, frontend, mesh,
+                 batch_axes=None):
     """Blocks in order, summing their aux into ``aux`` -> (x, aux)."""
     for blk in blocks:
-        x, a = _block_apply(blk, cfg, x, use_kernel, frontend, mesh)
+        x, a = _block_apply(blk, cfg, x, use_kernel, frontend, mesh,
+                            batch_axes)
         aux = aux + a
     return x, aux
 
@@ -412,38 +439,51 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def trunk(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
-          frontend=None, use_kernel: bool = False, mesh=None):
+          frontend=None, use_kernel: bool = False, mesh=None,
+          batch_axes=None):
     """Embed + all blocks + final norm (pre-lm_head hidden). → (x, aux);
     ``aux`` is the sum of the MoE layers' load-balancing losses.
     ``frontend`` (B, T, d): the tokens the cross layers attend to.  With
     ``cfg.remat`` and grad on, each repeat of the layer plan's period
     (not the prologue) is recomputed in the backward pass.  ``mesh``
     (default ``model.mesh``; ``False``: none): the mesh whose data axes
-    split the batch."""
+    split the batch; ``batch_axes``: the axes that split it instead (the
+    reference's ``dp_all`` prefill splits it over "model" too, which only
+    a model whose "model" group is one rank takes: ``tp1``)."""
     mesh = _mesh(model, mesh)
+    if batch_axes and "model" in batch_axes:
+        if model.tp.size > 1:
+            raise ValueError(f"a batch split over {batch_axes} needs a model "
+                             f"without tensor parallelism (tp1)")
+        if cfg.moe_ep:      # its shard_map would gather the rows over "model"
+            raise ValueError(f"{cfg.name}: moe_ep with a batch split over "
+                             f"{batch_axes} (dp_all): not ported")
     x = _embed(model, cfg, tokens, embeds)
     frontend = as_frontend(frontend, model.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pro, period, repeats = layer_plan(cfg)
     layers = list(model.layers)
     x, aux = _group_apply(layers[:len(pro)], cfg, x, aux, use_kernel, frontend,
-                          mesh)
+                          mesh, batch_axes)
     group = _group_apply
     if cfg.remat and torch.is_grad_enabled():
         group = _remat(cfg, _group_apply)
     n = len(period)
     for r in range(repeats):
         x, aux = group(layers[len(pro) + r * n:len(pro) + (r + 1) * n], cfg,
-                       x, aux, use_kernel, frontend, mesh)
+                       x, aux, use_kernel, frontend, mesh, batch_axes)
     return rms_norm(x, model.final_norm), aux
 
 
 def forward(model: Transformer, cfg: ModelConfig, tokens=None, embeds=None,
-            frontend=None, use_kernel: bool = False, mesh=None):
+            frontend=None, use_kernel: bool = False, mesh=None,
+            batch_axes=None):
     """tokens: (B, S) int or embeds: (B, S, d); frontend: (B, T, d) for the
-    VLM family. Returns (logits, aux)."""
+    VLM family; ``mesh`` / ``batch_axes`` as ``trunk``'s. Returns (logits,
+    aux)."""
     x, aux = trunk(model, cfg, tokens=tokens, embeds=embeds,
-                   frontend=frontend, use_kernel=use_kernel, mesh=mesh)
+                   frontend=frontend, use_kernel=use_kernel, mesh=mesh,
+                   batch_axes=batch_axes)
     return _logits(model, x), aux
 
 

@@ -233,3 +233,35 @@ SERIALIZED_ONLY = {n: e.reason for n, e in REGISTRY.items()
 # every registered ChunkedWorkload must have a registry entry and vice versa
 assert set(PIPELINEABLE) == set(CHUNKED), (sorted(PIPELINEABLE),
                                            sorted(CHUNKED))
+
+
+# -- generated docs ----------------------------------------------------------
+
+def markdown_table() -> str:
+    """The workload table, the reference's columns, one row per entry
+    (print it: ``python -m repro_torch.prim.registry``).  The cost
+    profile of a pipelineable entry counts the aten ops of its chunked
+    ``compute`` phase, where the reference walks its jaxpr
+    (``cost_profile``)."""
+    lines = ["| workload | paper | module | variants | chunked pipeline "
+             "| resident operand | cost profile |",
+             "|---|---|---|---|---|---|---|"]
+    for e in REGISTRY.values():
+        variants = ", ".join(e.run_variants())
+        chunked = "yes" if e.pipelineable else "no — serialized `pim()` only"
+        if e.resident:
+            kind = ("meta (broadcast)" if e.chunked.meta_resident
+                    else "chunks")
+            resident = f"arg {', '.join(map(str, e.resident_args))} — {kind}"
+        else:
+            resident = "—"
+        profile = ("counted aten ops of the compute phase" if e.pipelineable
+                   else "— (host-loop, untraced)")
+        lines.append(f"| {e.name} | {e.section} | "
+                     f"`prim/{e.module.__name__.split('.')[-1]}.py` | "
+                     f"{variants} | {chunked} | {resident} | {profile} |")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    print(markdown_table())

@@ -14,6 +14,7 @@ at its own scale and TRNS on banks that divide its N' = 64.
 """
 import contextlib
 import importlib.util
+import os
 import pathlib
 import re
 
@@ -648,17 +649,31 @@ def test_routing_tape_replays_top_k_sets(cs):
 def test_dryrun_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
     """The dryrun phase at its real cells, whose traces hold no memory
     (meta): leg a's three CLI processes, their records read back and held
-    to the reference's parameter specs; leg b's child on the meta device,
-    its parameter, gradient and optimizer-state bytes the trace's (the
-    card's peak is not measured here)."""
+    to the reference's parameter specs; leg a', the spec lever tp1 on
+    TinyLlama's train_4k and decode_32k (parameters the stripped specs',
+    the decode cell fitting 80 GB with 16 times the cache specs' keys and
+    values) and dp_all's refusal of prefill_32k's batch; legs b and b'
+    as children on the meta device, their parameter, gradient,
+    optimizer-state and cache bytes the traces' (the card's peak is not
+    measured here); and the examples phase's processes started with
+    them (on the CPU here, ``--device cpu``), each to its check line."""
     import sys
 
     monkeypatch.syspath_prepend(str(ROOT))
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
-    cs.dryrun_phase(torch.device("meta"), "cpu rehearsal")
+    cmds = cs.example_cmds
+    monkeypatch.setattr(cs, "example_cmds",
+                        lambda dev: cmds(torch.device("cpu")))
+    cs.dryrun_phase(torch.device("meta"), "cpu rehearsal", examples=True)
     out = capsys.readouterr().out
-    assert "dryrun: 3 cells (leg a) and leg b, one process each, at once" \
-        in out
+    assert re.search(r"dryrun: 8 processes \(legs a, a', b, b'\) and the "
+                     r"examples at once: \S+ s .*; each process's seconds: "
+                     r"tinyllama-1\.1b train_4k \S+, .* tinyllama-1\.1b "
+                     r"train_4k --opt tp1 \S+, .* leg b \S+, leg b' \S+$",
+                     out, re.M)
+    for name, check in cs.EXAMPLES.items():
+        assert re.search(rf"  examples/{name}\.py on meta: exit 0 at \S+ s "
+                         rf"from the start: " + re.escape(check), out), name
     assert re.search(r"tinyllama-1\.1b x train_4k x 16x16: peak \S+ GB a "
                      r"rank \(fits 80 GB: True; parameters 0\.138, gradients "
                      r"0\.138, optimizer 0\.826", out)
@@ -668,6 +683,81 @@ def test_dryrun_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
         "of 1 of 8 kv heads: 0.1250 x the reference's cache specs'" in out
     assert re.search(r"leg b: tinyllama-1\.1b x train_4k rank 0 on meta, "
                      r"one step in \S+ s: parameters 137678848 B, gradients "
-                     r"137678848 B, optimizer state 826073092 B, equal to "
-                     r"the meta trace's to the byte; the trace's peak \S+ "
-                     r"GB; the card's not measured", out)
+                     r"137678848 B, optimizer state 826073092 B, cache 0 B, "
+                     r"equal to the meta trace's to the byte; the trace's "
+                     r"peak \S+ GB; the card's not measured", out)
+    # leg a': tp1, every "model" dimension whole (2.2 GB of bfloat16)
+    assert re.search(r"tinyllama-1\.1b x train_4k x 16x16 --opt tp1: peak "
+                     r"\S+ GB a rank \(fits 80 GB: False; parameters 2\.200, "
+                     r"15\.9799 x the specs' with 'model'; .*collectives "
+                     r"180, all-reduce 180 x 2200\.1 MB;", out)
+    assert re.search(r"tinyllama-1\.1b x decode_32k x 16x16 --opt tp1: peak "
+                     r"\S+ GB a rank \(fits 80 GB: True; .*collectives 0; "
+                     r"keys and values a rank 5905580032 B, every kv head of "
+                     r"its rows: 16\.0000 x the reference's cache specs' "
+                     r"369098752 B", out)
+    assert "tinyllama-1.1b x prefill_32k x 16x16 --opt dp_all: refused, " \
+        "exit 1: [dryrun] tinyllama-1.1b × prefill_32k × 16x16: FAIL batch " \
+        "32 does not split over 256 ranks of ('data', 'model')" in out
+    # leg b': the tp1 decode cell's rank, the cell whose record fits
+    assert re.search(r"leg b': tinyllama-1\.1b x decode_32k --opt tp1 rank 0 "
+                     r"on meta, one step in \S+ s: parameters 2200096768 B, "
+                     r"gradients 0 B, optimizer state 0 B, cache 5905580736 "
+                     r"B, equal to the meta trace's to the byte; the trace's "
+                     r"peak \S+ GB; the card's not measured", out)
+
+
+def test_dryrun_child_picks_its_leg(cs):
+    """The children's cells: leg b the first cell as published, leg b'
+    the tp1 decode cell (picked because its record fits 80 GB: the tp1
+    train_4k rank does not, 153 GB)."""
+    assert cs.DRYRUN_CHILDREN == {"b": (cs.DRYRUN_CELLS[0], ()),
+                                  "b'": (cs.DRYRUN_TP1[1], ("tp1",))}
+    assert cs.DRYRUN_TP1[1][1] == "decode_32k"
+    assert cs.dryrun_cmd("d", cs.DRYRUN_TP1[0], ("tp1",))[-2:] == \
+        ["--opt", "tp1"]
+    assert cs.dryrun_path("d", cs.DRYRUN_TP1[0], ("tp1",)) == os.path.join(
+        "d", "opt-tp1_tinyllama-1.1b_train_4k_16x16.json")
+
+
+def test_examples_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
+    """The examples phase: the quickstart and serve_decode scripts, each
+    a process of its own started as a user starts it, on the CPU here
+    (``--device cpu``) at their own arguments, each to its check line; a
+    script that misses its line or exits non-zero fails the phase.  The
+    other three examples are not run on the card
+    (tests/test_torch_examples.py runs all five on the CPU)."""
+    assert set(cs.EXAMPLES) == {"torch_quickstart", "torch_serve_decode"}
+    assert set(cs.EXAMPLES) <= {os.path.basename(p)[:-3] for p in
+                                (ROOT / "examples").glob("torch_*.py")}
+    cs.examples_phase(torch.device("cpu"))
+    out = capsys.readouterr().out
+    for name, check in cs.EXAMPLES.items():
+        assert re.search(rf"  examples/{name}\.py on cpu: exit 0 at \S+ s "
+                         rf"from the start: " + re.escape(check), out), name
+    monkeypatch.setattr(cs, "EXAMPLES",
+                        {"torch_quickstart": "a line it never prints"})
+    with pytest.raises(AssertionError, match="torch_quickstart"):
+        cs.examples_phase(torch.device("cpu"))
+    # a script that exits non-zero (argparse refusing an argument)
+    cmds = cs.example_cmds
+    monkeypatch.setattr(cs, "example_cmds", lambda dev: [
+        c + ["--banks", "many"] for c in cmds(dev)])
+    with pytest.raises(AssertionError, match="torch_quickstart"):
+        cs.examples_phase(torch.device("cpu"))
+
+
+def test_run_together_starts_every_command_at_once(cs):
+    """The dryrun phase's launcher: every command started at once (two
+    sleeps of two seconds both end before four), each command's exit code,
+    output and seconds from the start, in the commands' order."""
+    import sys
+
+    sleep = [sys.executable, "-c", "import time; time.sleep(2); print('a')"]
+    outs = cs.run_together([sleep, sleep,
+                            [sys.executable, "-c", "import sys; sys.exit(3)"]],
+                           dict(os.environ))
+    assert [(rc, out.strip()) for rc, out, _, _ in outs] == [(0, "a"),
+                                                              (0, "a"),
+                                                              (3, "")]
+    assert 2.0 <= outs[0][3] and max(o[3] for o in outs) < 4.0

@@ -21,8 +21,14 @@
   is replicated;
 - ``Measure``'s one pass against ``MemTracker`` and ``FlopCounterMode``
   on the same step; the CLI (the counterpart of the reference's
-  ``test_dryrun_smoke_cell``), the DeepSeek cell's collectives, and the
-  refused ``tp1``.
+  ``test_dryrun_smoke_cell``), the DeepSeek cell's collectives;
+- the spec flags ``tp1`` / ``dp_all``: TinyLlama's cell on both meshes
+  through the CLI; every FULL config's parameter bytes a rank on both
+  meshes against the reference's per-device bytes of its specs stripped
+  by its own rule (copied: ``strip_model_axis``); each decode cell's
+  cache a rank, every kv head whole (ROADMAP queue 3); ``dp_all``'s
+  refusal of prefill_32k's batch, held to ``jit``'s own refusal in a
+  subprocess on 8 forced host devices.
 The reference's dry-run module is not imported: it forces 512 host
 devices in the environment of every process that imports it.
 """
@@ -50,7 +56,7 @@ from repro_torch.configs import (ARCHS, SHAPES, get_config, input_specs,
 from repro_torch.core import sharding
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import attention, xlstm
+from repro_torch.models import attention, transformer, xlstm
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 MESHES = {"16x16": {"data": 16, "model": 16},
@@ -99,14 +105,22 @@ def reference_params(arch: str):
     return jax.eval_shape(init, jax.random.PRNGKey(0)), box["specs"]
 
 
-def reference_bytes(arch: str, dims: dict) -> int:
+def strip_model_axis(sp):
+    """The reference's ``tp1`` rule for one spec, copied from
+    ``repro/launch/dryrun.py:60-66`` (``_strip_model_axis``; importing that
+    module forces 512 host devices): an entry equal to "model" becomes
+    None, a tuple entry stays."""
+    return type(sp)(*[None if p == "model" else p for p in tuple(sp)])
+
+
+def reference_bytes(arch: str, dims: dict, tp1: bool = False) -> int:
     shapes, specs = reference_params(arch)
     is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)  # noqa: E731
     total = 0
     for a, sp in zip(jax.tree.leaves(shapes),
                      jax.tree.leaves(specs, is_leaf=is_spec)):
         n = a.size * a.dtype.itemsize
-        for e in sp:
+        for e in strip_model_axis(sp) if tp1 else sp:
             n //= 1 if e is None else sharding.axis_size(dims, e)
         total += n
     return total
@@ -359,14 +373,159 @@ def test_deepseek_cell_counts_its_collectives_by_kind(tmp_path):
     assert rec["roofline"]["collective_bytes"] == c["operand_bytes"] * 512
 
 
-def test_spec_rewriting_flags_are_refused(monkeypatch):
+@pytest.fixture(scope="module")
+def tp1_ranks():
+    """Rank 0 of every FULL config under ``tp1`` on both meshes (meta,
+    fake group): {mesh: {"params": {arch: bytes}, "cache": {(arch,
+    shape): layout}}}, the decode cells traced on (16, 16)."""
+    out = {}
+    for name, dims in MESHES.items():
+        multi = "pod" in dims
+        got = out[name] = {"params": {}, "cache": {}}
+        with dryrun.fake_world(512 if multi else 256):
+            mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+            for arch in ARCHS:
+                cfg = get_config(arch)
+                model = transformer.Transformer(cfg, device="meta",
+                                                mesh=mesh, tp1=True)
+                got["params"][arch] = sum(p.numel() * p.element_size()
+                                          for p in model.parameters())
+                del model
+                for shape in ("decode_32k", "long_500k"):
+                    if multi or skip_reason(cfg, SHAPES[shape]):
+                        continue
+                    t = dryrun.trace_cell(cfg, SHAPES[shape], mesh,
+                                          opt_flags=("tp1",))
+                    got["cache"][arch, shape] = _cache_layout(
+                        t.held["cache"])
+    return out
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp1_parameter_bytes_a_rank_equal_the_references(tp1_ranks, arch,
+                                                         mesh):
+    """Every FULL config under ``tp1``: a rank holds the reference's
+    per-device bytes of its stripped specs (FSDP's "data" blocks kept,
+    every "model" dimension and expert whole)."""
+    dims = MESHES[mesh]
+    got = tp1_ranks[mesh]["params"][arch]
+    assert got == reference_bytes(arch, dims, tp1=True)
+    if "model" in dims and got != reference_bytes(arch, dims):
+        assert got > reference_bytes(arch, dims)
+
+
+@pytest.mark.parametrize("arch,shape", [(a, s) for a, s, m in DECODE
+                                        if m == "16x16"])
+def test_tp1_decode_cache_holds_the_whole_kv_heads(tp1_ranks, arch, shape):
+    """ROADMAP queue 3's finding: under ``tp1`` the reference's
+    ``cache_specs`` still split each KV leaf over "model", while a port
+    rank, which holds the whole attention, keeps every kv head over its
+    rows (or its block of positions): 1 / D of the whole leaf, ``split`` /
+    D times the spec's bytes (M where the spec splits the leaf over both
+    axes)."""
+    from jax.sharding import AbstractMesh
+
+    dims = MESHES["16x16"]
+    cfg, sh = get_config(arch), SHAPES[shape]
+    D = dims["data"]
+    whole = reference_cache(arch, shape)
+    specs = jserve.cache_specs(whole, AbstractMesh(tuple(dims.values()),
+                                                   tuple(dims)))
+    got = tp1_ranks["16x16"]["cache"][arch, shape]
+    seen = 0
+    for li, lc in enumerate(got):
+        if "k" not in lc:
+            continue
+        for key in ("k", "v"):
+            leaf, spec = _layer_leaf(whole, specs, cfg, li, key)
+            whole_b = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+            spec_b = _spec_bytes(leaf, spec, dims)
+            assert lc[key][1] * D == whole_b, (li, key)
+            assert lc[key][1] * D == spec_b * _split(spec, dims), (li, key)
+            seen += 1
+    assert seen or cfg.family == "ssm", got
+
+
+def test_spec_flags_trace_tinyllama_on_both_meshes(tmp_path, monkeypatch,
+                                                   capsys):
+    """``--opt tp1`` and ``--opt dp_all`` (TinyLlama train_4k, where
+    ``dp_all`` is ``tp1``): the reference's record names, parameters a
+    rank the stripped specs', gradients the same, optimizer state six
+    times them and the step; no "model" collective left but the FSDP-free
+    step's data-parallel all-reduces."""
     for flag in dryrun.SPEC_FLAGS:
-        with pytest.raises(ValueError, match=f"{flag}.*9.8b"):
-            dryrun.apply_opt_flags(get_config("tinyllama-1.1b"), (flag,))
-    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "tinyllama-1.1b",
-                                      "--opt", "tp1"])
-    with pytest.raises(SystemExit, match="tp1.*9.8b"):
+        monkeypatch.setattr(sys, "argv", [
+            "dryrun", "--arch", "tinyllama-1.1b", "--shape", "train_4k",
+            "--mesh", "both", "--opt", flag, "--out", str(tmp_path)])
         dryrun.main()
+        assert capsys.readouterr().out.rstrip().endswith(
+            "[dryrun] all requested cells traced OK")
+        for mesh, dims in MESHES.items():
+            rec = json.loads((tmp_path / f"opt-{flag}_tinyllama-1.1b_"
+                                         f"train_4k_{mesh}.json").read_text())
+            mem = rec["memory_per_device"]
+            assert rec["status"] == "OK"
+            assert mem["parameters"] == reference_bytes("tinyllama_1_1b",
+                                                        dims, tp1=True)
+            assert mem["gradients"] == mem["parameters"]
+            assert mem["optimizer_state"] == 6 * mem["parameters"] + 4
+            assert set(rec["collectives"]["by_kind"]) == {"all-reduce"}
+
+
+REF_DP_ALL = r"""
+import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+mesh = jax.make_mesh((2, 4), ("data", "model"))
+sh = NamedSharding(mesh, P(("data", "model"), None))
+f = jax.jit(lambda x: x * 2, in_shardings=(sh,))
+for b in (4, 8):
+    try:
+        f.lower(jax.ShapeDtypeStruct((b, 16), jnp.int32)).compile()
+        print(b, "OK")
+    except ValueError as e:
+        print(b, "REFUSED", str(e).replace("\n", " "))
+"""
+
+
+def test_dp_all_refuses_prefill_32k_where_jax_does(monkeypatch, capsys):
+    """The reference's ``dp_all`` prefill puts its batch on
+    ``P((*data_axes, "model"), ...)``: ``jit`` refuses a batch that the
+    product of those axes does not divide (8 forced host devices in a
+    subprocess: a batch of 4 over (2, 4) refused, 8 accepted).  The port
+    refuses the same batch at the same rule (``train.rows``), naming the
+    batch and the rank count: prefill_32k's 32 over 256 and 512 ranks."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", REF_DP_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
+    assert lines["8"] == "OK"
+    assert lines["4"].startswith("REFUSED") and \
+        "divisible by 8, but it is equal to 4" in lines["4"]
+    with dryrun.fake_world(8):
+        from torch.distributed.device_mesh import DeviceMesh
+        mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4),
+                          mesh_dim_names=("data", "model"))
+        axes = dryrun.prefill_axes(mesh, ("dp_all",))
+        assert axes == ("data", "model")
+        assert dryrun.train.rows(8, mesh, axes) == slice(0, 1)
+        with pytest.raises(ValueError, match=r"batch 4 does not split over 8 "
+                                             r"ranks of \('data', 'model'\)"):
+            dryrun.train.rows(4, mesh, axes)
+    for mp, n in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"batch 32 does not split over "
+                                             f"{n} ranks"):
+            dryrun.run_cell("tinyllama-1.1b", "prefill_32k", mp,
+                            opt_flags=("dp_all",), verbose=False)
+    monkeypatch.setattr(sys, "argv", [
+        "dryrun", "--arch", "deepseek-moe-16b", "--shape", "prefill_32k",
+        "--mesh", "single", "--opt", "dp_all"])
+    with pytest.raises(SystemExit, match="1 dry-run failures"):
+        dryrun.main()
+    assert "batch 32 does not split over 256 ranks" in capsys.readouterr().out
 
 
 def test_opt_flags_replace_the_config_fields():
@@ -399,3 +558,26 @@ def test_mlstm_columns_of_xlstm_on_the_model_axis():
     of a head a rank (the cache test's C)."""
     sp = xlstm.mlstm_split(get_config("xlstm-125m"), 16, 0)
     assert (sp.n, xlstm.mlstm_v_layout(sp)[0]) == (1, 48)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_trace_cell_on_a_device_feeds_token_ids_in_range(shape):
+    """A rank traced on a device that runs its step (the CPU here, the
+    card in ``chip_smoke.py``'s legs b and b') gets token ids and labels
+    of zero, not whatever its allocator held, so that the embedding's and
+    the loss's gathers stay in range; on the meta device they stay
+    uninitialised.  TinyLlama SMOKE under ``tp1``, the sequence cut to
+    64, one rank of (16, 16)."""
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    sh = dataclasses.replace(SHAPES[shape], seq=64)
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        t = dryrun.trace_cell(cfg, sh, mesh, opt_flags=("tp1",),
+                              device="cpu")
+        ints = {k: v for k, v in t.held["inputs"].items()
+                if not v.is_floating_point()}
+        assert ints and all(not v.any() for v in ints.values()), ints
+        t.step()
+        meta = dryrun.trace_cell(cfg, sh, mesh, opt_flags=("tp1",))
+        assert {v.device.type for v in meta.held["inputs"].values()} == \
+            {"meta"}

@@ -1482,3 +1482,52 @@ def test_dryrun_rank_on_the_card_holds_the_meta_traces_bytes(dev):
     print(f"peak on the card {peak} B, the meta trace's "
           f"{want['total_per_device']} B: ratio "
           f"{peak / want['total_per_device']:.4f}")
+
+
+def test_tp1_dryrun_rank_on_the_card_holds_the_meta_traces_bytes(dev):
+    """Leg b' of ``chip_smoke.py``'s dryrun phase, cut to 2 layers: rank
+    0 of TinyLlama FULL at decode_32k on the (16, 16) mesh under the
+    reference's ``tp1`` (every "model" dimension whole, every kv head of
+    the rank's 8 streams in its cache), built on the card with its weights
+    uninitialised and on the meta device: parameter and cache bytes equal
+    to the byte, the cache 16 times the reference's cache specs' (ROADMAP
+    queue 3), and the card's peak over one decode step at least the bytes
+    held across it."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2)
+    sh = SHAPES["decode_32k"]
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        want = dryrun._cell_costs(dryrun.trace_cell(
+            cfg, sh, mesh, opt_flags=("tp1",)))["memory"]
+        t = dryrun.trace_cell(cfg, sh, mesh, opt_flags=("tp1",), device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t.step()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+    got = {"parameters": sum(p.numel() * p.element_size()
+                             for p in t.model.parameters()),
+           "cache": sum(x.numel() * x.element_size()
+                        for x in dryrun._tensors(t.held["cache"]))}
+    assert got == {k: want[k] for k in got}
+    assert t.model.tp.size == 1 and not transformer.sharded_leaves(t.model)
+    kv = sum(c[k].numel() * c[k].element_size()
+             for c in t.held["cache"]["layers"] for k in ("k", "v"))
+    whole = 2 * 2 * sh.batch * cfg.n_kv_heads * sh.seq * cfg.hd * 2
+    assert kv * 16 == whole                 # the rank's 8 of 128 streams
+    # the reference's spec of a whole leaf splits it over both axes: the
+    # rank holds 16 times its bytes
+    spec = serve.cache_spec_for((sh.batch, cfg.n_kv_heads, sh.seq, cfg.hd),
+                                16, 16, "data")
+    assert {"data", "model"} <= set(spec), spec
+    held = want["parameters"] + want["cache"] + want["inputs"]
+    assert peak >= held, (peak, held)
+    print(f"peak on the card {peak} B, the meta trace's "
+          f"{want['total_per_device']} B: ratio "
+          f"{peak / want['total_per_device']:.4f}")
