@@ -93,7 +93,14 @@ step of 16 greedy tokens against the one-process port on the whole cache
 and each rank's bytes of keys and values against the reference's cache
 specs; bfloat16 at 4 layers on (2, 2) timed, with the merges'
 collectives and the peak memory a rank), beside the one process's
-prefill of 1 x 8,192 through ``flash_attention``.  Last the split
+prefill of 1 x 8,192 through ``flash_attention``; and leg L, the
+placements no published config reaches, at SMOKE width on (1, 4) in
+float32: Mamba heads that the "model" axis cuts (each rank scans its own
+columns of a head, ``ssd_scan`` at each rank's cut shape, held against
+its plain version in float32 and bfloat16 and timed there) and
+``parallel_block`` layers whose mixer is Mamba or cross attention, each
+prefill of 1 x 2,048 against one process, greedy tokens, parameter
+bytes the reference's specs'.  Last the split
 phase, leg K: tensor parallelism inside a head, 16 ranks on the one card
 in one launch: musicgen-medium at its published width on (1, 16), each
 rank's 96 columns 1.5 heads, so it computes the 2 heads they touch
@@ -146,7 +153,8 @@ flash_attention and moe_gmm ``dist_launches_per_rank``, one rank's
 expert-parallel prefill in the dist phase, for flash_attention and
 ssd_scan ``tp_launches_per_rank``, one rank's StableLM prefill and one
 rank's forward of the Jamba cut, and for moe_gmm one rank's prefill of
-DeepSeek as published on (1, 4); for flash_attention
+DeepSeek as published on (1, 4); for ssd_scan ``cut_launches_per_rank``,
+one rank's leg L prefills; for flash_attention
 ``split_launches_per_rank``, one rank's bfloat16 musicgen prefill in leg
 K), its error against its plain version, and its times beside its bound: ``ms``
 (CUDA events around back-to-back calls of the wrapper) and ``device_ms``
@@ -329,6 +337,31 @@ SEQ_ARCH, SEQ_MAX_LEN, SEQ_START, SEQ_NEW = ("h2o-danube-3-4b", 524288,
 # (SEQ_BF16_LAYERS of its 24 layers: the time the whole run's phases have)
 SEQ_F32_LAYERS, SEQ_BF16_LAYERS, SEQ_SLAB, SEQ_PREFILL = 2, 4, 4096, 8192
 SEQ_SEED = 17
+# its leg of the placements no published config reaches, L: Mamba heads
+# that a "model" axis cuts and parallel_block layers whose mixer is not
+# self-attention, on (1, DIST_WORLD) in float32 through the kernels: a
+# prefill of 1 x PREFILL (the scan's 16 chunks of 128) against one process
+# at every position, at the hybrid phase's 5e-3 for Jamba (its ranks routed
+# to one process's top-k sets) and 1e-3 for Llama 3.2 Vision, and greedy 2
+# x (DIST_PROMPT + CUT_NEW) tokens (4, not DIST_NEW's 16: the leg's time,
+# ~0.5 s a Jamba step of ~45 gloo collectives); the ssd_scan kernel
+# against its plain version at each rank's cut shape (1, PREFILL, heads,
+# w) in float32 and bfloat16, timed there.  SMOKE configs, since no
+# published width reaches these placements: Jamba's di of 16,384 is 256
+# heads of 64, which every power-of-two "model" axis up to 256 divides (a
+# cut on 4 ranks needs heads wider than a rank's 4,096 columns, P =
+# 8,192), and no config sets parallel_block beside another mixer.  (a)
+# heads of 64, 2 heads: half a head a rank; (b) ssm_expand 3, 3 heads of
+# 64: 48 columns a rank, 16 + 32 in two heads on ranks 1 and 2 (the
+# zero-padded layout); (c) no experts, parallel_block: attention and
+# Mamba layers; (d) parallel_block: the cross layer too
+CUT_CASES = {"a": ("jamba-1.5-large-398b", dict(ssm_head_dim=64)),
+             "b": ("jamba-1.5-large-398b", dict(ssm_expand=3,
+                                                ssm_head_dim=64)),
+             "c": ("jamba-1.5-large-398b", dict(moe_experts=0,
+                                                parallel_block=True)),
+             "d": ("llama-3.2-vision-11b", dict(parallel_block=True))}
+CUT_SEED, CUT_NEW = 23, 4
 # the split phase, leg K: tensor parallelism inside a head, SPLIT_WORLD
 # ranks on the one card over DIST_BACKEND with CUDA tensors, one launch:
 # musicgen-medium FULL (24 heads of 64: 1.5 heads, 2 touched, a rank) on
@@ -987,6 +1020,18 @@ def gmm_rows(g, dev) -> dict:
     return row
 
 
+def ssd_counts(x, a, b, c, L: int) -> tuple[int, int]:
+    """(bytes, operations) of one ssd_scan call: x, a, b, c read once, y
+    and the float32 h written once; per (b, h, chunk) the L (L + 1) / 2
+    pairs t >= s of C B^T (2 N each) and of the masked product with X (2
+    P each), C h0 and the state update (2 L N P each)."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    n = -(-S // L)
+    return (2 * x.nbytes + a.nbytes + b.nbytes + c.nbytes + B * H * N * P * 4,
+            B * H * n * (L * (L + 1) * (N + P) + 4 * L * N * P))
+
+
 def ssd_case(dtype, g, dev, B=1, S=PREFILL, H=256, P=64, N=16,
              L=128) -> dict:
     """One timed ssd_scan case at the Jamba cut's shape (d 8192, expand 2,
@@ -994,12 +1039,10 @@ def ssd_case(dtype, g, dev, B=1, S=PREFILL, H=256, P=64, N=16,
     float32 in [0.3, 1).  The kernel against the sequential plain version
     on y and the final h (5e-3, the reference's chunked-vs-sequential
     tolerance; y at 2e-2 in bfloat16, both rounding to bfloat16), after a
-    check against the chunked form in plain PyTorch.  Bytes: x, a, b, c
-    read once, y and h written once; operations per (b, h, chunk): the
-    L (L + 1) / 2 pairs t >= s of C B^T (2 N each) and of the masked
-    product with X (2 P each), C h0 and the state update (2 L N P each),
-    at the tensor-core rate for bfloat16 inputs and the float32 rate
-    otherwise.  No one PyTorch call computes the scan."""
+    check against the chunked form in plain PyTorch.  Its bytes and
+    operations (``ssd_counts``) at the tensor-core rate for bfloat16
+    inputs and the float32 rate otherwise.  No one PyTorch call computes
+    the scan."""
     from repro_torch.kernels import mamba_scan as kmamba
     from repro_torch.kernels import ops
 
@@ -1021,14 +1064,13 @@ def ssd_case(dtype, g, dev, B=1, S=PREFILL, H=256, P=64, N=16,
               rel(want[1], 5e-3))
         return got[0], want[0]
 
-    n = -(-S // L)
+    nbytes, nops = ssd_counts(x, a, b, c, L)
     return dict(
         name="ssd_scan", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/mamba_scan.py:26",
         kernel=lambda: ops.ssd_scan(x, a, b, c, chunk=L),
         plain=lambda: kmamba.plain(x, a, b, c), library=None, check=final_h,
-        nbytes=2 * x.nbytes + a.nbytes + b.nbytes + c.nbytes + B * H * N * P * 4,
-        nops=B * H * n * (L * (L + 1) * (N + P) + 4 * L * N * P),
+        nbytes=nbytes, nops=nops,
         ops_per_s=BF16_TC_OPS_PER_S if bf16 else F32_OPS_PER_S,
         tol=2e-2 if bf16 else 5e-3, iters=BIG_ITERS)
 
@@ -2324,7 +2366,7 @@ def dist_configs() -> dict:
     published (``fsdp=True``) in bfloat16 (leg H), TinyLlama's float32 cut
     with ``fsdp=True`` (leg I), H2O-Danube3 4B FULL cut to SEQ_F32_LAYERS
     in float32 and to SEQ_BF16_LAYERS in bfloat16 with leg J's cache
-    sizes."""
+    sizes; leg L's SMOKE configs (CUT_CASES) at a prefill of PREFILL."""
     from repro_torch.configs import get_config
 
     published = get_config(MOE_ARCH)
@@ -2360,6 +2402,10 @@ def dist_configs() -> dict:
                                          dtype=torch.float32),
             "j_bf16": dataclasses.replace(get_config(SEQ_ARCH),
                                           n_layers=SEQ_BF16_LAYERS),
+            "l_cases": {k: dataclasses.replace(get_config(arch, smoke=True),
+                                               **fields)
+                        for k, (arch, fields) in CUT_CASES.items()},
+            "l_seq": PREFILL, "l_new": CUT_NEW,
             "j_max_len": SEQ_MAX_LEN, "j_start": SEQ_START, "j_new": SEQ_NEW,
             "j_slab": SEQ_SLAB, "j_prefill": SEQ_PREFILL,
             "fsdp_seq": DIST_FSDP_SEQ,
@@ -2580,6 +2626,7 @@ def dist_reference(c: dict, dev, d: str) -> dict:
                               c["steps"] if key == "bf16" else 2)[0]
     empty_cache(dev)
     ref.update(seq_reference(c, dev, d))
+    ref.update(cut_reference(c, dev, d))
     return ref
 
 
@@ -2842,9 +2889,9 @@ def moe_leg(rank: int, f32, bf16, c: dict, d: str, dev, mesh) -> dict:
 
 def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
     """One rank of the dist phase, on ``device_type`` device 0 (every rank
-    on the one card): legs A, B and C, then D to F (``tp_legs``) and G to
-    I (``fsdp_legs``); asserts fail the rank and the phase.  Returns what
-    the parent prints."""
+    on the one card): legs A, B and C, then D to F (``tp_legs``), G to I
+    (``fsdp_legs``), J (``seq_legs``) and L (``cut_legs``); asserts fail
+    the rank and the phase.  Returns what the parent prints."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.core import sharding
     from repro_torch.launch import train
@@ -2919,6 +2966,8 @@ def dist_rank(rank: int, c: dict, d: str, device_type: str) -> dict:
     marks.append(("I", time.time()))
     seq_legs(rank, c, d, dev, m41, m22, out)
     marks.append(("J", time.time()))
+    cut_legs(rank, c, d, dev, mesh, out)
+    marks.append(("L", time.time()))
     return out
 
 
@@ -3270,8 +3319,12 @@ def dist_phase(dev, card: str) -> dict[str, int]:
     against one process at DIST_EP_TOL (1 + |loss|).  Legs D, E and F:
     tensor parallelism (``tp_legs``, ``tp_report``).  Legs G, H and I:
     the experts on "model" without ``moe_ep`` and FSDP's "data" entries
-    (``fsdp_legs``, ``fsdp_report``).  Returns the launches per rank of
-    leg A's bfloat16 prefill ("ep") and of legs D, E and G ("tp")."""
+    (``fsdp_legs``, ``fsdp_report``).  Leg J: the sequence-sharded decode
+    cache (``seq_legs``, ``seq_report``).  Leg L: Mamba heads cut over
+    "model" and parallel_block layers with other mixers (``cut_legs``,
+    ``cut_report``).  Returns the launches per rank of leg A's bfloat16
+    prefill ("ep"), of legs D, E and G ("tp"), of the one process's leg J
+    prefill ("seq") and of leg L's prefills ("cut")."""
     import tempfile
 
     from repro_torch.launch import mesh as lmesh
@@ -3383,7 +3436,8 @@ def dist_phase(dev, card: str) -> dict[str, int]:
     tp = tp_report(c, ranks, ref, dev, card)
     tp["moe_gmm"] = fsdp_report(c, ranks, ref, dev, card)["moe_gmm"]
     return {"ep": want_launches(moe.n_layers), "tp": tp,
-            "seq": seq_report(c, ranks, ref, dev, card)}
+            "seq": seq_report(c, ranks, ref, dev, card),
+            "cut": cut_report(c, ranks, ref, dev, card)}
 
 
 def seq_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
@@ -3452,6 +3506,223 @@ def seq_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
           f"{[round(r['j_agree'], 4) for r in ranks]} of the steps, logits "
           f"max |diff| {max(r['j_err'] for r in ranks):.3e}; on {card}")
     return {"flash_attention": ref["j_prefill_launches"]["flash_attention"]}
+
+
+def cut_inputs(c: dict, cfg):
+    """Leg L's prefill tokens (1, l_seq), greedy prompt (2, prompt) and,
+    for a config with cross layers, float32 frontend tokens (2,
+    n_frontend_tokens, d) (the prefill takes the first row), the same in
+    the parent and in every rank."""
+    rng = np.random.default_rng(CUT_SEED)
+    toks = rng.integers(0, cfg.vocab, (1, c["l_seq"])).astype(np.int32)
+    prompt = rng.integers(0, cfg.vocab, (2, c["prompt"])).astype(np.int32)
+    fr = (rng.standard_normal((2, cfg.n_frontend_tokens, cfg.d_model))
+          .astype(np.float32) if cfg.cross_attn_every else None)
+    return tuple(None if t is None else torch.from_numpy(t)
+                 for t in (toks, prompt, fr))
+
+
+def cut_prefill(model, cfg, toks, fr):
+    """Leg L's prefill: ``forward(use_kernel=True)``'s logits, the first
+    row of the frontend ``fr`` for the cross layers."""
+    from repro_torch.models import transformer
+    return transformer.forward(model, cfg, toks, use_kernel=True,
+                               frontend=None if fr is None else fr[:1])[0]
+
+
+def cut_reference(c: dict, dev, d: str) -> dict:
+    """Leg L's one process: each case's float32 prefill logits and MoE
+    top-k sets (to a file in ``d``), its launches and its greedy tokens;
+    then the ssd_scan kernel at every rank's cut shape
+    (``cut_kernel_rows``)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    out: dict = {"l_tokens": {}, "l_launches": {}}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for key, cfg in c["l_cases"].items():
+            toks, prompt, fr = (None if t is None else t.to(dev)
+                                for t in cut_inputs(c, cfg))
+            model = transformer.init(cfg, seed=0, device=dev)
+            with routing_tape() as tape:
+                logits, out["l_launches"][key] = counted(
+                    lambda: cut_prefill(model, cfg, toks, fr), dev)
+            torch.save((logits.cpu(), tape), os.path.join(d, f"l_{key}.pt"))
+            out["l_tokens"][key] = serve.greedy_generate(
+                model, cfg, prompt, c["l_new"], frontend=fr).cpu()
+            del model, logits
+    out["l_kernel"] = cut_kernel_rows(c, dev)
+    out["l_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mamba_layers(cfg) -> int:
+    """The number of Mamba layers in ``cfg``'s layer plan."""
+    from repro_torch.models import transformer
+    return sum(transformer._desc(cfg, li)["mixer"] == "mamba"
+               for li in range(cfg.n_layers))
+
+
+def cut_shapes(c: dict) -> dict:
+    """Leg L's distinct cut shapes of the scan: (heads, w, N, mask) -> the
+    (case, rank) pairs that run it; ``mask`` the rank's zero columns
+    (heads, w) as a tuple of tuples (``layers.padded_layout``)."""
+    from repro_torch.models import layers, mamba
+
+    shapes: dict = {}
+    for key, cfg in c["l_cases"].items():
+        if not mamba_layers(cfg):
+            continue
+        _, H, P, N = mamba._dims(cfg)
+        for r in range(c["world"]):
+            sp = layers.head_split(H, P, c["world"], r)
+            lay = layers.padded_layout(sp)
+            pad = layers.pad_heads(torch.ones(sp.cols.stop - sp.cols.start),
+                                   lay) == 0
+            mask = tuple(map(tuple, pad.tolist()))
+            shapes.setdefault((sp.n, lay[0], N, mask), []).append((key, r))
+    return shapes
+
+
+def cut_kernel_rows(c: dict, dev) -> list[dict]:
+    """The ssd_scan kernel at each of leg L's cut shapes (``cut_shapes``):
+    seeded inputs (B 1, S l_seq, the rank's heads and w, N of the config;
+    x, b, c in float32 and in bfloat16, the zero columns zero; a float32
+    in [0.3, 1)) against ``mamba_scan.plain`` at the kernel phase's
+    tolerances (y 5e-3, 2e-2 in bfloat16; h 5e-3); on the card the
+    kernel's ms (CUDA events, BIG_ITERS calls) beside its bound
+    (``ssd_counts``) and the plain version's (the host's clock
+    around the one call the check makes)."""
+    from repro_torch.kernels import mamba_scan as kmamba
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(CUT_SEED)
+    B, S, L = 1, c["l_seq"], 128
+    rows = []
+    for (H, P, N, mask), who in cut_shapes(c).items():
+        pad = torch.tensor(mask, device=dev)
+        row = {"shape": (B, S, H, P), "ranks": who,
+               "zero_columns": int(pad.sum())}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"leg L ssd_scan {str(dtype)[6:]} {(B, S, H, P)}"
+            x = torch.randn((B, S, H, P), generator=g, device=dev)
+            x = x.masked_fill(pad, 0.0).to(dtype)
+            a = torch.rand((B, S, H), generator=g, device=dev) * 0.7 + 0.3
+            b = torch.randn((B, S, N), generator=g, device=dev).to(dtype)
+            cc = torch.randn((B, S, N), generator=g, device=dev).to(dtype)
+            y, h = ops.ssd_scan(x, a, b, cc, chunk=L)
+            sync(dev)
+            t0 = time.perf_counter()
+            wy, wh = kmamba.plain(x, a, b, cc)
+            sync(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            bf16 = dtype == torch.bfloat16
+            err = check(f"{name} y", y, wy, rel(wy, 2e-2 if bf16 else 5e-3))
+            check(f"{name} h", h, wh, rel(wh, 5e-3))
+            assert not y[..., pad].any() and not h.transpose(1, 2)[
+                ..., pad].any(), name
+            ms, why = bound(*ssd_counts(x, a, b, cc, L),
+                            BF16_TC_OPS_PER_S if bf16 else F32_OPS_PER_S)
+            key = "bf16" if bf16 else "f32"
+            row[key] = {"max_abs_err": err, "bound_ms": ms, "bound_by": why,
+                        "plain_ms": plain_ms,
+                        "ms": (cuda_ms(lambda: ops.ssd_scan(
+                            x, a, b, cc, chunk=L), BIG_ITERS)
+                               if dev.type == "cuda" else None)}
+        rows.append(row)
+    return rows
+
+
+def cut_legs(rank: int, c: dict, d: str, dev, mesh, out: dict) -> None:
+    """Leg L of one rank on ``mesh`` (the (1, 4) one), into ``out``: for
+    each case its parameter bytes, the columns of each Mamba layer's
+    heads it scans, a counted float32 prefill (routed to one process's
+    top-k sets) against one process's logits at every position, and
+    greedy tokens."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    t0 = time.time()
+    with torch.no_grad():
+        for key, cfg in c["l_cases"].items():
+            toks, prompt, fr = (None if t is None else t.to(dev)
+                                for t in cut_inputs(c, cfg))
+            model = transformer.init(cfg, seed=0, device=dev, mesh=mesh)
+            out[f"l_{key}_bytes"] = param_bytes(model)
+            out[f"l_{key}_widths"] = [b.mixer.split.widths()
+                                      for b in model.layers
+                                      if b.desc["mixer"] == "mamba"]
+            want, tape = torch.load(os.path.join(d, f"l_{key}.pt"))
+            with routing_tape(tape) as flips:
+                got, out[f"l_{key}_launches"] = counted(
+                    lambda: cut_prefill(model, cfg, toks, fr), dev)
+            out[f"l_{key}_flips"] = flipped(flips)
+            want = want.to(dev)
+            tol = 5e-3 if cfg.family == "hybrid" else 1e-3
+            out[f"l_{key}_err"] = check(
+                f"leg L ({key}) f32 vs one process (rank {rank})", got, want,
+                rel(want, tol))
+            out[f"l_{key}_tokens"] = serve.greedy_generate(
+                model, cfg, prompt, c["l_new"], frontend=fr).cpu()
+            del model, got, want
+            empty_cache(dev)
+    out["l_seconds"] = time.time() - t0
+
+
+def cut_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
+    """Leg L's gates and lines (``cut_reference``, ``cut_legs``) -> the
+    ssd_scan launches a rank of its prefills."""
+    from repro_torch.models import layers, mamba
+
+    cuda, m = int(dev.type == "cuda"), c["world"]
+    for key, cfg in c["l_cases"].items():
+        fields = CUT_CASES[key][1]
+        n_mamba = mamba_layers(cfg)
+        want_bytes = reference_bytes(cfg, {"data": 1, "model": m})
+        one = ref["l_launches"][key]
+        assert one["ssd_scan"] == cuda * n_mamba, (key, one)
+        _, H, P, _ = mamba._dims(cfg)
+        for r in ranks:
+            i = r["rank"]
+            assert r[f"l_{key}_launches"] == one, (key, i,
+                                                   r[f"l_{key}_launches"])
+            assert r[f"l_{key}_bytes"] == want_bytes, (
+                key, i, r[f"l_{key}_bytes"], want_bytes)
+            assert r[f"l_{key}_widths"] == [layers.head_split(
+                H, P, m, i).widths()] * n_mamba, (key, i)
+            assert torch.equal(r[f"l_{key}_tokens"], ref["l_tokens"][key]), (
+                key, i, r[f"l_{key}_tokens"], ref["l_tokens"][key])
+        flips = max((r[f"l_{key}_flips"] for r in ranks), key=lambda t: t[0])
+        mixers = (f"{n_mamba} Mamba layers of {H} heads of {P}, columns a "
+                  f"rank {[r[f'l_{key}_widths'][:1] for r in ranks]}"
+                  if n_mamba else "no Mamba layer")
+        print(f"  leg L ({key}) {cfg.name} {fields}, float32 on (1, {m}): "
+              f"{mixers}; prefill 1 x "
+              f"{c['l_seq']} vs one process max |diff| "
+              f"{max(r[f'l_{key}_err'] for r in ranks):.3e} "
+              f"({'5e-3' if cfg.family == 'hybrid' else '1e-3'} relative) "
+              f"at every position of every rank (the ranks' own top-k sets "
+              f"differ at {flips[0]} (token, layer) pairs, margin at most "
+              f"{flips[1]:.3e}); launches a rank "
+              f"{ {k: v for k, v in one.items() if v} }, the one process's; "
+              f"{want_bytes} B of parameters a rank, the reference's specs'; "
+              f"greedy 2 x ({c['prompt']} + {c['l_new']}) tokens equal to one "
+              f"process's on every rank")
+    for row in ref["l_kernel"]:
+        f32, bf16 = row["f32"], row["bf16"]
+        print(f"  leg L ssd_scan at {row['shape']} (ranks {row['ranks']}, "
+              f"{row['zero_columns']} zero columns): float32 "
+              f"max |diff| {f32['max_abs_err']:.3e} (5e-3), {fmt(f32['ms'])} "
+              f"ms, bound {f32['bound_ms']:.3e} ms ({f32['bound_by']}), plain "
+              f"{f32['plain_ms']:.2f} ms; bfloat16 {bf16['max_abs_err']:.3e} "
+              f"(2e-2), {fmt(bf16['ms'])} ms, bound {bf16['bound_ms']:.3e} ms "
+              f"({bf16['bound_by']}), plain {bf16['plain_ms']:.2f} ms; on "
+              f"{card}")
+    print(f"  leg L: {ref['l_seconds']:.2f} s in the one process, "
+          f"{max(r['l_seconds'] for r in ranks):.2f} s in the ranks")
+    return {"ssd_scan": sum(ranks[0][f"l_{k}_launches"]["ssd_scan"]
+                            for k in c["l_cases"])}
 
 
 def tp_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
@@ -3969,7 +4240,7 @@ def leg_seconds(ranks: list) -> str:
 def split_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
     """Leg K's gates and lines (``split_rank``) -> the launches a rank of
     musicgen's bfloat16 prefill."""
-    from repro_torch.models import attention, xlstm
+    from repro_torch.models import attention, layers, xlstm
 
     cuda = int(dev.type == "cuda")
     f32, bf16, xl = c["mg_f32"], c["mg_bf16"], c["xl_f32"]
@@ -4043,7 +4314,8 @@ def split_report(c: dict, ranks: list, ref: dict, dev, card: str) -> dict:
             assert torch.equal(r[f"xl_{name}_tokens"],
                                ref["xl_tokens"][a:b]), (r["rank"], name)
             sp = xlstm.mlstm_split(xl, M, r["rank"] % M)
-            assert r[f"xl_{name}_split"] == (sp.n, xlstm.mlstm_v_layout(sp)[0])
+            assert r[f"xl_{name}_split"] == (sp.n,
+                                             layers.padded_layout(sp)[0])
             assert r[f"xl_{name}_cache"]["C"] == spec["C"], (
                 r["rank"], name, r[f"xl_{name}_cache"], spec)
         r0 = ranks[0]
@@ -4561,6 +4833,9 @@ def main() -> int:
         if "flash_attention" in row:
             row["flash_attention"]["danube_prefill_launches"] = \
                 counts["seq"]["flash_attention"]
+        if "ssd_scan" in row:
+            row["ssd_scan"]["cut_launches_per_rank"] = \
+                counts["cut"]["ssd_scan"]
         print(f"dist: {time.perf_counter() - t0:.2f} s")
         held("dist")
     if run("split"):

@@ -17,7 +17,8 @@ batch that does not divide is replicated, as the reference replicates its
 inputs: every rank decodes it whole.  Over the "model" axis the model is
 tensor parallel whatever the batch: each rank's cache holds the kv
 heads its query heads use (whole, where its columns cut a head:
-``attention.kv_heads``), Mamba channels, and for the mLSTM heads its
+``attention.kv_heads``), Mamba channels and its own columns' state of
+each head they touch (``mamba.init_cache``), and for the mLSTM heads its
 columns touch (its own columns of C, n and m whole,
 ``xlstm.init_mlstm_cache``) — the specs' "model" shard of heads / state,
 or more where a rank computes a head that it shares (musicgen-medium on

@@ -361,9 +361,10 @@ def cross_kv(p: Attention, cfg: ModelConfig, kv_tokens: torch.Tensor):
 
 
 def apply_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                kv_tokens: torch.Tensor) -> torch.Tensor:
+                kv_tokens: torch.Tensor, reduce: bool = True) -> torch.Tensor:
     """x: (B, S, d) text; kv_tokens: (B, T, d) frontend embeddings.  Every
-    text position attends to every frontend token; no RoPE, no bias."""
+    text position attends to every frontend token; no RoPE, no bias.
+    ``reduce`` as ``apply``'s."""
     if kv_tokens is None:
         raise ValueError("a cross-attention layer needs the frontend's "
                          "tokens: pass frontend=")
@@ -372,7 +373,7 @@ def apply_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     q, = _heads(p, cfg, q=p.tp.copy_to(x) @ p.wq)
     k, v = cross_kv(p, cfg, kv_tokens)
     o = kref.attention(q.transpose(1, 2), k, v, causal=False)
-    return _out(p, o.transpose(1, 2).reshape(B, S, -1), True)
+    return _out(p, o.transpose(1, 2).reshape(B, S, -1), reduce)
 
 
 def init_cross_cache(p: Attention, cfg: ModelConfig,
@@ -387,9 +388,10 @@ def init_cross_cache(p: Attention, cfg: ModelConfig,
 
 
 def decode_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                 cache: dict):
+                 cache: dict, reduce: bool = True):
     """One token's cross attention over the cached frontend keys and
-    values (all T of them valid). x: (B, 1, d); returns (y, cache)."""
+    values (all T of them valid). x: (B, 1, d); returns (y, cache);
+    ``reduce`` as ``apply``'s."""
     B = x.shape[0]
     p = gathered(p)
     q, = _heads(p, cfg, q=p.tp.copy_to(x) @ p.wq)
@@ -397,4 +399,4 @@ def decode_cross(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
     o = ops.decode_attention(q.transpose(1, 2), cache["ck"], cache["cv"],
                              lens, impl="ref")
-    return _out(p, o.transpose(1, 2).reshape(B, 1, -1), True), cache
+    return _out(p, o.transpose(1, 2).reshape(B, 1, -1), reduce), cache

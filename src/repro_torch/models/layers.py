@@ -21,11 +21,13 @@ the rank's one contiguous block of that dimension, the reference's, and
 gathered over "data" just before a layer uses it (``gathered``, ZeRO-3;
 its gradient is reduce-scattered, ``sharding.fsdp_gather``).  A leaf
 with both entries is a block on each of two dimensions (``Layout``).
-The fused (heads · hd) columns of the attention and the mLSTM are split
-so too, wherever a head falls: a rank computes every head its block
-touches (``head_split``), gathering what it does not hold whole over
-"model" (``gather_blocks``).  Each rank draws every leaf as one process
-draws it, a slab of rows at a time (``leaf``), and keeps its part.
+The fused (heads · hd) columns of the attention, the mLSTM and Mamba
+are split so too, wherever a head falls: a rank computes every head its
+block touches (``head_split``), gathering what it does not hold whole
+over "model" (``gather_blocks``), or only its own columns of each where
+a column needs nothing from the others (``padded_layout``).  Each rank
+draws every leaf as one process draws it, a slab of rows at a time
+(``leaf``), and keeps its part.
 The reference's ``tp1`` rewrite of the specs (``strip_model``) leaves no
 "model" entry: a model placed by it is built on a "model" group of one
 rank (``sharding.SOLO``), so ``layout`` splits nothing over "model".
@@ -410,6 +412,47 @@ def head_split(n_heads: int, hd: int, m: int, r: int) -> HeadSplit:
     cols = slice(r * n // m, (r + 1) * n // m)
     return HeadSplit(cols, slice(cols.start // hd, (cols.stop - 1) // hd + 1),
                      hd)
+
+
+def padded_layout(sp: HeadSplit):
+    """(w, index, out): the rank's own columns of a fused (heads · hd)
+    axis laid out as w columns in each of its touched heads, (..., heads,
+    w), where a head's columns need nothing from the others' (the mLSTM's
+    v, Mamba's scan input).  Where its columns are as many in each head
+    (whole heads, or all in one) that is a reshape, and ``index`` /
+    ``out`` are None; otherwise ``index`` (heads, w) picks each head's
+    columns of the rank's block, the rest a zero column (index ``cols``),
+    and ``out`` (cols,) picks the rank's columns back out of the (heads ·
+    w) flattened output (``pad_heads``, ``own_columns``)."""
+    widths = sp.widths()
+    w = max(widths)
+    if len(set(widths)) == 1:
+        return w, None, None
+    c = sp.cols.stop - sp.cols.start
+    index = torch.full((sp.n, w), c, dtype=torch.long)
+    out, at = [], 0
+    for j, n in enumerate(widths):
+        index[j, :n] = torch.arange(at, at + n)
+        out.extend(range(j * w, j * w + n))
+        at += n
+    return w, index, torch.tensor(out, dtype=torch.long)
+
+
+def pad_heads(t: torch.Tensor, lay) -> torch.Tensor:
+    """The rank's columns ``t`` (..., cols) as (..., heads, w) under the
+    ``padded_layout`` ``lay``: zero columns where they lie unevenly."""
+    w, index, _ = lay
+    if index is None:
+        return t.unflatten(-1, (-1, w))
+    t = torch.cat([t, t.new_zeros(*t.shape[:-1], 1)], dim=-1)
+    return t[..., index.to(t.device)]
+
+
+def own_columns(y: torch.Tensor, lay) -> torch.Tensor:
+    """``pad_heads``' inverse on the flattened output: (..., heads · w)
+    -> the rank's columns (..., cols), the zero columns dropped."""
+    out = lay[2]
+    return y if out is None else y[..., out.to(y.device)]
 
 
 def gather_blocks(tp: Group, ts: list) -> list:

@@ -21,7 +21,7 @@ entry of ``param_specs`` is a shard (``layers.layout``).  "model", on a
 row-parallel matmuls — each layer's input enters its rank's heads or
 columns through ``copy_to`` and its output is the ranks' partial sums
 added (``reduce_from``; one all-reduce for a ``parallel_block`` layer's
-attention and FFN), the embedding a masked lookup of the rank's vocab
+mixer and FFN), the embedding a masked lookup of the rank's vocab
 rows, the logits the rank's vocab columns gathered (``loss_fn``'s
 streamed CE combines the ranks' log-sum-exp instead) — and the experts,
 the rank's block of them whatever ``moe_ep`` says (each MoE layer runs
@@ -34,12 +34,13 @@ on a "data" axis of D > 1 ranks: each rank holds its block and gathers a
 layer's leaves over "data" just before the layer uses them
 (``layers.gathered``; ZeRO-3), the embedding in ``_embed`` and the head
 in ``_logits`` and the streamed CE; the gradient of a gathered leaf is
-reduce-scattered over "data".  A rank's columns of the attention's or
-the mLSTM's heads may cut a head: it computes every head they touch
-(``layers.head_split``).  A config whose "model" or "data" dimensions,
-Mamba heads or experts do not split over the mesh raises
-(``check_ported``).  ``tp1=True`` places the model by the specs the
-reference's dry-run leaves for its ``tp1`` and ``dp_all`` flags
+reduce-scattered over "data".  A rank's columns of the attention's,
+the mLSTM's or Mamba's heads may cut a head: it computes every head they
+touch (``layers.head_split``).  A config whose "model" or "data"
+dimensions or experts do not split over the mesh raises, as the
+reference's ``jax.jit`` refuses it (``check_ported``).  ``tp1=True``
+places the model by the specs the reference's dry-run leaves for its
+``tp1`` and ``dp_all`` flags
 (``param_specs(cfg, tp1=True)``: no "model" entry): its "model" group
 is one rank, so every rank of a "model" axis holds the
 "model" dimensions and the experts whole and computes what the others
@@ -122,20 +123,21 @@ def layer_plan(cfg: ModelConfig):
 
 
 def check_ported(cfg: ModelConfig, mesh=None, tp1: bool = False) -> None:
-    """Raise ``ValueError`` when ``cfg`` cannot be built on ``mesh``:
-    ``moe_ep`` needs a mesh with a "model" axis, and the experts must
-    divide over a "model" axis of M > 1 ranks (``moe.expert_ranks``);
-    tensor parallelism over such an axis needs every "model" dimension of
+    """Raise ``ValueError`` when ``cfg`` cannot be built on ``mesh``, where
+    the reference's ``jax.jit`` or ``shard_map`` refuses it too: ``moe_ep``
+    needs a mesh with a "model" axis, and the experts must divide over a
+    "model" axis of M > 1 ranks (``moe.expert_ranks``); tensor
+    parallelism over such an axis needs every "model" dimension of
     ``param_specs`` to divide by M (``jax.jit`` refuses such a spec), each
-    fused leaf's halves too, Mamba's heads to divide by M, and a
-    ``parallel_block`` config's dense layers to mix by self-attention (the
-    one mixer whose partial sum joins the FFN's); FSDP over a "data" axis
-    of D > 1 ranks needs every "data" dimension to divide by D.  The
-    attention's and the mLSTM's heads need not divide: a rank's columns
-    may cut a head, and it computes every head they touch
-    (``layers.head_split``).  ``tp1``: the specs without "model"
-    (``param_specs``), so only FSDP's dimensions and ``moe_ep``'s experts
-    must divide.  Each message names the config and the axis."""
+    fused leaf's halves too (their blocks of the leaves beside them
+    divide); FSDP over a "data" axis of D > 1 ranks needs every "data"
+    dimension to divide by D.  Heads need not divide: a rank's columns of
+    the attention's, the mLSTM's or Mamba's heads may cut a head, and it
+    computes every head they touch (``layers.head_split``); a
+    ``parallel_block`` layer adds any mixer's partial sum to its FFN's.
+    ``tp1``: the specs without "model" (``param_specs``), so only FSDP's
+    dimensions and ``moe_ep``'s experts must divide.  Each message names
+    the config and the axis."""
     if any(_desc(cfg, li)["ffn"] == "moe" for li in range(cfg.n_layers)):
         moe.expert_ranks(cfg, mesh, tp1=tp1)
     specs = param_specs(cfg, tp1)
@@ -145,16 +147,6 @@ def check_ported(cfg: ModelConfig, mesh=None, tp1: bool = False) -> None:
     if m == 1 and d == 1:
         return
     why = f"{cfg.name}: tensor parallelism over {m} model ranks"
-    mixers = {_desc(cfg, li)["mixer"] for li in range(cfg.n_layers)}
-    if m > 1:
-        if cfg.parallel_block and {
-                _desc(cfg, li)["mixer"] for li in range(cfg.n_layers)
-                if _desc(cfg, li)["ffn"] == "dense"} - {"attn"}:
-            raise ValueError(f"{why} joins only a self-attention mixer's "
-                             f"partial sum to a parallel_block layer's FFN")
-        if "mamba" in mixers and mamba._dims(cfg)[1] % m:
-            raise ValueError(f"{why} needs the {mamba._dims(cfg)[1]} Mamba "
-                             f"heads to divide")
     whole = Transformer(dataclasses.replace(cfg, moe_ep=False), device="meta")
     shapes = {k: tuple(v.shape) for k, v in whole.named_parameters()}
     fsdp = f"{cfg.name}: FSDP over {d} data ranks"
@@ -312,16 +304,19 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None, mesh=None,
 def _mix(p: Block, cfg: ModelConfig, h: torch.Tensor, frontend,
          use_kernel: bool, reduce: bool = True) -> torch.Tensor:
     """The block's mixer on the normed hidden ``h``; ``reduce=False``: the
-    rank's partial sum of a self-attention mixer (the only mixer of a
-    ``parallel_block`` config on a mesh, ``check_ported``)."""
+    rank's partial sum of a self-attention, cross or Mamba mixer (those of
+    a ``parallel_block`` layer with a dense FFN: the mLSTM and sLSTM
+    layers have none)."""
     mixer = p.desc["mixer"]
     if mixer == "attn":
         return attention.apply(p.mixer, cfg, h, use_kernel=use_kernel,
                                reduce=reduce)
     if mixer == "cross":
-        return attention.apply_cross(p.mixer, cfg, h, frontend)
+        return attention.apply_cross(p.mixer, cfg, h, frontend,
+                                     reduce=reduce)
     if mixer == "mamba":
-        return mamba.apply(p.mixer, cfg, h, use_kernel=use_kernel)
+        return mamba.apply(p.mixer, cfg, h, use_kernel=use_kernel,
+                           reduce=reduce)
     if mixer == "mlstm":
         if cfg.mlstm_chunk:
             return xlstm.apply_mlstm_chunked(p.mixer, cfg, h,
@@ -360,8 +355,8 @@ def _block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
 def _parallel(p: Block, x: torch.Tensor, h: torch.Tensor,
               mo: torch.Tensor) -> torch.Tensor:
     """stablelm's attn ∥ ffn off one norm: ``x`` plus the mixer's output
-    ``mo`` and the FFN's, the ranks' partial sums of both added in one
-    all-reduce."""
+    ``mo`` (any mixer's: the reference adds whatever it returns) and the
+    FFN's, the ranks' partial sums of both added in one all-reduce."""
     if p.tp.size == 1:
         f = gathered(p.ffn)
         return x + mo + swiglu(h, f.wi, f.wo)
@@ -584,7 +579,8 @@ def _block_cache(p: Block, cfg: ModelConfig, batch: int, max_len: int,
     if mixer == "cross":
         return attention.init_cross_cache(p.mixer, cfg, frontend)
     if mixer == "mamba":
-        return mamba.init_cache(cfg, batch, device=device, m=m)
+        return mamba.init_cache(cfg, batch, device=device, m=m,
+                                r=p.tp.index)
     if mixer == "mlstm":
         return xlstm.init_mlstm_cache(cfg, batch, device=device, m=m,
                                       r=p.tp.index)
@@ -617,9 +613,10 @@ def _block_decode(p: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
         mo, cache = attention.decode(p.mixer, cfg, h, cache, reduce=not par,
                                      seq=seq)
     elif mixer == "cross":
-        mo, cache = attention.decode_cross(p.mixer, cfg, h, cache)
+        mo, cache = attention.decode_cross(p.mixer, cfg, h, cache,
+                                           reduce=not par)
     elif mixer == "mamba":
-        mo, cache = mamba.decode(p.mixer, cfg, h, cache)
+        mo, cache = mamba.decode(p.mixer, cfg, h, cache, reduce=not par)
     elif mixer == "mlstm":
         mo, cache = xlstm.decode_mlstm(p.mixer, cfg, h, cache)
     else:

@@ -33,9 +33,10 @@ falls (``mlstm_split``), and ``wi`` / ``wf`` / ``norm`` whole, of which
 it uses the touched heads' and its own columns' part through
 ``copy_to``.  Where its columns cut a head it gathers q and k over
 "model" and keeps the touched heads whole (q·k, n and q·n sum over the
-whole head), and keeps only its own columns of v (``mlstm_v_layout``):
-its output's columns are (w / norm) @ v[:, own], and its decode state C
-is (B, heads, hd, own columns), n and m whole for the touched heads.
+whole head), and keeps only its own columns of v
+(``layers.padded_layout``): its output's columns are (w / norm) @ v[:,
+own], and its decode state C is (B, heads, hd, own columns), n and m
+whole for the touched heads.
 The norm over d sums its squares over the ranks in both directions, and
 ``wo``'s partial sums are added.  The sLSTM recurrence runs whole on
 every rank; its ``up`` holds the rank's block of each half (g | u) and it
@@ -55,8 +56,8 @@ from torch import nn
 
 from repro_torch.core.sharding import SOLO, Group, P
 from .layers import (HeadSplit, ModelConfig, _param, build, emb_axis,
-                     gather_blocks, gathered, head_split, rms_norm,
-                     rms_norm_parts)
+                     gather_blocks, gathered, head_split, own_columns,
+                     pad_heads, padded_layout, rms_norm, rms_norm_parts)
 
 #: the start of the stabiliser m (the reference's)
 M_START = -1e30
@@ -86,7 +87,7 @@ class MLSTM(nn.Module):
     """``wq``, ``wk``, ``wv``, ``wz``, ``wo`` (d, d); ``wi``, ``wf`` (d, H),
     the input and forget gates' logits; ``norm`` (d,).  ``split``: the
     rank's ``layers.HeadSplit`` of the d columns; ``v_layout``: how its
-    own columns of v lie in its touched heads (``mlstm_v_layout``)."""
+    own columns of v lie in its touched heads (``layers.padded_layout``)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator | None = None,
                  device=None, tp: Group = SOLO, fs: Group = SOLO):
@@ -98,7 +99,7 @@ class MLSTM(nn.Module):
                         "wo": (d, d)}, mlstm_specs(cfg), cfg, gen, device, tp,
                  fs)
         self.split = mlstm_split(cfg, tp.size, tp.index)
-        self.v_layout = mlstm_v_layout(self.split)
+        self.v_layout = padded_layout(self.split)
 
 
 def mlstm_specs(cfg: ModelConfig) -> dict:
@@ -116,33 +117,11 @@ def mlstm_split(cfg: ModelConfig, m: int = 1, r: int = 0) -> HeadSplit:
     return head_split(H, hd, m, r)
 
 
-def mlstm_v_layout(sp: HeadSplit):
-    """(w, index, out): the rank's own columns of v laid out as w columns
-    in each of its touched heads, (B, heads, S, w).  Where its columns are
-    as many in each head (whole heads, or all in one) that is a reshape,
-    and ``index`` / ``out`` are None; otherwise ``index`` (heads, w) picks
-    each head's columns of the rank's block, the rest a zero column (index
-    ``cols``), and ``out`` (cols,) picks the rank's columns back out of
-    the (heads · w) flattened output."""
-    widths = sp.widths()
-    w = max(widths)
-    if len(set(widths)) == 1:
-        return w, None, None
-    c = sp.cols.stop - sp.cols.start
-    index = torch.full((sp.n, w), c, dtype=torch.long)
-    out, at = [], 0
-    for j, n in enumerate(widths):
-        index[j, :n] = torch.arange(at, at + n)
-        out.extend(range(j * w, j * w + n))
-        at += n
-    return w, index, torch.tensor(out, dtype=torch.long)
-
-
 def _mlstm_heads(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
     """q (float32, scaled), k (B, heads, S, hd); v (B, heads, S, w) (the
-    rank's own columns of each touched head, ``mlstm_v_layout``); i, f
-    (B, heads, S) float32 — of the replicated ``x`` (which enters through
-    ``copy_to``).  q and k of the touched heads are gathered whole over
+    rank's own columns of each touched head, ``layers.padded_layout``);
+    i, f (B, heads, S) float32 — of the replicated ``x`` (which enters
+    through ``copy_to``).  q and k of the touched heads are gathered whole over
     "model" where the rank's columns cut a head (q·k, n and q·n sum over
     the whole head); v stays the rank's own."""
     B, S, _ = x.shape
@@ -154,12 +133,7 @@ def _mlstm_heads(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
         q, k = (t[..., cols] for t in gather_blocks(tp, [q, k]))
     q, k = (t.reshape(B, S, sp.n, hd).transpose(1, 2) for t in (q, k))
     q = q.to(torch.float32) / math.sqrt(hd)
-    v = x @ p.wv
-    w, index, _ = p.v_layout
-    if index is not None:
-        v = torch.cat([v, v.new_zeros(B, S, 1)], dim=-1)[..., index.to(
-            v.device)]
-    v = v.reshape(B, S, sp.n, w).transpose(1, 2)
+    v = pad_heads(x @ p.wv, p.v_layout).transpose(1, 2)
     i, f = ((x @ tp.copy_to(g)[:, sp.heads]).to(torch.float32)
             .transpose(1, 2) for g in (p.wi, p.wf))
     return q, k, v, i, f
@@ -167,13 +141,10 @@ def _mlstm_heads(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
 
 def _out(p, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The output gate and projection: y (B, S, heads · w) float32, the
-    rank's columns of its touched heads (``mlstm_v_layout``); the ranks'
-    partial sums added."""
+    rank's columns of its touched heads (``layers.padded_layout``); the
+    ranks' partial sums added."""
     tp = p.tp
-    out = p.v_layout[2]
-    if out is not None:
-        y = y[..., out.to(y.device)]
-    y = y.to(x.dtype)
+    y = own_columns(y, p.v_layout).to(x.dtype)
     z = F.silu((x @ p.wz).to(torch.float32)).to(x.dtype)
     o = rms_norm_parts(y * z, tp.part(p.norm, 0), x.shape[-1], tp) @ p.wo
     return tp.reduce_from(o)
@@ -275,10 +246,10 @@ def apply_mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None,
                      m: int = 1, r: int = 0) -> dict:
     """(C, n, m) of the heads that rank ``r`` of ``m`` touches: C (B,
-    heads, hd, w) holds the rank's own columns of v (``mlstm_v_layout``),
-    n (B, heads, hd) and m (B, heads) whole."""
+    heads, hd, w) holds the rank's own columns of v
+    (``layers.padded_layout``), n (B, heads, hd) and m (B, heads) whole."""
     sp = mlstm_split(cfg, m, r)
-    n, w = sp.n, mlstm_v_layout(sp)[0]
+    n, w = sp.n, padded_layout(sp)[0]
     return {"C": torch.zeros((batch, n, sp.hd, w), dtype=torch.float32,
                              device=device),
             "n": torch.zeros((batch, n, sp.hd), dtype=torch.float32,

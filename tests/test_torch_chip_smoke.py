@@ -438,9 +438,10 @@ def smoke_dist_configs():
     Jamba SMOKE cut to 2 layers with ``moe_ep``, and with ``fsdp`` as its
     FULL config is published; danube SMOKE, window 16, over a cache of 64
     positions decoded from 40, so that the window straddles a block
-    boundary on (4, 1) and (2, 2)), in their FULL dtypes where the phase
-    runs bfloat16, at short sequences."""
+    boundary on (4, 1) and (2, 2); leg L's own SMOKE configs), in their
+    FULL dtypes where the phase runs bfloat16, at short sequences."""
     import dataclasses
+    import sys
 
     from repro_torch.configs import get_config
     published = get_config("deepseek-moe-16b", smoke=True)
@@ -474,6 +475,11 @@ def smoke_dist_configs():
             "j_bf16": dataclasses.replace(danube, dtype=torch.bfloat16),
             "j_max_len": 64, "j_start": 40, "j_new": 4, "j_slab": 8,
             "j_prefill": 64, "fsdp_seq": 32,
+            "l_cases": {k: dataclasses.replace(get_config(arch, smoke=True),
+                                               **fields)
+                        for k, (arch, fields) in
+                        sys.modules["chip_smoke"].CUT_CASES.items()},
+            "l_seq": 64, "l_new": 2,
             "prefill": 64, "prompt": 8, "new": 4, "f32_seq": 16, "seq": 32,
             "steps": 4, "ep_seq": 16, "world": 4}
 
@@ -500,7 +506,8 @@ def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
     assert counts == {"ep": {"flash_attention": 0, "moe_gmm": 0},
                       "tp": {"flash_attention": 0, "ssd_scan": 0,
                              "moe_gmm": 0},
-                      "seq": {"flash_attention": 0}}
+                      "seq": {"flash_attention": 0},
+                      "cut": {"ssd_scan": 0}}
     out = capsys.readouterr().out
     assert "dist: 4 ranks on cpu rehearsal over gloo with cpu tensors" in out
     assert "experts [(0, 2), (2, 4), (4, 6), (6, 8)] of 8" in out
@@ -544,6 +551,28 @@ def test_dist_phase_rehearses_on_the_cpu(cs, monkeypatch, capsys):
                      r"\(2, 2\) \(1e-3 relative\), on every rank", out)
     assert re.search(r"leg J bf16, 2 layers on \(data 2, model 2\): .* the "
                      r"merges on rank 0: 4 all-reduces", out)
+    for key, widths in (("a", "[[[32]], [[32]], [[32]], [[32]]]"),
+                        ("b", "[[[48]], [[16, 32]], [[32, 16]], [[48]]]"),
+                        ("c", "[[[16, 16]], [[16, 16]], [[16, 16]], "
+                              "[[16, 16]]]"),
+                        ("d", None)):
+        mixers = (f"columns a rank {re.escape(widths)}" if widths
+                  else "no Mamba layer")
+        assert re.search(
+            rf"leg L \({key}\) .* float32 on \(1, 4\): .*{mixers}; prefill "
+            rf"1 x 64 vs one process max "
+            rf"\|diff\| \S+ \(\de-3 relative\) at every position of every "
+            rf"rank .* greedy 2 x \(8 \+ 2\) tokens equal", out), key
+    for shape in ("(1, 64, 1, 32)", "(1, 64, 1, 48)", "(1, 64, 2, 32)",
+                  "(1, 64, 2, 16)"):
+        assert re.search(rf"leg L ssd_scan at {re.escape(shape)} .* float32 "
+                         rf"max \|diff\| \S+ \(5e-3\), - ms, bound",
+                         out), shape
+    for r in (1, 2):
+        assert re.search(rf"leg L ssd_scan at \(1, 64, 2, 32\) \(ranks "
+                         rf"\[\('b', {r}\)\], 16 zero columns\)", out)
+    assert re.search(r"leg L: \S+ s in the one process, \S+ s in the ranks",
+                     out)
     assert re.search(r"leg I f32, TinyLlama 2 layers with fsdp, 4 x 16 on "
                      r"\(2, 2\): .* optimizer state \S+ MB a rank, 0\.2\d+ "
                      r"of one process's; greedy tokens equal .* \(2, 1\) "

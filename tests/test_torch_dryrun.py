@@ -57,6 +57,7 @@ from repro_torch.core import sharding
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import attention, transformer, xlstm
+from repro_torch.models.layers import padded_layout
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 MESHES = {"16x16": {"data": 16, "model": 16},
@@ -557,7 +558,7 @@ def test_mlstm_columns_of_xlstm_on_the_model_axis():
     """xlstm-125m's 4 heads of 192 columns over 16 model ranks: a quarter
     of a head a rank (the cache test's C)."""
     sp = xlstm.mlstm_split(get_config("xlstm-125m"), 16, 0)
-    assert (sp.n, xlstm.mlstm_v_layout(sp)[0]) == (1, 48)
+    assert (sp.n, padded_layout(sp)[0]) == (1, 48)
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])

@@ -584,6 +584,39 @@ def test_ssd_scan_refuses_bad_inputs(dev):
         kmamba.ssd_scan(x, a.cpu(), b, c, chunk=64)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_on_a_ranks_columns_of_cut_heads(dev, dtype):
+    """The kernel on each rank's own columns of Mamba heads that a "model"
+    axis cuts: jamba SMOKE with ``ssm_expand=3`` and heads of 64 (3 heads,
+    di 192) over 4 ranks, 48 columns a rank — (1, S, 1, 48) on ranks 0
+    and 3, (1, S, 2, 32) with 16 zero columns on ranks 1 and 2
+    (``layers.padded_layout``) — at a prefill of 2,048 (16 chunks of
+    128): against plain at 5e-3 (y at 2e-2 in bfloat16), and its own
+    columns against those of the whole heads' plain scan; the zero
+    columns give zeros."""
+    from repro_torch.models import layers
+    H, P, M = 3, 64, 4
+    x, a, b, c = ssd_inputs((1, 2048, H, P, 8, 128), dtype, dev)
+    ytol = 2e-2 if dtype == torch.bfloat16 else 5e-3
+    whole = kmamba.plain(x, a, b, c)[0].flatten(-2)
+    for r in range(M):
+        sp = layers.head_split(H, P, M, r)
+        lay = layers.padded_layout(sp)
+        xr = layers.pad_heads(x.flatten(-2)[..., sp.cols], lay)
+        ar = a[..., sp.heads].contiguous()
+        y, h = ops.ssd_scan(xr, ar, b, c, chunk=128)
+        assert y.shape == (1, 2048, sp.n, lay[0])
+        want_y, want_h = kmamba.plain(xr, ar, b, c)
+        close(y, want_y, rel(want_y, ytol))
+        close(h, want_h, rel(want_h, 5e-3))
+        want = whole[..., sp.cols]
+        close(layers.own_columns(y.flatten(-2), lay), want, rel(want, ytol))
+        pad = layers.pad_heads(torch.ones(sp.cols.stop - sp.cols.start,
+                                          device=dev), lay) == 0
+        assert pad.any() == (r in (1, 2))
+        assert not y[..., pad].any() and not h.transpose(1, 2)[..., pad].any()
+
+
 # -- the MoE and hybrid forwards --------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b",

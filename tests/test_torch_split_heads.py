@@ -17,7 +17,7 @@ tests/test_torch_tp.py).  The cases, on (1, 4) unless named:
 - xlstm SMOKE with 1 head: a quarter of a head a rank (chunked form, 8);
 - xlstm SMOKE with 3 heads of 32 (d 96): 24 columns a rank, which fall
   unevenly in two heads on ranks 1 and 2 (the padded layout of v,
-  ``xlstm.mlstm_v_layout``; chunked form);
+  ``layers.padded_layout``; chunked form);
 - the tinyllama straddle config (6 query and 3 kv heads of 8): on (1, 4)
   1.5 query heads a rank over half a kv head; on (1, 2), ranks 0-1, 3
   query heads a rank that use their kv heads unevenly (2 and 1), so each
@@ -28,7 +28,17 @@ tests/test_torch_tp.py).  The cases, on (1, 4) unless named:
   rank, each layer's leaves gathered over "data" first;
 - the same without FSDP on (2, 2) at batch 1: the decode cache split
   along the sequence over "data" (``launch.serve.seq_shard``) and inside
-  a head over "model".
+  a head over "model";
+- jamba SMOKE cut to 2 layers (attention and MoE, then Mamba and a
+  dense FFN) with Mamba heads of 64 (di 128: 2 heads): half a head a
+  rank, which scans only its own 32 columns of it; also with ``fsdp`` on
+  (2, 2), a whole head a rank;
+- the same with ``ssm_expand=3`` (di 192: 3 heads): 48 columns a rank,
+  which fall unevenly in two heads on ranks 1 and 2 (16 + 32: the
+  zero-padded layout, ``layers.padded_layout``);
+- the same without experts (heads of 16) and ``parallel_block=True``:
+  its attention and Mamba layers' partial sums join their dense FFN's;
+- llama-vision SMOKE with ``parallel_block=True``: its cross layer's too.
 
 Each is held to the reference's forward and to the one-process port:
 float32 logits of the rank's rows at 1e-4, the loss at 1e-5, each
@@ -40,7 +50,9 @@ layer keeps the whole kv heads it computes (M · kept / KVH times the
 spec's bytes where the spec splits by M; 4/3 for musicgen on (1, 4)); the
 mLSTM's C keeps (B, heads, hd, own columns), the spec's bytes where a
 rank's columns lie as many in each touched head, and its n and m whole
-for the touched heads.
+for the touched heads; Mamba's conv window is the spec's and its state
+(B, heads, N, w) the rank's own columns of each touched head, the spec's
+bytes where they lie as many in each.
 
 The reference is imported inside the fixture: the ranks import this
 module and run no JAX.
@@ -57,7 +69,8 @@ from repro_torch.core import sharding
 from repro_torch.data import DataConfig, make_batch
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve, train
-from repro_torch.models import attention, convert, transformer, xlstm
+from repro_torch.models import (attention, convert, layers, mamba,
+                                transformer, xlstm)
 from repro_torch.runtime import elastic
 
 TOL, LOSS_TOL, GRAD_TOL = 1e-4, 1e-5, 1e-3
@@ -76,11 +89,25 @@ CONFIGS = {
     "musicgen-3h": ("musicgen-medium", dict(n_heads=3, n_kv_heads=3)),
     "musicgen-3h-fsdp": ("musicgen-medium", dict(n_heads=3, n_kv_heads=3,
                                                  fsdp=True)),
+    "jamba-2h": ("jamba-1.5-large-398b", dict(n_layers=2, ssm_head_dim=64)),
+    "jamba-2h-fsdp": ("jamba-1.5-large-398b", dict(n_layers=2,
+                                                   ssm_head_dim=64,
+                                                   fsdp=True)),
+    "jamba-3h": ("jamba-1.5-large-398b", dict(n_layers=2, ssm_expand=3,
+                                              ssm_head_dim=64)),
+    "jamba-par": ("jamba-1.5-large-398b", dict(n_layers=2, moe_experts=0,
+                                               parallel_block=True)),
+    "vision-par": ("llama-3.2-vision-11b", dict(parallel_block=True)),
 }
+#: a config whose weights, inputs and one-device numbers are another's:
+#: FSDP changes only the placement
+TWINS = {"jamba-2h-fsdp": "jamba-2h"}
 #: (config, mesh): "m4" (1, 4), "a" (1, 2) of ranks 0-1, "m22" (2, 2)
 CASES = [("musicgen", "m4"), ("xlstm", "m4"), ("xlstm-1h", "m4"),
          ("xlstm-3h", "m4"), ("straddle", "m4"), ("straddle", "a"),
-         ("vision", "m4"), ("musicgen-3h-fsdp", "m22")]
+         ("vision", "m4"), ("musicgen-3h-fsdp", "m22"), ("jamba-2h", "m4"),
+         ("jamba-2h-fsdp", "m22"), ("jamba-3h", "m4"), ("jamba-par", "m4"),
+         ("vision-par", "m4")]
 DIMS = {"m4": {"data": 1, "model": 4}, "a": {"data": 1, "model": 2},
         "m22": {"data": 2, "model": 2}}
 #: the sequence-sharded case: batch 1 over SEQ_PROMPT + NEW positions
@@ -192,16 +219,18 @@ def _spec_parts(cfg, batch: int, max_len: int, dims: dict) -> dict:
     """The bytes that the reference's cache specs (the port's copy of its
     pure ``cache_specs``, held to it by tests/test_torch_mesh.py) put on
     one device of a mesh of ``dims`` for each self-attention layer's "k"
-    and "v" together ("kv") and each mLSTM layer's "C", "n" and "m"."""
+    and "v" together ("kv"), each mLSTM layer's "C", "n" and "m" and each
+    Mamba layer's "conv" and "ssm"."""
     fr = torch.empty((batch, cfg.n_frontend_tokens, cfg.d_model),
                      device="meta") if cfg.cross_attn_every else None
     whole = transformer.init_cache(transformer.Transformer(cfg, device="meta"),
                                    cfg, batch, max_len, frontend=fr)
     specs = serve.cache_specs(whole, dims)
-    out = {"kv": 0, "C": 0, "n": 0, "m": 0}
+    out = {"kv": 0, "C": 0, "n": 0, "m": 0, "conv": 0, "ssm": 0}
     for lc, sp in zip(whole["layers"], specs["layers"]):
         keys = (("k", "kv"), ("v", "kv")) if "k" in lc else \
-            (("C", "C"), ("n", "n"), ("m", "m")) if "C" in lc else ()
+            (("C", "C"), ("n", "n"), ("m", "m")) if "C" in lc else \
+            (("conv", "conv"), ("ssm", "ssm")) if "ssm" in lc else ()
         for k, kind in keys:
             n = lc[k].numel() * lc[k].element_size()
             for e in sp[k]:
@@ -229,6 +258,9 @@ def run():
                                        0)
         ref["prompt"][key] = rng.integers(0, cfg.vocab,
                                           PROMPT).astype(np.int32)
+    for key, twin in TWINS.items():
+        for k in ref:
+            ref[k][key] = ref[k][twin]
     V = port_cfg(SEQ_KEY).vocab
     ref["seq_prompt"] = rng.integers(0, V, (1, SEQ_PROMPT)).astype(np.int32)
     ref["seq_forced"] = rng.integers(0, V, (1, SEQ_PROMPT + NEW)).astype(
@@ -250,6 +282,8 @@ def run():
             return p
         shapes = jax.eval_shape(init, jax.random.PRNGKey(0))
         want["specs"][key] = (shapes, box["specs"])
+        if key in TWINS:
+            continue
         p = jax.tree.map(jnp.asarray, ref["params"][key])
         fr = ref["batch"][key].get("frontend")
         fr = None if fr is None else fr[:PROMPT[0]]
@@ -293,6 +327,10 @@ def run():
         want["port_loss"][key] = float(loss)
         want["port_grads"][key] = {k: None if v is None else v.numpy()
                                    for k, v in g.items()}
+    for key, twin in TWINS.items():
+        for k, v in want.items():
+            if k != "specs" and isinstance(v, dict):
+                v[key] = v[twin]
     return ranks.result(), want
 
 
@@ -385,9 +423,14 @@ def test_cache_bytes_against_the_reference_specs(run, case):
       (``attention.kv_heads``), whole: kept / KVH of the whole leaf, M ·
       kept / KVH times the spec's where the spec splits it by M;
     - an mLSTM layer's C (B, heads, hd, w) holds the rank's own columns of
-      each touched head (``xlstm.mlstm_v_layout``), the spec's bytes
+      each touched head (``layers.padded_layout``), the spec's bytes
       where they are as many in each head; n (B, heads, hd) and m (B,
-      heads) are whole for the touched heads."""
+      heads) are whole for the touched heads;
+    - a Mamba layer's conv window (B, K - 1, di / M) is the spec's bytes,
+      its state (B, heads, N, w) the rank's own columns of each touched
+      head: the spec's bytes (which split P, or the heads, by M) where
+      they are as many in each head, 4/3 of them on ranks 1 and 2 of
+      jamba-3h (2 heads of 32 padded columns for 48 columns)."""
     got, want = run
     key, mesh = case
     cfg = port_cfg(key)
@@ -401,8 +444,11 @@ def test_cache_bytes_against_the_reference_specs(run, case):
         kv = attention.kv_heads(cfg, M, r_model)
         kept = kv.stop - kv.start if isinstance(kv, slice) else len(kv)
         sp = xlstm.mlstm_split(cfg, M, r_model)
-        w = xlstm.mlstm_v_layout(sp)[0]
-        port = {"kv": 0, "C": 0, "n": 0, "m": 0}
+        w = layers.padded_layout(sp)[0]
+        di, H, P, N = mamba._dims(cfg)
+        ms = layers.head_split(H, P, M, r_model)
+        mw = layers.padded_layout(ms)[0]
+        port = {"kv": 0, "C": 0, "n": 0, "m": 0, "conv": 0, "ssm": 0}
         for (mixer, *_), sh in zip(o["mixers"], o["cache"]):
             if mixer == "attn":
                 assert sh["k"] == sh["v"] == (b, kept, L, cfg.hd), sh
@@ -415,6 +461,11 @@ def test_cache_bytes_against_the_reference_specs(run, case):
                 port["C"] += b * sp.n * sp.hd * w * 4
                 port["n"] += b * sp.n * sp.hd * 4
                 port["m"] += b * sp.n * 4
+            elif mixer == "mamba":
+                assert sh == {"conv": (b, cfg.ssm_conv - 1, di // M),
+                              "ssm": (b, ms.n, N, mw)}, sh
+                port["conv"] += b * (cfg.ssm_conv - 1) * di // M * 4
+                port["ssm"] += b * ms.n * N * mw * 4
         n_attn = sum(m == "attn" for m, *_ in o["mixers"])
         whole_kv = n_attn * 2 * b * cfg.n_kv_heads * L * cfg.hd * 4
         assert port["kv"] * cfg.n_kv_heads == whole_kv * kept
@@ -429,6 +480,11 @@ def test_cache_bytes_against_the_reference_specs(run, case):
             # in two heads on ranks 1 and 2 (padded to 2 x 16)
             assert w == (24 if r in (0, 3) else 16)
             assert port["C"] * 3 == spec["C"] * (3 if r in (0, 3) else 4)
+        if port["ssm"]:
+            assert port["conv"] == spec["conv"], (port, spec)
+            uneven = key == "jamba-3h" and r in (1, 2)
+            assert port["ssm"] * 3 == spec["ssm"] * (4 if uneven else 3), (
+                r, port, spec)
         if port["n"]:
             n_mlstm = sum(m == "mlstm" for m, *_ in o["mixers"])
             assert port["n"] == n_mlstm * b * sp.n * sp.hd * 4
@@ -461,6 +517,80 @@ def test_heads_a_rank(run):
     x = get_config("xlstm-125m")
     for m in (8, 16):
         assert {xlstm.mlstm_split(x, m, r).n for r in range(m)} == {1}
+
+
+def test_mamba_columns_a_rank(run):
+    """The columns of Mamba's heads each rank scans
+    (``HeadSplit.widths``): jamba-2h's half a head (32 of 64) on (1, 4)
+    and a whole head on (2, 2) with FSDP; jamba-3h's 48 columns all in
+    one head on ranks 0 and 3 and in two, 16 + 32 and 32 + 16, on ranks 1
+    and 2; jamba-par's two whole heads of 16."""
+    got, _ = run
+    for key, mesh, want in (("jamba-2h", "m4", [[32]] * 4),
+                            ("jamba-2h-fsdp", "m22", [[64]] * 2),
+                            ("jamba-3h", "m4", [[48], [16, 32], [32, 16],
+                                                [48]]),
+                            ("jamba-par", "m4", [[16, 16]] * 4)):
+        M = DIMS[mesh]["model"]
+        for r, o in enumerate(ranks_of(got, (key, mesh))):
+            widths = [sp.widths() for mixer, sp, *_ in o["mixers"]
+                      if mixer == "mamba"]
+            assert widths == [want[r % M]], (key, r, widths)
+
+
+@pytest.mark.parametrize("form", ["plain", "chunked", "reference"])
+def test_scan_of_a_heads_columns_is_those_columns_of_the_whole_scan(form):
+    """The SSD recurrence is separable over a head's P columns (the decay
+    is the head's, b and c are shared): the scan of any rank's block of
+    the (heads · P) columns, laid out as its own columns of each touched
+    head with zero columns where they lie unevenly
+    (``layers.padded_layout``), equals those columns of the whole scan,
+    output and final state, and its zero columns give zeros — for the
+    sequential ``mamba_scan.plain``, ``mamba_scan.chunked`` (the
+    kernel's three steps, on the CPU) and the reference's
+    ``ref.ssd_scan``; 3 heads of 16 over 2 to 16 ranks."""
+    from repro_torch.kernels import mamba_scan
+    rng = np.random.default_rng(3)
+    B, S, H, P, N = 2, 40, 3, 16, 4
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    a = rng.uniform(0.3, 1.0, (B, S, H)).astype(np.float32)
+    b, c = (rng.standard_normal((B, S, N)).astype(np.float32)
+            for _ in range(2))
+    if form == "reference":
+        import jax.numpy as jnp
+        from repro.kernels import ref as jref
+
+        def scan(*ts):
+            y, h = jref.ssd_scan(*(jnp.asarray(t.numpy()) for t in ts))
+            return torch.from_numpy(np.array(y)), torch.from_numpy(
+                np.array(h))
+    elif form == "chunked":
+        scan = lambda *ts: mamba_scan.chunked(*ts, 8)  # noqa: E731
+    else:
+        scan = mamba_scan.plain
+    x, a, b, c = (torch.from_numpy(t) for t in (x, a, b, c))
+    y, h = scan(x, a, b, c)
+    cols_y = y.flatten(-2)                                  # (B, S, H · P)
+    cols_h = h.permute(0, 2, 1, 3).flatten(-2)              # (B, N, H · P)
+    for m in (2, 3, 4, 6, 16):
+        for r in range(m):
+            sp = layers.head_split(H, P, m, r)
+            lay = layers.padded_layout(sp)
+            xr = layers.pad_heads(x.flatten(-2)[..., sp.cols], lay)
+            yr, hr = scan(xr, a[..., sp.heads].contiguous(), b, c)
+            assert yr.shape == xr.shape
+            assert hr.shape == (B, sp.n, N, lay[0])
+            got_y = layers.own_columns(yr.flatten(-2), lay)
+            got_h = layers.own_columns(hr.permute(0, 2, 1, 3).flatten(-2),
+                                       lay)
+            torch.testing.assert_close(got_y, cols_y[..., sp.cols],
+                                       rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got_h, cols_h[..., sp.cols],
+                                       rtol=1e-5, atol=1e-5)
+            pad = layers.pad_heads(torch.ones(sp.cols.stop - sp.cols.start),
+                                   lay) == 0                # (heads, w)
+            assert not yr[..., pad].any()
+            assert not hr.permute(0, 2, 1, 3)[..., pad].any()
 
 
 def test_sequence_sharded_cache_inside_a_head(run):

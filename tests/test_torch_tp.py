@@ -592,13 +592,13 @@ def test_fused_leaves_hold_a_block_of_each_half():
 
 
 def test_check_ported_refuses_a_split_head():
-    """A split the reference makes of a head now builds: musicgen SMOKE (6
+    """A split the reference makes of a head builds: musicgen SMOKE (6
     heads of 8 over a "model" axis of 4, 1.5 heads a rank), xlstm SMOKE (2
-    heads over 4, half a head) and a rank's query heads that straddle two
-    kv heads; what stays refused raises and names the config and M: a
-    vocab that does not divide, Mamba heads that do not divide (jamba
-    SMOKE with heads of 64: 2 over 4) and, in the next test, a
-    ``parallel_block`` mixer other than self-attention."""
+    heads over 4, half a head), a rank's query heads that straddle two
+    kv heads, and Mamba heads that do not divide (jamba SMOKE with heads
+    of 64: 2 over 4, half a head a rank; a head's columns scan apart);
+    what stays refused raises and names the config and M: a vocab that
+    does not divide."""
     cfg = get_config("musicgen-medium", smoke=True)
     transformer.check_ported(cfg, {"data": 1, "model": 4})
     transformer.check_ported(cfg, {"data": 2, "model": 2})
@@ -614,20 +614,27 @@ def test_check_ported_refuses_a_split_head():
     transformer.check_ported(straddle, {"model": 2})
     wide = dataclasses.replace(get_config("jamba-1.5-large-398b", smoke=True),
                                ssm_head_dim=64)
-    with pytest.raises(ValueError, match=r"jamba-smoke.* 4 model ranks.*2 "
-                                         r"Mamba heads"):
-        transformer.check_ported(wide, {"data": 1, "model": 4})
+    transformer.check_ported(wide, {"data": 1, "model": 4})
     transformer.check_ported(wide, {"data": 1, "model": 2})
+    transformer.check_ported(dataclasses.replace(wide, fsdp=True),
+                             {"data": 2, "model": 2})
 
 
 def test_check_ported_refuses_a_parallel_block_mixer_other_than_attention():
-    """A ``parallel_block`` layer with a dense FFN adds its mixer's partial
-    sum to the FFN's in one all-reduce, which only self-attention leaves
-    partial: jamba SMOKE (Mamba and attention mixers) made parallel raises
-    on a "model" axis of 2, names the config and M, and builds on one."""
+    """A ``parallel_block`` layer with a dense FFN adds whatever its mixer
+    returns to the FFN's, the ranks' partial sums of both in one
+    all-reduce: jamba SMOKE (Mamba and attention mixers) made parallel
+    builds on "model" axes of 2 and 4 and on one, and so do llama-vision
+    SMOKE's cross layers; what stays refused raises and names the config
+    and M: jamba's 4 experts over 8 model ranks."""
     cfg = dataclasses.replace(get_config("jamba-1.5-large-398b", smoke=True),
                               parallel_block=True)
-    with pytest.raises(ValueError, match=r"jamba.* 2 model ranks.*"
-                                         r"parallel_block"):
-        transformer.check_ported(cfg, {"data": 1, "model": 2})
+    transformer.check_ported(cfg, {"data": 1, "model": 2})
+    transformer.check_ported(cfg, {"data": 1, "model": 4})
     transformer.check_ported(cfg, {"data": 2, "model": 1})
+    transformer.check_ported(dataclasses.replace(
+        get_config("llama-3.2-vision-11b", smoke=True), parallel_block=True),
+        {"data": 1, "model": 4})
+    with pytest.raises(ValueError, match=r"jamba-smoke: the 4 experts do "
+                                         r"not split over 8 'model' ranks"):
+        transformer.check_ported(cfg, {"data": 1, "model": 8})
